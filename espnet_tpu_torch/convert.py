@@ -17,6 +17,13 @@ leaves change layout:
 The fused and unfused JAX layers use the same param names, so one mapping
 serves both. The stacked `layers/block` layout of `scan_layers` is refused,
 and so is any leaf that the port's model has no place for.
+
+Every layout change is a permutation, so the same mapping carries a JAX
+*gradient* tree (`jax.grad` of the params) onto the port's parameter names
+with `jax_params_to_state_dict`, to be compared with `param.grad` leaf by
+leaf; `torch_to_jax_tree` maps the
+port's tensors (parameters after an update, or their gradients) back into
+the nested layout of a given JAX tree.
 """
 
 from __future__ import annotations
@@ -70,8 +77,45 @@ def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         key = ".".join(parts[:-1] + [leaf])
         if key in sd:
             raise ValueError(f"two JAX leaves map to {key}")
-        sd[key] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+        sd[key] = torch.from_numpy(np.array(arr, np.float32))
     return sd
+
+
+def _unleaf(name: str, value: np.ndarray) -> np.ndarray:
+    """The inverse of `_leaf`'s layout change for JAX leaf `name`."""
+    if name == "kernel":
+        if value.ndim == 2:
+            return value.T
+        if value.ndim == 4:
+            return value.transpose(2, 3, 1, 0)
+        if value.ndim == 3:
+            return value.transpose(2, 1, 0)
+    return value
+
+
+def torch_to_jax_tree(tensors: Mapping[str, torch.Tensor],
+                      like: Mapping) -> Dict:
+    """Nested dict with `like`'s structure (a JAX param tree), each leaf
+    taken from `tensors` (port names -> tensors, e.g. a state_dict or the
+    parameters' gradients) in the JAX layout, as float32 numpy arrays."""
+    if "params" in like and len(like) == 1:
+        like = like["params"]
+
+    def build(tree, prefix):
+        out = {}
+        for key, value in tree.items():
+            path = f"{prefix}/{key}" if prefix else str(key)
+            if isinstance(value, Mapping):
+                out[key] = build(value, path)
+                continue
+            parts = path.split("/")
+            leaf, _ = _leaf(parts[-1], np.asarray(value))
+            t = tensors[".".join(parts[:-1] + [leaf])]
+            arr = t.detach().cpu().float().numpy()
+            out[key] = np.ascontiguousarray(_unleaf(parts[-1], arr))
+        return out
+
+    return build(like, "")
 
 
 def load_jax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:

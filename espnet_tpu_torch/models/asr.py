@@ -1,19 +1,24 @@
-"""Joint CTC/attention ASR model, inference half (port of
-espnet_tpu/models/asr.py).
+"""Joint CTC/attention ASR model (port of espnet_tpu/models/asr.py).
 
-The slice ported here: raw 16 kHz waveform -> log-mel -> utterance MVN ->
-Conv2d subsampling -> conformer encoder -> CTC log-probs and a transformer
-decoder scored step by step. sos = eos = vocab_size - 1 and blank = 0, as in
-the JAX package. Parameters are float32; `ASRConfig.dtype` is the compute
-dtype (bfloat16 for the bench model). SpecAug, dropout, the losses and the
-other encoder, decoder and frontend families are not ported yet.
+The slice ported here: raw 16 kHz waveform -> log-mel -> SpecAug (training)
+-> utterance MVN -> Conv2d subsampling -> conformer encoder -> a CTC head and
+a transformer decoder. `forward` is the training loss (CTC weight
+`ctc_weight`, label-smoothed attention loss), `encode`, `ctc_log_probs` and
+the decoder's step scoring serve inference. sos = eos = vocab_size - 1 and
+blank = 0, as in the JAX package. Parameters are float32; `ASRConfig.dtype`
+is the compute dtype (bfloat16 for the bench model).
+
+Dropout and SpecAug are on while the model is training and the caller
+passes a `torch.Generator`, from which all their randomness is drawn (the
+FFN kernels' seeds included). InterCTC and the other encoder, decoder and
+frontend families are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -21,15 +26,19 @@ from torch import nn
 from espnet_tpu_torch.models.conformer import ConformerEncoder
 from espnet_tpu_torch.models.layers import Dense
 from espnet_tpu_torch.models.transformer import TransformerDecoder
+from espnet_tpu_torch.ops.ctc import ctc_loss, min_frames
+from espnet_tpu_torch.ops.losses import label_smoothing_loss, token_accuracy
+from espnet_tpu_torch.ops.masks import make_valid_mask
 from espnet_tpu_torch.ops.normalize import utterance_mvn
+from espnet_tpu_torch.ops.specaug import specaug
 from espnet_tpu_torch.ops.stft import log_mel_spectrogram
 
 
 @dataclasses.dataclass(frozen=True)
 class ASRConfig:
     """The fields of the JAX `ASRConfig` that this slice serves: a raw
-    waveform frontend with utterance MVN, a conformer encoder and a
-    transformer decoder (the JAX choice fields' values for the bench
+    waveform frontend with SpecAug and utterance MVN, a conformer encoder and
+    a transformer decoder (the JAX choice fields' values for the bench
     model)."""
 
     vocab_size: int
@@ -38,6 +47,11 @@ class ASRConfig:
     hop_length: int = 128
     win_length: Optional[int] = None
     n_mels: int = 80
+    use_specaug: bool = True
+    num_freq_masks: int = 2
+    freq_mask_width: Tuple[int, int] = (0, 20)
+    num_time_masks: int = 2
+    time_mask_width: Tuple[int, int] = (0, 40)
     d_model: int = 256
     num_heads: int = 4
     d_ff: int = 2048
@@ -47,6 +61,8 @@ class ASRConfig:
     num_decoder_layers: int = 6
     decoder_d_ff: int = 2048
     ctc_weight: float = 0.3
+    lsm_weight: float = 0.1
+    dropout_rate: float = 0.1
     dtype: torch.dtype = torch.float32
 
     @property
@@ -75,31 +91,77 @@ class ASRModel(nn.Module):
         self.config = c
         self.encoder = ConformerEncoder(
             c.n_mels, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
-            c.conformer_kernel_size, c.subsampling_factor, c.dtype)
+            c.conformer_kernel_size, c.subsampling_factor, c.dtype,
+            c.dropout_rate)
         self.decoder = TransformerDecoder(
             c.vocab_size, c.d_model, c.num_heads, c.decoder_d_ff,
-            c.num_decoder_layers, c.dtype)
+            c.num_decoder_layers, c.dtype, c.dropout_rate)
         self.ctc_head = Dense(c.d_model, c.vocab_size, dtype=c.dtype)
+        # False: the plain versions even on the card (chip_smoke.py compares)
+        self.use_kernels = True
 
     def set_use_kernels(self, enabled: bool) -> None:
-        """Route the encoder through the CUDA kernels (default) or, when
-        False, through their plain versions even on the card."""
+        """Route the encoder and the CTC loss through the CUDA kernels
+        (default) or, when False, through their plain versions even on the
+        card."""
+        self.use_kernels = enabled
         for layer in self.encoder.layers():
             layer.use_kernel = enabled
             layer.self_attn.use_kernel = enabled
 
-    def frontend(self, speech, speech_lengths):
+    def frontend(self, speech, speech_lengths, generator=None):
         c = self.config
         feats, feat_lengths = log_mel_spectrogram(
             speech, speech_lengths, c.fs, c.n_fft, c.hop_length,
             c.win_length, c.n_mels)
+        if c.use_specaug and self.training and generator is not None:
+            feats = specaug(generator, feats, feat_lengths,
+                            num_freq_masks=c.num_freq_masks,
+                            freq_mask_width=c.freq_mask_width,
+                            num_time_masks=c.num_time_masks,
+                            time_mask_width=c.time_mask_width)
         return utterance_mvn(feats, feat_lengths), feat_lengths
 
-    def encode(self, speech, speech_lengths):
+    def encode(self, speech, speech_lengths, generator=None):
         """(B, N) waveform, (B,) lengths -> (encoder out (B, T', D),
         output lengths)."""
-        feats, feat_lengths = self.frontend(speech, speech_lengths)
-        return self.encoder(feats, feat_lengths)
+        feats, feat_lengths = self.frontend(speech, speech_lengths, generator)
+        return self.encoder(feats, feat_lengths, generator)
+
+    def forward(self, speech, speech_lengths, text, text_lengths,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Training loss: (loss, stats with loss_ctc, ctc_infeasible,
+        loss_att, acc and loss). text: (B, U) int labels padded past
+        text_lengths. In training mode `generator` drives dropout and
+        SpecAug and is required when either is configured."""
+        c = self.config
+        if (self.training and generator is None
+                and (c.dropout_rate > 0.0 or c.use_specaug)):
+            raise ValueError("training with dropout or SpecAug needs a "
+                             "torch.Generator")
+        enc, enc_lengths = self.encode(speech, speech_lengths, generator)
+        text = text.long()
+        text_lengths = text_lengths.long()
+        stats = {}
+        loss_ctc = ctc_loss(self.ctc_head(enc), text, enc_lengths,
+                            text_lengths, c.blank_id,
+                            use_kernels=self.use_kernels)
+        stats["loss_ctc"] = loss_ctc
+        # utterances too short for any CTC alignment (zero_infinity zeroes
+        # them; a high share means the data or subsampling is wrong)
+        need = text_lengths + min_frames(text, text_lengths)
+        stats["ctc_infeasible"] = (enc_lengths < need).float().mean()
+        ys_in, ys_out, ys_lengths = add_sos_eos(text, text_lengths, c.sos_id,
+                                                c.eos_id)
+        logits = self.decoder(ys_in, ys_lengths, enc, enc_lengths, generator)
+        valid = make_valid_mask(ys_lengths, ys_in.shape[1])
+        loss_att = label_smoothing_loss(logits, ys_out, valid, c.lsm_weight)
+        stats["loss_att"] = loss_att
+        stats["acc"] = token_accuracy(logits, ys_out, valid)
+        loss = c.ctc_weight * loss_ctc + (1.0 - c.ctc_weight) * loss_att
+        stats["loss"] = loss
+        return loss, stats
 
     def ctc_log_probs(self, encoder_out):
         return torch.log_softmax(self.ctc_head(encoder_out).float(), dim=-1)
@@ -111,6 +173,20 @@ class ASRModel(nn.Module):
 
     def decoder_init_cache(self, batch, max_len, device=None):
         return self.decoder.init_cache(batch, max_len, device)
+
+
+def add_sos_eos(text, text_lengths, sos: int, eos: int):
+    """(B, U) -> decoder input [sos, y] (B, U+1), target [y, eos] with 0
+    past the end (B, U+1), and the output lengths text_lengths + 1."""
+    b, u = text.shape
+    ys_in = torch.cat([torch.full((b, 1), sos, dtype=text.dtype,
+                                  device=text.device), text], dim=1)
+    ys_out = torch.cat([text, torch.zeros((b, 1), dtype=text.dtype,
+                                          device=text.device)], dim=1)
+    pos = torch.arange(u + 1, device=text.device)[None, :]
+    ys_out = torch.where(pos == text_lengths[:, None], eos, ys_out)
+    ys_out = torch.where(pos > text_lengths[:, None], 0, ys_out)
+    return ys_in, ys_out, text_lengths + 1
 
 
 @torch.no_grad()

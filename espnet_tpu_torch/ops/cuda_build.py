@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
 Every `csrc/*.cu` exposes a plain C interface and includes no PyTorch
-header, so one `nvcc -shared` call compiles all of them into one shared
-library in seconds (PyTorch's `cpp_extension.load` takes minutes for a file
-that includes its headers, and waits forever on a stale lock file). The
-library goes to `espnet_tpu_torch/_build/<hash>/`, keyed by the sources, the
-flags and the nvcc binary, and is built on first use: nothing is built when a
-module is imported. Writes go to a temporary name that is renamed into place,
+header, so nvcc compiles each in seconds (PyTorch's `cpp_extension.load`
+takes minutes for a file that includes its headers, and waits forever on a
+stale lock file). One nvcc per source runs at once, all started together,
+and one more links the objects into a shared library. The library goes to
+`espnet_tpu_torch/_build/<hash>/`, keyed by the sources, the flags and the
+nvcc binary, and is built on first use: nothing is built when a module is
+imported. Writes go to names of this process that are renamed into place,
 so two processes building at once need no lock.
 """
 
@@ -27,7 +28,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libespnet_tpu_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -36,8 +37,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points and their signatures (see the extern "C" blocks in csrc/)
 _SIGNATURES = {
-    "espnet_relpos_attention_fwd": (_P,) * 8 + (_I,) * 5 + (_P,),
-    "espnet_prenorm_ffn_fwd": (_P,) * 8 + (_I,) * 3 + (_F, _I, _I, _P),
+    "espnet_relpos_attention_fwd": (_P,) * 9 + (_I,) * 5 + (_P,),
+    "espnet_relpos_attention_bwd": (_P,) * 15 + (_I,) * 5 + (_P,),
+    "espnet_relpos_attention_slab_rows": (_I,),
+    "espnet_prenorm_ffn_fwd": ((_P,) * 8 + (_I,) * 3 + (_F, _I, _I, _F)
+                               + (_I,) * 3 + (_P,)),
+    "espnet_prenorm_ffn_bwd": ((_P,) * 14 + (_I,) * 4 + (_F, _I, _I, _F)
+                               + (_I,) * 3 + (_P,)),
+    "espnet_prenorm_ffn_bwd_rows_per_block": (),
+    "espnet_ctc_alphas": (_P,) * 5 + (_I,) * 3 + (_P,),
+    "espnet_ctc_gamma": (_P,) * 6 + (_I,) * 3 + (_P,),
+    "espnet_ctc_max_states": (),
 }
 
 
@@ -75,7 +85,8 @@ def _build_key(nvcc: str) -> str:
 
 @functools.lru_cache(maxsize=None)
 def build_library() -> Tuple[Path, str]:
-    """Compile csrc/*.cu into one shared library, unless already built.
+    """Compile csrc/*.cu (one nvcc per source, in parallel) and link them
+    into one shared library, unless already built.
 
     Returns (library path, nvcc's output): the `-Xptxas -v` lines give each
     kernel's registers, shared memory and spills.
@@ -87,13 +98,28 @@ def build_library() -> Tuple[Path, str]:
     if lib.is_file() and log.is_file():
         return lib, log.read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    output = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    pid = os.getpid()
+    objs = [out_dir / f".{src.stem}.{pid}.o" for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    outputs = [proc.communicate()[0] for proc in procs]
+    output = "".join(outputs)
+    tmp = out_dir / f".{LIB_NAME}.{pid}.tmp"
+    if all(proc.returncode == 0 for proc in procs):
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        output += link.stdout + link.stderr
+        failed = link.returncode
+    else:
+        failed = next(proc.returncode for proc in procs if proc.returncode)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{output}")
+        raise RuntimeError(f"nvcc failed ({failed}):\n{output}")
     tmp_log = out_dir / f".nvcc.log.{os.getpid()}.tmp"
     tmp_log.write_text(output)
     os.replace(tmp, lib)

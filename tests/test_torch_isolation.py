@@ -77,7 +77,9 @@ def test_no_jax_or_reference_package_anywhere(path):
 def test_port_files_found():
     names = {p.name for p in _port_files()}
     assert {"asr_inference.py", "relpos_attention.py", "prenorm_ffn.py",
-            "chip_smoke.py", "convert.py"} <= names
+            "chip_smoke.py", "convert.py", "ctc_lattice.py", "ctc.py",
+            "dropout.py", "specaug.py", "losses.py", "schedulers.py",
+            "optim.py", "steps.py"} <= names
 
 
 _NO_CARD_SCRIPT = r"""
@@ -101,6 +103,19 @@ for device in (None, "cuda"):
         raise SystemExit(f"device={device!r} did not raise without a card")
 s2t = Speech2Text(model, device="cpu")
 assert s2t.device.type == "cpu"
+from espnet_tpu_torch.train.optim import build_optimizer
+from espnet_tpu_torch.train.steps import make_eval_step, make_train_step
+tx = build_optimizer("fused_adam")
+for make in (lambda d: make_train_step(model, tx, device=d),
+             lambda d: make_eval_step(model, device=d)):
+    for device in (None, "cuda"):
+        try:
+            make(device)
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+        else:
+            raise SystemExit(f"device={device!r} did not raise without a card")
+    make("cpu")
 print("OK")
 """
 

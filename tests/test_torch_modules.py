@@ -220,3 +220,98 @@ def test_conformer_encoder_matches():
     valid = np.asarray(make_valid_mask(jl, ty.shape[1]))[:, :, None]
     _close(ty.numpy() * valid, np.asarray(jy) * valid)
     _close(ty, jy)
+
+
+# gradients of the modules' parameters, float32 on the CPU: the same
+# summation-order difference as TOL, through one more (backward) pass
+GRAD_TOL = 2e-4
+
+
+def _param_grads_match(jm, params, jargs, tm, targs, seed):
+    """jax.grad and torch autograd of sum(out * ct) w.r.t. every parameter,
+    compared leaf by leaf in the port's names and layouts."""
+    def first(out):
+        return out[0] if isinstance(out, tuple) else out
+
+    shape = jax.eval_shape(lambda p: first(jm.apply({"params": p}, *jargs)),
+                           params).shape
+    ct = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+    def loss(p):
+        return jnp.sum(first(jm.apply({"params": p}, *jargs)) * ct)
+
+    want = jax_params_to_state_dict(jax.jit(jax.grad(loss))(params))
+    (first(tm(*targs)) * torch.from_numpy(ct)).sum().backward()
+    got = {n: p.grad for n, p in tm.named_parameters()}
+    assert set(got) == set(want)
+    for name, g in got.items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(),
+                                   atol=GRAD_TOL, rtol=GRAD_TOL, err_msg=name)
+
+
+def test_conformer_block_gradients_match():
+    rng = np.random.RandomState(7)
+    t, d = 13, 32
+    x = rng.randn(2, t, d).astype(np.float32)
+    pos = np.asarray(rel_position_encoding(t, d))
+    mask = np.arange(t)[None] < np.array([t, 7])[:, None]
+    bias = np.asarray(attention_bias(jnp.asarray(mask[:, None, None, :])))
+    jm = jconf.ConformerBlock(d, 4, 64, kernel_size=5)
+    jargs = tuple(map(jnp.asarray, (x, pos, bias, mask)))
+    params = _init(jm, *jargs, seed=3)
+    tm = _load(tconf.ConformerBlock(d, 4, 64, kernel_size=5), params)
+    _param_grads_match(jm, params, jargs, tm, _t(x, pos, bias, mask), 1)
+
+
+def test_transformer_decoder_gradients_match():
+    rng = np.random.RandomState(8)
+    tokens = rng.randint(0, 11, (2, 6)).astype(np.int32)
+    tlens = np.array([6, 3], np.int32)
+    mem = rng.randn(2, 9, 32).astype(np.float32)
+    mlens = np.array([9, 5], np.int32)
+    jm = jtr.TransformerDecoder(11, 32, 4, 64, 2)
+    jargs = tuple(map(jnp.asarray, (tokens, tlens, mem, mlens)))
+    params = _init(jm, *jargs, seed=4)
+    tm = _load(ttr.TransformerDecoder(11, 32, 4, 64, 2), params)
+    _param_grads_match(jm, params, jargs, tm,
+                       _t(tokens.astype(np.int64), tlens, mem, mlens), 2)
+
+
+def test_macaron_dropout_goes_through_the_kernel_hash():
+    """In training, a macaron FFN draws its two seeds from the generator and
+    drops exactly what the Pallas kernel drops for those seeds; the other
+    dropout sites follow the generator too, and eval mode ignores it."""
+    from espnet_tpu.ops.pallas_ffn import fused_prenorm_ffn
+    from espnet_tpu_torch.ops.dropout import draw_seeds
+
+    rng = np.random.RandomState(9)
+    t, d = 300, 128  # 300 rows over two 256-row tiles of the hash
+    x = rng.randn(1, t, d).astype(np.float32)
+    pos = np.asarray(rel_position_encoding(t, d))
+    mask = np.ones((1, t), bool)
+    bias = np.zeros((1, 1, 1, t), np.float32)
+    jm = jconf.ConformerBlock(d, 4, 128, kernel_size=5)
+    params = _init(jm, *map(jnp.asarray, (x[:, :8], pos[:, :15],
+                                          bias[..., :8], mask[:, :8])))
+    tm = _load(tconf.ConformerBlock(d, 4, 128, kernel_size=5), params)
+    tm.train()
+    g = torch.Generator().manual_seed(5)
+    seeds = draw_seeds(torch.Generator().manual_seed(5), 2)
+    got = tm._macaron(torch.from_numpy(x), tm.norm_ff1, tm.ff1, g)
+    p = params
+    want = fused_prenorm_ffn(
+        jnp.asarray(x), p["norm_ff1"]["scale"], p["norm_ff1"]["bias"],
+        p["ff1"]["w1"]["kernel"], p["ff1"]["w1"]["bias"],
+        p["ff1"]["w2"]["kernel"], p["ff1"]["w2"]["bias"],
+        jnp.asarray(seeds, jnp.int32), drop_rate=0.1, activation="swish",
+        residual_scale=0.5, interpret=True)
+    _close(got.detach(), want)
+    args = _t(x, pos, bias, mask)
+    y1 = tm(*args, generator=torch.Generator().manual_seed(1))
+    y2 = tm(*args, generator=torch.Generator().manual_seed(1))
+    y3 = tm(*args, generator=torch.Generator().manual_seed(2))
+    torch.testing.assert_close(y1, y2, rtol=0, atol=0)
+    assert not torch.equal(y1, y3)
+    tm.eval()
+    torch.testing.assert_close(tm(*args, generator=g), tm(*args), rtol=0,
+                               atol=0)
