@@ -16,26 +16,41 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    over peak and bytes over 3.35 TB/s) and, where one PyTorch call computes
    the same function, that call: the forward kernels at the serve phase's
    shapes and the bench's decode geometry (B=8, T=469 / M=3000), then all
-   six kernels at the training shapes (rel-pos forward and backward at
-   B=64, H=4, T=469, D=64; the FFN forward with dropout 0.1 and its backward
-   at M=64*469; the CTC lattice pair at B=64, T=469, S=81, with
-   torch.nn.functional.ctc_loss as a second oracle and yardstick), in
-   float32 and bfloat16;
-4. serve: the full-width bench conformer (random weights from a seed, depth
-   as published) answers 4 requests of 4, 6, 9 and 12 s through
-   Speech2Text with beam 10; the launch counters must show 12 rel-pos and
-   24 FFN launches for the one encode call and nothing else, and the
-   float32 encoder output must match the plain versions';
-5. train parity: one float32 forward and backward of the full-width bench
-   model on those 4 utterances (dropout and SpecAug off, TF32 off) with the
-   kernels and with their plain versions: same loss, same gradients;
-6. train: the bench's training run (B=64 x 15 s, 40 labels, bf16, dropout
-   0.1, SpecAug on, fused_adam with warmuplr): 1 warm-up step and 3 timed
-   steps through make_train_step; finite losses, no skipped step, moved
-   parameters and the exact kernel launches per step;
-7. a `{"kernels": [...]}` JSON line (training shapes, bfloat16; launches
-   from the 3 timed train steps);
-8. last line: {"ok": true, "device": {...}}.
+   nine kernels at the training shapes (rel-pos forward and backward at
+   B=64, H=4, T=469, D=64; the pre-norm FFN forward with dropout 0.1 and
+   its backward at M=64*469, F=2048; the FFN of `fused_ffn` forward and
+   backward at the E-Branchformer's M=64*469, F=1024, and recorded beside
+   it at the decoder's M=64*41, F=2048; flash attention forward at the
+   transformer's B=64, H=4, T=469, D=64 with
+   torch.nn.functional.scaled_dot_product_attention as a yardstick; the CTC
+   lattice pair at B=64, T=469, S=81, with torch.nn.functional.ctc_loss as a
+   second oracle and yardstick), in float32 and bfloat16;
+4. for each of the three configurations at full width and depth (random
+   weights from a seed; `espnet_tpu_torch.configs`): the bench conformer,
+   the `transformer` (ESPnet's AISHELL-1 transformer widths) and the
+   `e_branchformer` (ESPnet's LibriSpeech-100 E-Branchformer widths), each
+   with a 6-layer decoder:
+   a. serve: 4 requests of 4, 6, 9 and 12 s through Speech2Text with beam
+      10; the launch counters must show the exact kernel launches of the
+      one encode call and nothing else, and the float32 encoder output must
+      match the plain versions';
+   b. train parity: one float32 forward and backward on those 4 utterances
+      (dropout and SpecAug off, TF32 off) with the kernels and with their
+      plain versions: same loss, same gradients;
+   c. train: the bench's training run (B=64 x 15 s, 40 labels, bf16,
+      dropout 0.1, SpecAug on, fused_adam with warmuplr): 1 warm-up step
+      and 3 timed steps through make_train_step; finite losses, no skipped
+      step, moved parameters and the exact kernel launches per step;
+5. gates: conformers of d_model 144 (head dim 36: the JAX package's gates
+   send every kernel call to the plain versions), 384 (head dim 96, padded
+   to the attention kernels' 128; the FFN kernels at D=384) and 512 (head
+   dim 128) serve and take a train step, each kernel running exactly where
+   its shape gate lets it (plain versions elsewhere);
+6. a `{"kernels": [...]}` JSON line (training shapes, bfloat16; launches
+   from the 3 timed train steps of the configuration whose path holds the
+   kernel: the conformer's, the transformer's for flash attention, the
+   E-Branchformer's for `fused_ffn`);
+7. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -243,9 +258,40 @@ def check_grads(torch, name, dtype_name, label, kernel, plain, args, n_diff,
                   bound_ms, bound_by, max_err)
 
 
+def flash_case(torch, b, t, dtype, lengths, seed, h=4, d=64):
+    """q, k, v and a key-padding bias; the operations count the valid keys
+    only (a masked key's weight is exactly 0)."""
+    from espnet_tpu_torch.ops.relpos_attention import NEG
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g).to("cuda", dtype)  # noqa: E731
+    q, k, v = mk(b, h, t, d), mk(b, h, t, d), mk(b, h, t, d)
+    valid = torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]
+    bias = torch.where(valid, 0.0, 2 * NEG).float()[:, None, None, :].cuda()
+    flops = 4.0 * h * t * d * float(sum(lengths))
+    nbytes = 4 * b * h * t * d * q.element_size() + b * t * 4
+    return (q, k, v, bias), flops, nbytes, valid[:, None, None, :].cuda()
+
+
+def fused_ffn_case(torch, m, dtype, seed, d=256, f=1024):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(m, d, generator=g).to("cuda", dtype)
+    w1 = (torch.randn(d, f, generator=g) / d ** 0.5).to("cuda", dtype)
+    b1 = (0.1 * torch.randn(f, generator=g)).cuda()
+    w2 = (torch.randn(f, d, generator=g) / f ** 0.5).to("cuda", dtype)
+    b2 = (0.1 * torch.randn(d, generator=g)).cuda()
+    es = x.element_size()
+    fwd = (4.0 * m * d * f, (2 * m * d + 2 * d * f) * es + (d + f) * 4)
+    bwd = (10.0 * m * d * f, (3 * m * d + 4 * d * f) * es + (2 * f + d) * 4)
+    return (x, w1, b1, w2, b2), fwd, bwd
+
+
 def phase_kernels(torch, serve_b, serve_t):
     """The forward kernels against their plain versions at the serve and
     decode shapes."""
+    from espnet_tpu_torch.ops.ffn import fused_ffn, fused_ffn_plain
+    from espnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_plain)
     from espnet_tpu_torch.ops.prenorm_ffn import (prenorm_ffn,
                                                   prenorm_ffn_plain)
     from espnet_tpu_torch.ops.relpos_attention import (
@@ -270,6 +316,22 @@ def phase_kernels(torch, serve_b, serve_t):
                         args, flops, nbytes, dn,
                         f"{label} M={m} D=256 F=2048 {act} s={scale}",
                         {"activation": act, "residual_scale": scale})
+        # the transformer's and E-Branchformer's encoder at the serve shapes
+        lengths = [max(1, serve_t - (serve_t * i) // (2 * serve_b))
+                   for i in range(serve_b)]
+        args, flops, nbytes, _ = flash_case(torch, serve_b, serve_t, dtype,
+                                            lengths, 7)
+        with torch.no_grad():
+            check_kernel(torch, "flash_attention", flash_attention,
+                         flash_attention_plain, args, flops, nbytes, dn,
+                         f"serve B={serve_b} H=4 T={serve_t} D=64")
+        m = serve_b * serve_t
+        args, (flops, nbytes), _ = fused_ffn_case(torch, m, dtype, 8)
+        with torch.no_grad():
+            check_kernel(torch, "fused_ffn", fused_ffn, fused_ffn_plain,
+                         args, flops, nbytes, dn,
+                         f"serve M={m} D=256 F=1024 swish",
+                         {"activation": "swish"})
 
 
 def ctc_case(torch, np, b, t, u, v, seed):
@@ -295,6 +357,9 @@ def phase_train_kernels(torch, np):
 
     from espnet_tpu_torch.ops import ctc as tctc
     from espnet_tpu_torch.ops import ctc_lattice as tlat
+    from espnet_tpu_torch.ops.ffn import fused_ffn, fused_ffn_plain
+    from espnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_plain)
     from espnet_tpu_torch.ops.prenorm_ffn import (prenorm_ffn,
                                                   prenorm_ffn_plain)
     from espnet_tpu_torch.ops.relpos_attention import (
@@ -336,9 +401,47 @@ def phase_train_kernels(torch, np):
             lambda *a: prenorm_ffn_plain(*a, **kw), args, 7, gout,
             10.0 * m * 256 * f, (3 * m * 256 + 4 * 256 * f) * es
             + (4 * 256 + 2 * f) * 4, iters=5)
+        # fused_ffn: the E-Branchformer's macaron FFN rows, then the
+        # decoder's training rows (recorded for a later routing decision)
+        for role, rows, f2, act in (("e_branchformer", m, 1024, "swish"),
+                                    ("decoder", b * (TRAIN_LABELS + 1), 2048,
+                                     "relu")):
+            args, (flops, nbytes), (bflops, bbytes) = fused_ffn_case(
+                torch, rows, dtype, 9, f=f2)
+            kw = {"activation": act, "drop_rate": 0.1, "seed": 314159}
+            label = f"train {role} M={rows} D=256 F={f2} {act} dropout 0.1"
+            with torch.no_grad():
+                ff = check_kernel(torch, "fused_ffn", fused_ffn,
+                                  fused_ffn_plain, args, flops, nbytes, dn,
+                                  label, kw, iters=5)
+            gout = torch.randn(rows, 256, generator=torch.Generator()
+                               .manual_seed(10)).to("cuda", dtype)
+            ffb = check_grads(
+                torch, "fused_ffn_bwd", dn, label,
+                lambda *a: fused_ffn(*a, **kw),
+                lambda *a: fused_ffn_plain(*a, **kw), args, 5, gout, bflops,
+                bbytes, iters=5)
+            if role == "e_branchformer" and dtype == torch.bfloat16:
+                main.update({"fused_ffn": ff, "fused_ffn_bwd": ffb})
+        # flash attention: the transformer's encoder, ragged keys
+        lengths = [t - (i % 9) * 7 for i in range(b)]
+        args, flops, nbytes, valid = flash_case(torch, b, t, dtype, lengths,
+                                                11)
+        label = f"train B={b} H={h} T={t} D={d}"
+        with torch.no_grad():
+            fa = check_kernel(torch, "flash_attention", flash_attention,
+                              flash_attention_plain, args, flops, nbytes, dn,
+                              label, iters=10)
+            fa["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    *args[:3], attn_mask=valid), 10)
+        log("kernels", f"flash_attention {label} {dn}: library "
+            f"(scaled_dot_product_attention, boolean key mask) "
+            f"{fa['library_ms']:.4f} ms")
         if dtype == torch.bfloat16:
             main.update({"relpos_attention": r, "relpos_attention_bwd": rb,
-                         "prenorm_ffn": rf, "prenorm_ffn_bwd": rfb})
+                         "prenorm_ffn": rf, "prenorm_ffn_bwd": rfb,
+                         "flash_attention": fa})
 
     # the CTC lattice pair, float32, S = 2*40+1
     u, v = TRAIN_LABELS, 5000
@@ -426,22 +529,48 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                    "espnet_tpu/ops/pallas_ctc.py:119"),
     "ctc_gamma": ("espnet_tpu_torch/csrc/ctc_lattice.cu",
                   "espnet_tpu/ops/pallas_ctc.py:150"),
+    "fused_ffn": ("espnet_tpu_torch/csrc/ffn.cu",
+                  "espnet_tpu/ops/pallas_ffn.py:285"),
+    "fused_ffn_bwd": ("espnet_tpu_torch/csrc/ffn.cu",
+                      "espnet_tpu/ops/pallas_ffn.py:137"),
+    "flash_attention": ("espnet_tpu_torch/csrc/flash_attention.cu",
+                        "espnet_tpu/ops/pallas_attention.py:133"),
 }
 REQUEST_SECONDS = (4.0, 6.0, 9.0, 12.0)
 SAMPLE_RATE = 16000
 
 
-def bench_config(dtype):
-    """The model of bench.py (full width and depth): raw input, SpecAug,
-    utterance MVN, conformer encoder, transformer decoder, CTC weight 0.3,
-    label smoothing 0.1, dropout 0.1."""
-    from espnet_tpu_torch.models.asr import ASRConfig
-
-    return ASRConfig(
-        vocab_size=5000, n_mels=80, d_model=256, num_heads=4, d_ff=2048,
-        num_encoder_layers=12, num_decoder_layers=6, decoder_d_ff=2048,
-        conformer_kernel_size=31, subsampling_factor=4, ctc_weight=0.3,
-        lsm_weight=0.1, dropout_rate=0.1, use_specaug=True, dtype=dtype)
+L = 12  # encoder layers of every configuration
+CTC = {"ctc_alphas": 1, "ctc_gamma": 1}
+CONFORMER = ({"relpos_attention": L, "prenorm_ffn": 2 * L},
+             {"relpos_attention": L, "relpos_attention_bwd": L,
+              "prenorm_ffn": 2 * L, "prenorm_ffn_bwd": 2 * L, **CTC})
+# name (of espnet_tpu_torch.configs.ENCODERS): (launches per encode, per
+# train step)
+CONFIGS = {
+    "conformer": CONFORMER,
+    # flash attention has no backward kernel
+    "transformer": ({"flash_attention": L, "prenorm_ffn": L},
+                    {"flash_attention": L, "prenorm_ffn": L,
+                     "prenorm_ffn_bwd": L, **CTC}),
+    "e_branchformer": ({"fused_ffn": 2 * L, "relpos_attention": L},
+                       {"fused_ffn": 2 * L, "fused_ffn_bwd": 2 * L,
+                        "relpos_attention": L, "relpos_attention_bwd": L,
+                        **CTC}),
+}
+# conformers at other widths: d 144 (head dim 36 and d_model 144 fail the
+# JAX package's gates: plain everywhere, as there), d 384 (head dim 96,
+# zero-padded to the attention kernels' 128; the FFN kernels at D=384) and
+# d 512 (head dim 128); name: (overrides, per encode, per train step)
+GATE_CONFIGS = {
+    "gate_d144": ({"d_model": 144}, {}, dict(CTC)),
+    "gate_d384": ({"d_model": 384}, *CONFORMER),
+    "gate_d512": ({"d_model": 512}, *CONFORMER),
+}
+MAIN_PATH = {  # kernel: the configuration whose train run gives its launches
+    "fused_ffn": "e_branchformer", "fused_ffn_bwd": "e_branchformer",
+    "flash_attention": "transformer",
+}
 
 
 def requests(np):
@@ -464,7 +593,8 @@ def serve_shapes(cfg, lengths):
 
 def reset_counts():
     """Set every kernel's launch count to 0; returns the wrappers by name."""
-    from espnet_tpu_torch.ops import ctc_lattice, prenorm_ffn, relpos_attention
+    from espnet_tpu_torch.ops import (ctc_lattice, ffn, flash_attention,
+                                      prenorm_ffn, relpos_attention)
 
     wrappers = {
         "relpos_attention": relpos_attention.relpos_attention,
@@ -473,6 +603,9 @@ def reset_counts():
         "prenorm_ffn_bwd": prenorm_ffn.prenorm_ffn_bwd,
         "ctc_alphas": ctc_lattice.ctc_alphas,
         "ctc_gamma": ctc_lattice.ctc_gamma,
+        "fused_ffn": ffn.fused_ffn,
+        "fused_ffn_bwd": ffn.fused_ffn_bwd,
+        "flash_attention": flash_attention.flash_attention,
     }
     for fn in wrappers.values():
         fn.launches = 0
@@ -484,7 +617,7 @@ def sync(torch, device):
         torch.cuda.synchronize()
 
 
-def phase_serve(torch, np, cfg, device="cuda"):
+def phase_serve(torch, np, cfg, device="cuda", tag="serve"):
     """Serve the requests through Speech2Text; returns the launch counts of
     the served run. (device="cpu" with a small config rehearses the phase
     where there is no card: the wrappers then take their plain versions.)"""
@@ -498,13 +631,13 @@ def phase_serve(torch, np, cfg, device="cuda"):
     s2t = Speech2Text(model, device=device, beam_size=10, ctc_weight=0.3,
                       max_steps=40)
     n_params = sum(p.numel() for p in model.parameters())
-    log("serve", f"model built: {n_params} parameters, compute "
+    log(tag, f"model built: {n_params} parameters, compute "
         f"{cfg.dtype}, {time.perf_counter() - t:.1f}s")
     speech, lengths = requests(np)
     t = time.perf_counter()
     warm = s2t(speech, lengths, nbest=10)
     sync(torch, device)
-    log("serve", f"warm-up run {time.perf_counter() - t:.2f}s")
+    log(tag, f"warm-up run {time.perf_counter() - t:.2f}s")
 
     wrappers = reset_counts()
     t = time.perf_counter()
@@ -513,7 +646,7 @@ def phase_serve(torch, np, cfg, device="cuda"):
     wall = time.perf_counter() - t
     counts = {name: fn.launches for name, fn in wrappers.items()}
     audio = float(sum(REQUEST_SECONDS))
-    log("serve", f"{len(results)} requests, {audio:.0f} s of audio: wall "
+    log(tag, f"{len(results)} requests, {audio:.0f} s of audio: wall "
         f"{wall:.3f}s, RTF {wall / audio:.5f}; launches {counts}")
     for sec, r, w in zip(REQUEST_SECONDS, results, warm):
         print(f"  request {sec:4.1f}s: {len(r.token_ids)} tokens, "
@@ -533,7 +666,7 @@ def phase_serve(torch, np, cfg, device="cuda"):
         model.encode(sp, ln)
         sync(torch, device)
         enc_s = time.perf_counter() - t
-    log("serve", f"encode alone {enc_s:.4f}s of the {wall:.3f}s wall; the "
+    log(tag, f"encode alone {enc_s:.4f}s of the {wall:.3f}s wall; the "
         f"rest is the beam search ({s2t.max_steps} label steps at most)")
 
     # the same weights in float32 and in bf16: the kernel path against the
@@ -551,7 +684,7 @@ def phase_serve(torch, np, cfg, device="cuda"):
                  < olens[:, None])[:, :, None]
         dev = float(((enc_k.float() - enc_p.float()).abs() * valid).max())
         scale = float((enc_p.float().abs() * valid).max())
-        log("serve", f"encoder output {tuple(enc_k.shape)} {dtype}: kernels "
+        log(tag, f"encoder output {tuple(enc_k.shape)} {dtype}: kernels "
             f"vs plain max |dev| {dev:.3e} (max |out| {scale:.3f})")
         if not torch.isfinite(enc_k).all():
             raise AssertionError("encoder output not finite")
@@ -574,7 +707,7 @@ def train_batch(np, b, seconds, u, vocab, seed):
             "text_lengths": np.full((b,), u, np.int32)}
 
 
-def phase_train_parity(torch, np, cfg, device="cuda"):
+def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity"):
     """One float32 forward and backward of the full-width model with the
     kernels and with their plain versions (dropout and SpecAug off)."""
     import dataclasses
@@ -610,7 +743,7 @@ def phase_train_parity(torch, np, cfg, device="cuda"):
                           / max(float(b.double().norm()),
                                 TRAIN_GRAD_FLOOR * total)), n)
                    for n, a, b in zip(names, gk, gp)), reverse=True)
-    log("train-parity", f"float32, B={len(REQUEST_SECONDS)}: loss kernels "
+    log(tag, f"float32, B={len(REQUEST_SECONDS)}: loss kernels "
         f"{lk:.6f} vs plain {lp:.6f} (relative {loss_dev:.2e}, limit "
         f"{TRAIN_FP32_LOSS_RTOL}); whole gradient relative L2 {whole:.2e} "
         f"(norm {total:.4e}); worst tensor {devs[0][0]:.2e} ({devs[0][1]}), "
@@ -626,7 +759,7 @@ def phase_train_parity(torch, np, cfg, device="cuda"):
 
 def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
                 seconds=TRAIN_SECONDS, labels=TRAIN_LABELS,
-                steps=TRAIN_TIMED_STEPS):
+                steps=TRAIN_TIMED_STEPS, tag="train"):
     """The bench's training run through make_train_step: 1 warm-up step,
     then `steps` timed steps. Returns the launch counts of the timed steps.
     (device="cpu" with a small config rehearses the phase where there is no
@@ -645,14 +778,14 @@ def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
                         cfg.vocab_size, 0)
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     gen = torch.Generator().manual_seed(0)
-    log("train", f"{sum(p.numel() for p in model.parameters())} parameters, "
+    log(tag, f"{sum(p.numel() for p in model.parameters())} parameters, "
         f"compute {cfg.dtype}, dropout {cfg.dropout_rate}, SpecAug "
         f"{cfg.use_specaug}, B={batch_size} x {seconds} s, U={labels}; "
         f"set-up {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     state, stats = step(state, batch, gen)
     sync(torch, device)
-    log("train", f"warm-up step {time.perf_counter() - t:.2f}s, loss "
+    log(tag, f"warm-up step {time.perf_counter() - t:.2f}s, loss "
         f"{float(stats['loss']):.4f}")
     before = state.params.clone()
     if device == "cuda":
@@ -681,7 +814,7 @@ def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
     if not moved > 0.0:
         raise AssertionError("the train steps did not move the parameters")
     step_s = wall / steps
-    log("train", f"{steps} steps: {step_s * 1e3:.1f} ms/step, "
+    log(tag, f"{steps} steps: {step_s * 1e3:.1f} ms/step, "
         f"{batch_size * seconds / step_s:.1f} audio-s/s, peak memory "
         f"{peak:.2f} GiB, max parameter move {moved:.3e}; launches {counts}")
     return counts, step_s
@@ -693,9 +826,32 @@ def expected_counts(per_step: dict, steps: int) -> dict:
     return want
 
 
+def run_config(torch, np, name, cfg, per_encode, per_step, parity=True,
+               train_batch_size=TRAIN_BATCH, train_steps=TRAIN_TIMED_STEPS):
+    """Serve, (train parity,) train one configuration; checks the exact
+    launches of the encode and of the timed train steps. Returns the train
+    steps' launch counts."""
+    serve = phase_serve(torch, np, cfg, tag=f"serve[{name}]")
+    want = expected_counts(per_encode, 1)
+    if serve != want:
+        raise AssertionError(f"{name}: one encode launched {serve}, "
+                             f"expected {want}")
+    if parity:
+        phase_train_parity(torch, np, cfg, tag=f"train-parity[{name}]")
+    launches, _ = phase_train(torch, np, cfg, batch_size=train_batch_size,
+                              steps=train_steps, tag=f"train[{name}]")
+    want = expected_counts(per_step, train_steps)
+    if launches != want:
+        raise AssertionError(f"{name}: {train_steps} train steps launched "
+                             f"{launches}, expected {want}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
+
+    from espnet_tpu_torch.configs import bench_config
 
     name = phase_device(torch)
     phase_build()
@@ -703,27 +859,19 @@ def main() -> int:
     serve_b, serve_t = serve_shapes(cfg, requests(np)[1])
     phase_kernels(torch, serve_b, serve_t)
     results = phase_train_kernels(torch, np)
-    serve = phase_serve(torch, np, cfg)
-    want = expected_counts({"relpos_attention": cfg.num_encoder_layers,
-                            "prenorm_ffn": 2 * cfg.num_encoder_layers}, 1)
-    if serve != want:
-        raise AssertionError(f"one encode launched {serve}, expected {want}")
-    phase_train_parity(torch, np, cfg)
-    launches, _ = phase_train(torch, np, cfg)
-    layers = cfg.num_encoder_layers
-    want = expected_counts({
-        "relpos_attention": layers, "relpos_attention_bwd": layers,
-        "prenorm_ffn": 2 * layers, "prenorm_ffn_bwd": 2 * layers,
-        "ctc_alphas": 1, "ctc_gamma": 1}, TRAIN_TIMED_STEPS)
-    if launches != want:
-        raise AssertionError(f"{TRAIN_TIMED_STEPS} train steps launched "
-                             f"{launches}, expected {want}")
+    launches = {c: run_config(torch, np, c, bench_config(torch.bfloat16, c),
+                              *counts)
+                for c, counts in CONFIGS.items()}
+    for c, (overrides, *counts) in GATE_CONFIGS.items():
+        run_config(torch, np, c, bench_config(torch.bfloat16, **overrides),
+                   *counts, parity=False, train_batch_size=16, train_steps=1)
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         r = results[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[kname],
+            "replaces": replaces,
+            "launches": launches[MAIN_PATH.get(kname, "conformer")][kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

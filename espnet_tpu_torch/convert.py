@@ -18,6 +18,12 @@ The fused and unfused JAX layers use the same param names, so one mapping
 serves both. The stacked `layers/block` layout of `scan_layers` is refused,
 and so is any leaf that the port's model has no place for.
 
+A global-MVN model keeps its feature statistics in the non-trainable JAX
+collection `mvn` ({"mvn": {"mvn": {"mean", "inv_std"}}}): pass the whole
+variables dict {"params": ..., "mvn": ...} and they become the buffers
+`mvn.mean` and `mvn.inv_std`. Loading such a model from its params alone
+raises, since identity statistics would silently change its input.
+
 Every layout change is a permutation, so the same mapping carries a JAX
 *gradient* tree (`jax.grad` of the params) onto the port's parameter names
 with `jax_params_to_state_dict`, to be compared with `param.grad` leaf by
@@ -62,11 +68,22 @@ def _leaf(name: str, value: np.ndarray):
     raise ValueError(f"unknown parameter leaf {name!r}")
 
 
+def _split_variables(tree: Mapping):
+    """(params, mvn collection or None) of a JAX param tree or of a
+    variables dict {"params", optionally "mvn"}."""
+    if "params" in tree and set(tree) <= {"params", "mvn"}:
+        return tree["params"], tree.get("mvn")
+    return tree, None
+
+
 def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Map a JAX `ASRModel` param tree to the port's state_dict (float32)."""
-    if "params" in params and len(params) == 1:
-        params = params["params"]
+    """Map a JAX `ASRModel` param tree, or its variables dict with the `mvn`
+    collection, to the port's state_dict (float32)."""
+    params, mvn = _split_variables(params)
     sd = {}
+    for path, value in _flatten(mvn or {}).items():
+        sd[path.replace("/", ".")] = torch.from_numpy(
+            np.array(value, np.float32))
     for path, value in _flatten(params).items():
         parts = path.split("/")
         if "layers" in parts and "block" in parts:
@@ -119,12 +136,18 @@ def torch_to_jax_tree(tensors: Mapping[str, torch.Tensor],
 
 
 def load_jax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
-    """Load a JAX param tree into `model`; raises on any key left unused on
-    either side, or on a shape that does not match."""
+    """Load a JAX param tree, or the variables dict {"params", "mvn"} of a
+    global-MVN model, into `model`; raises on any key left unused on either
+    side, or on a shape that does not match."""
     sd = jax_params_to_state_dict(params)
     own = model.state_dict()
     unused = sorted(set(sd) - set(own))
     missing = sorted(set(own) - set(sd))
+    if any(k.startswith("mvn.") for k in missing):
+        raise KeyError(
+            "the model normalises with global MVN, but no 'mvn' statistics "
+            "came with the parameters: pass the JAX variables dict "
+            "{'params': ..., 'mvn': ...}")
     if unused or missing:
         raise KeyError(f"JAX params unused by the port: {unused}; "
                        f"port params missing from the JAX tree: {missing}")

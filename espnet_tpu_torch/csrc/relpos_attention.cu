@@ -236,7 +236,7 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* p,
            const float* pos_u, const float* pos_v, const float* kbias,
-           void* out, float2* stats, int B, int H, int Tn,
+           void* out, float2* stats, int B, int H, int Tn, float scale,
            cudaStream_t stream) {
   auto kernel = relpos_attention_fwd_kernel<T, D>;
   const size_t smem = relpos_smem_bytes<D>();
@@ -248,7 +248,7 @@ int launch(const void* q, const void* k, const void* v, const void* p,
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(p), pos_u, pos_v, kbias,
-      static_cast<T*>(out), stats, H, Tn, rsqrtf(static_cast<float>(D)));
+      static_cast<T*>(out), stats, H, Tn, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -266,37 +266,38 @@ int launch(const void* q, const void* k, const void* v, const void* p,
 // uniform average, as the plain softmax does.
 // ---------------------------------------------------------------------------
 
+// The backward keeps q once in shared memory and adds the head's position
+// biases u and v (read through the cache) where it uses q+u and q+v: two
+// copies of the query rows would not fit beside the rest at D = 128 (the
+// dkv kernel needs 231,932 of the 232,448 bytes a block may have there).
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  // qu, qv, dO (BQ rows), k, v (BK rows), the p window, ds, key bias,
-  // the rows' m, l and delta
-  return sizeof(float) * ((3 * BQ + 2 * BK + PW) * (D + 1) +
+  // q, dO (BQ rows), k, v (BK rows), the p window, ds, key bias, the rows'
+  // m, l and delta
+  return sizeof(float) * ((2 * BQ + 2 * BK + PW) * (D + 1) +
                           BQ * (BK + 1) + BK + 3 * BQ);
 }
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  // qu, qv, dO (BQ rows), k, v (BK rows), the p window, w, ds, key bias,
-  // the rows' m, l and delta
-  return sizeof(float) * ((3 * BQ + 2 * BK + PW) * (D + 1) +
+  // q, dO (BQ rows), k, v (BK rows), the p window, w, ds, key bias, the
+  // rows' m, l and delta
+  return sizeof(float) * ((2 * BQ + 2 * BK + PW) * (D + 1) +
                           2 * BQ * (BK + 1) + BK + 3 * BQ);
 }
 
-// Loads the BQ query rows at i0 as qu, qv, dO and their m, l, delta.
+// Loads the BQ query rows at i0 as q, dO and their m, l, delta.
 template <typename T, int D>
 __device__ __forceinline__ void load_query_rows(
-    const T* qg, const T* dog, const float* pos_u, const float* pos_v,
-    const float2* stg, const float* dlg, int h, int i0, int Tn, float* qu_s,
-    float* qv_s, float* do_s, float* m_s, float* l_s, float* dl_s) {
+    const T* qg, const T* dog, const float2* stg, const float* dlg, int i0,
+    int Tn, float* q_s, float* do_s, float* m_s, float* l_s, float* dl_s) {
   constexpr int LD = D + 1;
   for (int e = threadIdx.x; e < BQ * D; e += THREADS) {
     const int r = e / D, d = e % D;
     const int i = i0 + r;
     const bool ok = i < Tn;
     const size_t g = static_cast<size_t>(i) * D + d;
-    const float x = ok ? to_f32(qg[g]) : 0.f;
-    qu_s[r * LD + d] = x + pos_u[h * D + d];
-    qv_s[r * LD + d] = x + pos_v[h * D + d];
+    q_s[r * LD + d] = ok ? to_f32(qg[g]) : 0.f;
     do_s[r * LD + d] = ok ? to_f32(dog[g]) : 0.f;
   }
   for (int r = threadIdx.x; r < BQ; r += THREADS) {
@@ -345,15 +346,14 @@ __device__ __forceinline__ void load_p_window(const T* pg, int i0, int j0,
 }
 
 // ds (and w) of the (i0, j0) tile into shared memory: thread (ty, tx) does
-// rows ty+16ii and columns tx+16jj.
+// rows ty+16ii and columns tx+16jj. pu, pv: the head's position biases.
 template <int D>
-__device__ __forceinline__ void tile_ds(const float* qu_s, const float* qv_s,
-                                        const float* do_s, const float* k_s,
-                                        const float* v_s, const float* pw_s,
-                                        const float* kb_s, const float* m_s,
-                                        const float* l_s, const float* dl_s,
-                                        int i0, int j0, int Tn, float scale,
-                                        float* w_s, float* ds_s) {
+__device__ __forceinline__ void tile_ds(
+    const float* q_s, const float* do_s, const float* k_s, const float* v_s,
+    const float* pw_s, const float* kb_s, const float* m_s, const float* l_s,
+    const float* dl_s, const float* __restrict__ pu,
+    const float* __restrict__ pv, int i0, int j0, int Tn, float scale,
+    float* w_s, float* ds_s) {
   constexpr int LD = D + 1;
   constexpr int LS = BK + 1;
   const int tx = threadIdx.x & 15;
@@ -367,10 +367,12 @@ __device__ __forceinline__ void tile_ds(const float* qu_s, const float* qv_s,
 #pragma unroll 2
   for (int d = 0; d < D; ++d) {
     float a_u[4], a_v[4], a_o[4], a_k[4], a_w[4], a_p[7];
+    const float ud = pu[d], vd = pv[d];
 #pragma unroll
     for (int ii = 0; ii < 4; ++ii) {
-      a_u[ii] = qu_s[(ty + 16 * ii) * LD + d];
-      a_v[ii] = qv_s[(ty + 16 * ii) * LD + d];
+      const float x = q_s[(ty + 16 * ii) * LD + d];
+      a_u[ii] = x + ud;
+      a_v[ii] = x + vd;
       a_o[ii] = do_s[(ty + 16 * ii) * LD + d];
     }
 #pragma unroll
@@ -422,9 +424,8 @@ __global__ void __launch_bounds__(THREADS)
   constexpr int NR = BQ / DG;      // window rows per thread and half
 
   extern __shared__ float smem[];
-  float* qu_s = smem;
-  float* qv_s = qu_s + BQ * LD;
-  float* do_s = qv_s + BQ * LD;
+  float* q_s = smem;
+  float* do_s = q_s + BQ * LD;
   float* k_s = do_s + BQ * LD;
   float* v_s = k_s + BK * LD;
   float* pw_s = v_s + BK * LD;
@@ -444,16 +445,18 @@ __global__ void __launch_bounds__(THREADS)
   const int n_tiles = (Tn + BK - 1) / BK;
   const size_t seq = static_cast<size_t>(bh) * Tn * D;
   const T* pg = p + static_cast<size_t>(h) * (2 * Tn - 1) * D;
+  const float* pu = pos_u + h * D;
+  const float* pv = pos_v + h * D;
   // this block's dp slab: n_tiles*BK + BQ-1 rows, row 0 = p row
   // T-1-(i0+BQ-1)
   const int slab_rows = n_tiles * BK + BQ - 1;
   float* slab = slabs + (static_cast<size_t>(bh) * gridDim.x + blockIdx.x) *
                             slab_rows * D;
 
-  load_query_rows<T, D>(q + seq, dout + seq, pos_u, pos_v,
+  load_query_rows<T, D>(q + seq, dout + seq,
                         stats + static_cast<size_t>(bh) * Tn,
-                        delta + static_cast<size_t>(bh) * Tn, h, i0, Tn, qu_s,
-                        qv_s, do_s, m_s, l_s, dl_s);
+                        delta + static_cast<size_t>(bh) * Tn, i0, Tn, q_s,
+                        do_s, m_s, l_s, dl_s);
 
   float aqu[4][DJ], aqv[4][DJ];
 #pragma unroll
@@ -462,6 +465,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int jj = 0; jj < DJ; ++jj) aqu[ii][jj] = aqv[ii][jj] = 0.f;
   const int dcol = tid % D;
   const int grp = tid / D;
+  const float pv_d = pv[dcol];
   float low[NR], high[NR];
 #pragma unroll
   for (int kr = 0; kr < NR; ++kr) low[kr] = high[kr] = 0.f;
@@ -473,8 +477,8 @@ __global__ void __launch_bounds__(THREADS)
                         j0, Tn, k_s, v_s, kb_s);
     load_p_window<T, D>(pg, i0, j0, Tn, pw_s);
     __syncthreads();
-    tile_ds<D>(qu_s, qv_s, do_s, k_s, v_s, pw_s, kb_s, m_s, l_s, dl_s, i0, j0,
-               Tn, scale, nullptr, ds_s);
+    tile_ds<D>(q_s, do_s, k_s, v_s, pw_s, kb_s, m_s, l_s, dl_s, pu, pv, i0,
+               j0, Tn, scale, nullptr, ds_s);
     __syncthreads();
     // dqu += ds k, dqv += ds p_window (row BQ-1-r+c)
 #pragma unroll 2
@@ -497,7 +501,7 @@ __global__ void __launch_bounds__(THREADS)
     // dp window: low rows rho (0..BQ-1) and high rows BQ+rho of this tile,
     // window row w = BQ-1-r+c
     for (int r = 0; r < BQ; ++r) {
-      const float qvv = qv_s[r * LD + dcol];
+      const float qvv = q_s[r * LD + dcol] + pv_d;
       const float* dsr = ds_s + r * LS;
 #pragma unroll
       for (int kr = 0; kr < NR; ++kr) {
@@ -552,9 +556,8 @@ __global__ void __launch_bounds__(THREADS)
   constexpr int DJ = D / 16;
 
   extern __shared__ float smem[];
-  float* qu_s = smem;
-  float* qv_s = qu_s + BQ * LD;
-  float* do_s = qv_s + BQ * LD;
+  float* q_s = smem;
+  float* do_s = q_s + BQ * LD;
   float* k_s = do_s + BQ * LD;
   float* v_s = k_s + BK * LD;
   float* pw_s = v_s + BK * LD;
@@ -574,9 +577,14 @@ __global__ void __launch_bounds__(THREADS)
   const int ty = tid >> 4;
   const size_t seq = static_cast<size_t>(bh) * Tn * D;
   const T* pg = p + static_cast<size_t>(h) * (2 * Tn - 1) * D;
+  const float* pu = pos_u + h * D;
+  const float* pv = pos_v + h * D;
 
   load_key_rows<T, D>(k + seq, v + seq, kbias + static_cast<size_t>(b) * Tn,
                       j0, Tn, k_s, v_s, kb_s);
+  float u_c[DJ];  // u at this thread's columns tx+16jj
+#pragma unroll
+  for (int jj = 0; jj < DJ; ++jj) u_c[jj] = pu[tx + 16 * jj];
   float ak[4][DJ], av[4][DJ];  // key rows ty+16ii, columns tx+16jj
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii)
@@ -587,14 +595,14 @@ __global__ void __launch_bounds__(THREADS)
   for (int qt = 0; qt < n_tiles; ++qt) {
     const int i0 = qt * BQ;
     __syncthreads();  // the previous tile's readers are done
-    load_query_rows<T, D>(q + seq, dout + seq, pos_u, pos_v,
+    load_query_rows<T, D>(q + seq, dout + seq,
                           stats + static_cast<size_t>(bh) * Tn,
-                          delta + static_cast<size_t>(bh) * Tn, h, i0, Tn,
-                          qu_s, qv_s, do_s, m_s, l_s, dl_s);
+                          delta + static_cast<size_t>(bh) * Tn, i0, Tn, q_s,
+                          do_s, m_s, l_s, dl_s);
     load_p_window<T, D>(pg, i0, j0, Tn, pw_s);
     __syncthreads();
-    tile_ds<D>(qu_s, qv_s, do_s, k_s, v_s, pw_s, kb_s, m_s, l_s, dl_s, i0, j0,
-               Tn, scale, w_s, ds_s);
+    tile_ds<D>(q_s, do_s, k_s, v_s, pw_s, kb_s, m_s, l_s, dl_s, pu, pv, i0,
+               j0, Tn, scale, w_s, ds_s);
     __syncthreads();
 #pragma unroll 2
     for (int r = 0; r < BQ; ++r) {
@@ -607,7 +615,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int jj = 0; jj < DJ; ++jj) {
         a_o[jj] = do_s[r * LD + tx + 16 * jj];
-        a_q[jj] = qu_s[r * LD + tx + 16 * jj];
+        a_q[jj] = q_s[r * LD + tx + 16 * jj] + u_c[jj];
       }
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii)
@@ -636,8 +644,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* p,
                const float* pos_u, const float* pos_v, const float* kbias,
                const void* dout, const float2* stats, const float* delta,
                float* dqu, float* dqv, float* slabs, float* dk, float* dv,
-               int B, int H, int Tn, cudaStream_t stream) {
-  const float scale = rsqrtf(static_cast<float>(D));
+               int B, int H, int Tn, float scale, cudaStream_t stream) {
   auto k1 = relpos_attention_bwd_dq_kernel<T, D>;
   const size_t smem1 = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -668,21 +675,24 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* p,
 
 // q, k, v, out: (B, H, T, D); p: (H, 2T-1, D), all of one dtype, contiguous.
 // pos_u, pos_v: (H, D) float32; kbias: (B, T) float32. stats: (B, H, T)
-// float2 (row max, row sum) for the backward, or null.
+// float2 (row max, row sum) for the backward, or null. D in {32, 64, 128};
+// scale multiplies the scores (1/sqrt of the head dim before any zero
+// padding to D).
 extern "C" int espnet_relpos_attention_fwd(const void* q, const void* k,
                                            const void* v, const void* p,
                                            const float* pos_u,
                                            const float* pos_v,
                                            const float* kbias, void* out,
                                            void* stats, int B, int H, int T,
-                                           int D, int dtype, void* stream) {
+                                           int D, float scale, int dtype,
+                                           void* stream) {
   using namespace espnet_port;
   if (B < 1 || H < 1 || T < 1) return kUnsupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float2* st = static_cast<float2*>(stats);
 #define ESPNET_RELPOS_FWD(TT, DD)                                        \
   return launch<TT, DD>(q, k, v, p, pos_u, pos_v, kbias, out, st, B, H, T, \
-                        s)
+                        scale, s)
   if (dtype == kFloat32 && D == 32) ESPNET_RELPOS_FWD(float, 32);
   if (dtype == kFloat32 && D == 64) ESPNET_RELPOS_FWD(float, 64);
   if (dtype == kFloat32 && D == 128) ESPNET_RELPOS_FWD(float, 128);
@@ -699,7 +709,8 @@ extern "C" int espnet_relpos_attention_slab_rows(int T) {
   return ((T + BK - 1) / BK) * BK + BQ - 1;
 }
 
-// Backward of espnet_relpos_attention_fwd. dout: (B, H, T, D) in q's dtype;
+// Backward of espnet_relpos_attention_fwd (same D and scale). dout: (B, H,
+// T, D) in q's dtype;
 // stats from the forward; delta: (B, H, T) float32 = rowsum(dout * out).
 // Writes dqu, dqv, dk, dv: (B, H, T, D) float32 and slabs: (B, H,
 // ceil(T/64), slab_rows(T), D) float32, the dp contributions of each query
@@ -709,18 +720,21 @@ extern "C" int espnet_relpos_attention_bwd(
     const float* pos_u, const float* pos_v, const float* kbias,
     const void* dout, const void* stats, const float* delta, float* dqu,
     float* dqv, float* slabs, float* dk, float* dv, int B, int H, int T,
-    int D, int dtype, void* stream) {
+    int D, float scale, int dtype, void* stream) {
   using namespace espnet_port;
   if (B < 1 || H < 1 || T < 1) return kUnsupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* st = static_cast<const float2*>(stats);
 #define ESPNET_RELPOS_BWD(TT, DD)                                           \
   return launch_bwd<TT, DD>(q, k, v, p, pos_u, pos_v, kbias, dout, st,      \
-                            delta, dqu, dqv, slabs, dk, dv, B, H, T, s)
+                            delta, dqu, dqv, slabs, dk, dv, B, H, T, scale, \
+                            s)
   if (dtype == kFloat32 && D == 32) ESPNET_RELPOS_BWD(float, 32);
   if (dtype == kFloat32 && D == 64) ESPNET_RELPOS_BWD(float, 64);
+  if (dtype == kFloat32 && D == 128) ESPNET_RELPOS_BWD(float, 128);
   if (dtype == kBFloat16 && D == 32) ESPNET_RELPOS_BWD(__nv_bfloat16, 32);
   if (dtype == kBFloat16 && D == 64) ESPNET_RELPOS_BWD(__nv_bfloat16, 64);
+  if (dtype == kBFloat16 && D == 128) ESPNET_RELPOS_BWD(__nv_bfloat16, 128);
 #undef ESPNET_RELPOS_BWD
   return kUnsupported;
 }

@@ -1,8 +1,10 @@
 """Joint CTC/attention ASR model (port of espnet_tpu/models/asr.py).
 
 The slice ported here: raw 16 kHz waveform -> log-mel -> SpecAug (training)
--> utterance MVN -> Conv2d subsampling -> conformer encoder -> a CTC head and
-a transformer decoder. `forward` is the training loss (CTC weight
+-> global MVN (stats in the `mvn` buffers, loaded from the JAX `mvn`
+collection), utterance MVN or none -> Conv2d subsampling -> a conformer,
+transformer, Branchformer or E-Branchformer encoder -> a CTC head and a
+transformer decoder. `forward` is the training loss (CTC weight
 `ctc_weight`, label-smoothed attention loss), `encode`, `ctc_log_probs` and
 the decoder's step scoring serve inference. sos = eos = vocab_size - 1 and
 blank = 0, as in the JAX package. Parameters are float32; `ASRConfig.dtype`
@@ -23,23 +25,26 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from espnet_tpu_torch.models.branchformer import VARIANTS, BranchformerEncoder
 from espnet_tpu_torch.models.conformer import ConformerEncoder
 from espnet_tpu_torch.models.layers import Dense
-from espnet_tpu_torch.models.transformer import TransformerDecoder
+from espnet_tpu_torch.models.transformer import (TransformerDecoder,
+                                                 TransformerEncoder)
 from espnet_tpu_torch.ops.ctc import ctc_loss, min_frames
 from espnet_tpu_torch.ops.losses import label_smoothing_loss, token_accuracy
 from espnet_tpu_torch.ops.masks import make_valid_mask
-from espnet_tpu_torch.ops.normalize import utterance_mvn
+from espnet_tpu_torch.ops.normalize import global_mvn, utterance_mvn
 from espnet_tpu_torch.ops.specaug import specaug
 from espnet_tpu_torch.ops.stft import log_mel_spectrogram
 
 
 @dataclasses.dataclass(frozen=True)
 class ASRConfig:
-    """The fields of the JAX `ASRConfig` that this slice serves: a raw
-    waveform frontend with SpecAug and utterance MVN, a conformer encoder and
-    a transformer decoder (the JAX choice fields' values for the bench
-    model)."""
+    """The fields of the JAX `ASRConfig` that this slice serves, with the
+    JAX defaults: a raw waveform frontend with SpecAug and a normalisation
+    (`normalize`: "global_mvn" | "utterance_mvn" | "none"), an encoder
+    (`encoder_type`: "conformer" | "transformer" | "branchformer" |
+    "e_branchformer") and a transformer decoder."""
 
     vocab_size: int
     fs: int = 16000
@@ -52,6 +57,8 @@ class ASRConfig:
     freq_mask_width: Tuple[int, int] = (0, 20)
     num_time_masks: int = 2
     time_mask_width: Tuple[int, int] = (0, 40)
+    normalize: str = "global_mvn"
+    encoder_type: str = "conformer"
     d_model: int = 256
     num_heads: int = 4
     d_ff: int = 2048
@@ -78,8 +85,52 @@ class ASRConfig:
         return 0
 
 
+NORMALIZE = ("global_mvn", "utterance_mvn", "none")
+MERGE_KERNEL = 3  # the JAX BranchformerEncoder's default; no config field
+
+
+class GlobalMVN(nn.Module):
+    """Global mean/variance normalisation with its stats in non-trainable
+    buffers `mean` and `inv_std` (the JAX variables
+    {"mvn": {"mvn": {"mean", "inv_std"}}}, filled by the collect-stats
+    pass); identity stats until loaded."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("inv_std", torch.ones(dim))
+
+    def forward(self, x, lengths):
+        return global_mvn(x, lengths, self.mean, self.inv_std)
+
+
+def build_encoder(c: ASRConfig) -> nn.Module:
+    """The encoder of `c.encoder_type`, built as the JAX `ASRModel` builds
+    it (the branchformers' cgMLP width is d_ff, their conv kernel the
+    conformer's)."""
+    if c.encoder_type == "conformer":
+        return ConformerEncoder(
+            c.n_mels, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
+            c.conformer_kernel_size, c.subsampling_factor, c.dtype,
+            c.dropout_rate)
+    if c.encoder_type == "transformer":
+        return TransformerEncoder(
+            c.n_mels, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
+            c.subsampling_factor, c.dtype, c.dropout_rate)
+    if c.encoder_type in VARIANTS:
+        return BranchformerEncoder(
+            c.n_mels, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
+            cgmlp_hidden=c.d_ff, cgmlp_kernel=c.conformer_kernel_size,
+            subsampling_factor=c.subsampling_factor, variant=c.encoder_type,
+            merge_kernel=MERGE_KERNEL, dtype=c.dtype,
+            dropout_rate=c.dropout_rate)
+    raise NotImplementedError(
+        f"encoder_type {c.encoder_type!r} is not ported (conformer, "
+        f"transformer, {', '.join(VARIANTS)})")
+
+
 class ASRModel(nn.Module):
-    """Frontend + conformer encoder + CTC head + transformer decoder."""
+    """Frontend + encoder + CTC head + transformer decoder."""
 
     def __init__(self, config: ASRConfig):
         super().__init__()
@@ -88,11 +139,12 @@ class ASRModel(nn.Module):
                 "this slice serves joint CTC/attention models "
                 "(0 < ctc_weight < 1)")
         c = config
+        if c.normalize not in NORMALIZE:
+            raise ValueError(f"normalize {c.normalize!r} not in {NORMALIZE}")
         self.config = c
-        self.encoder = ConformerEncoder(
-            c.n_mels, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
-            c.conformer_kernel_size, c.subsampling_factor, c.dtype,
-            c.dropout_rate)
+        if c.normalize == "global_mvn":
+            self.mvn = GlobalMVN(c.n_mels)
+        self.encoder = build_encoder(c)
         self.decoder = TransformerDecoder(
             c.vocab_size, c.d_model, c.num_heads, c.decoder_d_ff,
             c.num_decoder_layers, c.dtype, c.dropout_rate)
@@ -103,11 +155,11 @@ class ASRModel(nn.Module):
     def set_use_kernels(self, enabled: bool) -> None:
         """Route the encoder and the CTC loss through the CUDA kernels
         (default) or, when False, through their plain versions even on the
-        card."""
+        card: every submodule with a `use_kernel` switch follows."""
         self.use_kernels = enabled
-        for layer in self.encoder.layers():
-            layer.use_kernel = enabled
-            layer.self_attn.use_kernel = enabled
+        for module in self.modules():
+            if hasattr(module, "use_kernel"):
+                module.use_kernel = enabled
 
     def frontend(self, speech, speech_lengths, generator=None):
         c = self.config
@@ -120,7 +172,11 @@ class ASRModel(nn.Module):
                             freq_mask_width=c.freq_mask_width,
                             num_time_masks=c.num_time_masks,
                             time_mask_width=c.time_mask_width)
-        return utterance_mvn(feats, feat_lengths), feat_lengths
+        if c.normalize == "global_mvn":
+            feats = self.mvn(feats, feat_lengths)
+        elif c.normalize == "utterance_mvn":
+            feats = utterance_mvn(feats, feat_lengths)
+        return feats, feat_lengths
 
     def encode(self, speech, speech_lengths, generator=None):
         """(B, N) waveform, (B,) lengths -> (encoder out (B, T', D),

@@ -4,7 +4,13 @@ Masks arrive as additive float32 biases; softmax runs in float32 whatever
 the compute dtype. `RelPositionMultiHeadAttention` goes through
 `ops.relpos_attention.relpos_attention` at every sequence length: on the
 card that is the CUDA kernel (the JAX package's `t >= 256` gate is a TPU
-padding tuning), on the CPU its plain version.
+padding tuning), on the CPU its plain version. `MultiHeadAttention` sends
+full self-attention (no cache, Tq == Tk, a key-padding bias) through
+`ops.flash_attention.flash_attention` at every length likewise (the JAX
+package's `T >= 512` gate is a TPU tuning); other calls take the plain
+`scaled_dot_attention`. Both ask the JAX modules' shape gate first
+(`relpos_attention.kernel_takes`, a head dim that is a multiple of 8): a
+head dim it refuses goes to the plain version, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,8 +22,8 @@ import torch
 from torch import nn
 
 from espnet_tpu_torch.models.layers import Dense
-from espnet_tpu_torch.ops.relpos_attention import (relpos_attention,
-                                                   relpos_attention_plain)
+from espnet_tpu_torch.ops import flash_attention as _flash
+from espnet_tpu_torch.ops import relpos_attention as _relpos
 
 
 def scaled_dot_attention(q, k, v, bias: Optional[torch.Tensor]):
@@ -42,6 +48,8 @@ class MultiHeadAttention(nn.Module):
         self.k_proj = Dense(d_model, d_model, dtype=dtype)
         self.v_proj = Dense(d_model, d_model, dtype=dtype)
         self.out_proj = Dense(d_model, d_model, dtype=dtype)
+        # False: the plain version even on the card (chip_smoke.py compares)
+        self.use_kernel = True
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
@@ -69,7 +77,14 @@ class MultiHeadAttention(nn.Module):
             step_bias = torch.where(
                 valid, 0.0, torch.finfo(torch.float32).min).float()
             bias = step_bias if bias is None else bias + step_bias
-        x = scaled_dot_attention(q, k, v, bias)
+        if (cache is None and q.shape[2] == k.shape[2]
+                and _flash.key_padding_only(bias)
+                and _relpos.kernel_takes(q.shape[3])):
+            attn = (_flash.flash_attention if self.use_kernel
+                    else _flash.flash_attention_plain)
+            x = attn(q.contiguous(), k.contiguous(), v.contiguous(), bias)
+        else:
+            x = scaled_dot_attention(q, k, v, bias)
         b, h, t, dk = x.shape
         out = self.out_proj(x.transpose(1, 2).reshape(b, t, h * dk))
         if cache is not None:
@@ -107,6 +122,9 @@ class RelPositionMultiHeadAttention(nn.Module):
 
         q, k, v = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(self.v_proj(x))
         p = self.pos_proj(pos_emb).reshape(-1, h, dk).transpose(0, 1).contiguous()
-        attn = relpos_attention if self.use_kernel else relpos_attention_plain
+        if self.use_kernel and _relpos.kernel_takes(dk):
+            attn = _relpos.relpos_attention
+        else:
+            attn = _relpos.relpos_attention_plain
         out = attn(q, k, v, p, self.pos_bias_u, self.pos_bias_v, bias)
         return self.out_proj(out.transpose(1, 2).reshape(b, t, d))

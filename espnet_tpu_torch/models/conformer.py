@@ -9,8 +9,12 @@ Both macaron FFNs go through `ops.prenorm_ffn.prenorm_ffn` (the CUDA kernels
 on the card, with their hash dropout: two int32 seeds per call drawn from the
 caller's generator) and the attention through `ops.relpos_attention`: one
 encode call launches 2 FFN kernels and 1 attention kernel per block, and a
-backward as many backward kernel pairs. The conv module is plain PyTorch: its
-fused kernels are opt-in in the JAX package and not on this path.
+backward as many backward kernel pairs. Shapes the JAX package's gates
+send to its plain versions (a d_model or d_ff that is not a multiple of
+128, a head dim that is not a multiple of 8) go to the plain versions here
+too, decided from the shapes before any launch. The conv module is
+plain PyTorch: its fused kernels are opt-in in the JAX package and not on
+this path.
 
 Dropout (rate `dropout_rate`) is where the JAX package has it: after the
 scaled subsampling output, inside and after each macaron FFN (in the
@@ -29,10 +33,10 @@ from espnet_tpu_torch.models.attention import RelPositionMultiHeadAttention
 from espnet_tpu_torch.models.embedding import rel_position_encoding
 from espnet_tpu_torch.models.layers import Dense, LayerNorm
 from espnet_tpu_torch.models.subsampling import Conv2dSubsampling
-from espnet_tpu_torch.models.transformer import PositionwiseFeedForward
-from espnet_tpu_torch.ops.dropout import FastDropout, draw_seeds
+from espnet_tpu_torch.models.transformer import (PositionwiseFeedForward,
+                                                  prenorm_residual_ffn)
+from espnet_tpu_torch.ops.dropout import FastDropout
 from espnet_tpu_torch.ops.masks import attention_bias, make_valid_mask
-from espnet_tpu_torch.ops.prenorm_ffn import prenorm_ffn, prenorm_ffn_plain
 
 
 class ConvolutionModule(nn.Module):
@@ -84,22 +88,13 @@ class ConformerBlock(nn.Module):
         self.norm_ff2 = LayerNorm(d_model, dtype)
         self.ff2 = PositionwiseFeedForward(d_model, d_ff, "swish", dtype)
         self.norm_final = LayerNorm(d_model, dtype)
-        # False: the plain version even on the card (chip_smoke.py compares)
-        self.use_kernel = True
 
     def _macaron(self, x, norm: LayerNorm, ff: PositionwiseFeedForward,
                  generator):
         """x + 0.5 * drop(FFN_drop(LN(x)))."""
-        dt = self.dtype
-        fn = prenorm_ffn if self.use_kernel else prenorm_ffn_plain
-        drop = (self.dropout.rate
+        rate = (self.dropout.rate
                 if self.training and generator is not None else 0.0)
-        seeds = draw_seeds(generator, 2) if drop > 0.0 else None
-        return fn(x.to(dt).contiguous(), norm.weight, norm.bias,
-                  ff.w1.weight.t().to(dt).contiguous(), ff.w1.bias,
-                  ff.w2.weight.t().to(dt).contiguous(), ff.w2.bias,
-                  activation="swish", residual_scale=0.5, drop_rate=drop,
-                  seeds=seeds)
+        return prenorm_residual_ffn(x, norm, ff, 0.5, rate, generator)
 
     def forward(self, x, pos_emb, bias, pad_mask, generator=None):
         drop = self.dropout

@@ -37,14 +37,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points and their signatures (see the extern "C" blocks in csrc/)
 _SIGNATURES = {
-    "espnet_relpos_attention_fwd": (_P,) * 9 + (_I,) * 5 + (_P,),
-    "espnet_relpos_attention_bwd": (_P,) * 15 + (_I,) * 5 + (_P,),
+    "espnet_relpos_attention_fwd": (_P,) * 9 + (_I,) * 4 + (_F, _I, _P),
+    "espnet_relpos_attention_bwd": (_P,) * 15 + (_I,) * 4 + (_F, _I, _P),
     "espnet_relpos_attention_slab_rows": (_I,),
     "espnet_prenorm_ffn_fwd": ((_P,) * 8 + (_I,) * 3 + (_F, _I, _I, _F)
                                + (_I,) * 3 + (_P,)),
     "espnet_prenorm_ffn_bwd": ((_P,) * 14 + (_I,) * 4 + (_F, _I, _I, _F)
                                + (_I,) * 3 + (_P,)),
     "espnet_prenorm_ffn_bwd_rows_per_block": (),
+    "espnet_ffn_fwd": (_P,) * 6 + (_I,) * 5 + (_F, _I, _I, _P),
+    "espnet_ffn_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _I, _I, _P),
+    "espnet_flash_attention_fwd": (_P,) * 5 + (_I,) * 4 + (_F, _I, _P),
     "espnet_ctc_alphas": (_P,) * 5 + (_I,) * 3 + (_P,),
     "espnet_ctc_gamma": (_P,) * 6 + (_I,) * 3 + (_P,),
     "espnet_ctc_max_states": (),

@@ -1,4 +1,5 @@
-"""FastDropout (port of espnet_tpu/ops/dropout.py).
+"""FastDropout (port of espnet_tpu/ops/dropout.py) and flax's standard
+dropout rule.
 
 The drop rate is quantised to 1/256 steps, q = clamp(round(rate * 256), 1,
 255) (0.1 -> 26/256); an element is kept when a random byte is >= q and kept
@@ -6,6 +7,10 @@ values are scaled by 256 / (256 - q). The bytes come from a device
 `torch.Generator` seeded from the caller's generator; the backward draws the
 same bytes again from that seed instead of storing the mask, as the JAX
 package regenerates its mask from the key.
+
+`Dropout` is flax `nn.Dropout`'s rule, which the branchformer layers use:
+keep with probability 1 - rate, scale kept values by 1 / (1 - rate); its
+uniform draws come from a device generator seeded the same way.
 
 Every random draw of the port goes through `draw_seeds` from an explicit
 `torch.Generator` (a CPU generator keeps the draw off the card's stream).
@@ -72,3 +77,23 @@ class FastDropout(nn.Module):
         if not self.training or self.rate == 0.0 or generator is None:
             return x
         return fast_dropout(x, self.rate, generator)
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout`'s rule while the module is training and given a
+    generator, else the identity."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator=None):
+        if not self.training or self.rate == 0.0 or generator is None:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        g = torch.Generator(device=x.device)
+        g.manual_seed(draw_seeds(generator, 1)[0] & 0x7FFFFFFFFFFFFFFF)
+        keep = torch.rand(x.shape, generator=g, device=x.device) >= self.rate
+        return torch.where(keep, x * (1.0 / (1.0 - self.rate)),
+                           torch.zeros_like(x))

@@ -1,13 +1,40 @@
-"""Utterance mean/variance normalisation (port of
-espnet_tpu/ops/normalize.py `utterance_mvn`)."""
+"""Feature normalisation: global MVN (from collected stats) and utterance
+MVN (port of espnet_tpu/ops/normalize.py)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from espnet_tpu_torch.ops.masks import make_valid_mask
+
+
+def global_mvn_params(stats: dict, norm_means: bool = True,
+                      norm_vars: bool = True, eps: float = 1.0e-20
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """{count, sum, sum_square} -> (mean, inv_std) float32 arrays of shape
+    (D,)."""
+    count = np.asarray(stats["count"], np.float64)
+    mean = np.asarray(stats["sum"], np.float64) / count
+    var = np.asarray(stats["sum_square"], np.float64) / count - mean * mean
+    std = np.sqrt(np.maximum(var, eps))
+    if not norm_means:
+        mean = np.zeros_like(mean)
+    if not norm_vars:
+        std = np.ones_like(std)
+    return mean.astype(np.float32), (1.0 / std).astype(np.float32)
+
+
+def global_mvn(x: torch.Tensor, lengths: Optional[torch.Tensor],
+               mean: torch.Tensor, inv_std: torch.Tensor) -> torch.Tensor:
+    """(B, T, D) -> (x - mean) * inv_std, padding re-zeroed."""
+    out = (x - mean) * inv_std
+    if lengths is not None:
+        mask = make_valid_mask(lengths, x.shape[1])[:, :, None]
+        out = out * mask.to(out.dtype)
+    return out
 
 
 def utterance_mvn(x: torch.Tensor, lengths: Optional[torch.Tensor] = None,

@@ -17,7 +17,8 @@ it inline in forward and backward alike (nothing is stored).
 `csrc/prenorm_ffn.cu` through an autograd Function (forward kernel; backward
 kernel pair, counted once per backward call by `prenorm_ffn_bwd.launches`),
 which keep the (M, d_ff) hidden activation out of device memory; anything
-else raises. Both round LN(x) and act(.) to x's dtype before each product,
+else raises. Callers apply the shape gate `ffn_common.kernel_takes` first.
+Both round LN(x) and act(.) to x's dtype before each product,
 as the Pallas kernel does, and accumulate in float32. The weight gradients
 come back in the weights' dtype, as the Pallas kernel's do.
 """
@@ -29,61 +30,12 @@ from typing import Optional, Sequence
 import torch
 
 from espnet_tpu_torch.ops.cuda_build import check_launch, kernel_library
+from espnet_tpu_torch.ops.ffn_common import (ACTIVATIONS, DTYPE_CODES, act,
+                                             bwd_grid, check_kernel_dims,
+                                             drop_args, keep_mask,
+                                             quantize_rate, stream)
 
 LN_EPS = 1e-6
-ACTIVATIONS = {"swish": 0, "relu": 1}
-DROP_TILE = 256  # the Pallas kernel's default tile_m: the mask's row tile
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MODEL_DIMS = (256, 512)
-_FF_CHUNK = 128
-_M32 = 0xFFFFFFFF
-# card blocks the weight-gradient kernel aims to fill (2 waves on 132 SMs)
-_WGRAD_BLOCKS = 264
-_WGRAD_CHUNK = 32
-
-
-def quantize_rate(drop_rate: float) -> int:
-    """The 1/256-quantised drop level q of FastDropout (0.1 -> 26)."""
-    return 0 if drop_rate <= 0.0 else max(1, min(255, round(drop_rate * 256)))
-
-
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """a * c modulo 2**32 for int64 `a` in [0, 2**32), without overflow."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
-
-
-def _fmix32(x: torch.Tensor) -> torch.Tensor:
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
-
-
-def keep_mask(rows: int, cols: int, seed: int, q: int,
-              device=None) -> torch.Tensor:
-    """(rows, cols) bool keep mask of the Pallas kernel's hash for one int32
-    seed: row g lies in the 256-row tile g // 256, whose stream id is
-    fmix32(seed) ^ (tile * 0x9E3779B9); element (g, c) hashes counter
-    (g % 256) * cols + c and is kept when the top byte is >= q."""
-    g = torch.arange(rows, dtype=torch.int64, device=device)
-    s = _fmix32(torch.tensor(int(seed) & _M32, dtype=torch.int64,
-                             device=device))
-    stream = s ^ _mul32(g // DROP_TILE, 0x9E3779B9)
-    c = torch.arange(cols, dtype=torch.int64, device=device)
-    x = ((g % DROP_TILE)[:, None] * cols + c[None, :]) & _M32
-    x = (x + _mul32(stream, 0x9E3779B9)[:, None]) & _M32
-    return (_fmix32(x) >> 24) >= q
-
-
-def _act(h: torch.Tensor, activation: str) -> torch.Tensor:
-    if activation == "swish":
-        return h * torch.sigmoid(h)
-    if activation == "relu":
-        return torch.relu(h)
-    raise ValueError(f"unsupported activation {activation!r}")
 
 
 def _check_options(drop_rate: float, seeds, activation: str) -> None:
@@ -109,7 +61,7 @@ def prenorm_ffn_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
     xn = torch.nn.functional.layer_norm(
         xf, (d,), ln_scale.float(), ln_bias.float(), LN_EPS)
     h = xn.to(dt).float() @ w1.float() + b1.float()
-    a = _act(h, activation)
+    a = act(h, activation)
     scale = 256.0 / (256 - q) if q else 1.0
     if q:
         keep0 = keep_mask(m, a.shape[1], seeds[0], q, x.device)
@@ -124,13 +76,7 @@ def prenorm_ffn_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
 def _check_cuda_args(x2, ln_scale, ln_bias, w1, b1, w2, b2):
     m, d = x2.shape
     f = w1.shape[-1]
-    if x2.dtype not in _DTYPE_CODES:
-        raise TypeError(f"prenorm_ffn: unsupported dtype {x2.dtype}")
-    if d not in _MODEL_DIMS:
-        raise ValueError(f"prenorm_ffn: model dim {d} not in {_MODEL_DIMS}")
-    if f % _FF_CHUNK or f == 0:
-        raise ValueError(f"prenorm_ffn: d_ff {f} is not a multiple of "
-                         f"{_FF_CHUNK}")
+    check_kernel_dims("prenorm_ffn", x2, f)
     expect = {
         "x": (x2, (m, d), x2.dtype), "w1": (w1, (d, f), x2.dtype),
         "w2": (w2, (f, d), x2.dtype), "ln_scale": (ln_scale, (d,), torch.float32),
@@ -151,28 +97,16 @@ def _check_cuda_args(x2, ln_scale, ln_bias, w1, b1, w2, b2):
             raise ValueError(f"prenorm_ffn: {name} is not contiguous")
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _drop_args(q: int, seeds):
-    seeds = (0, 0) if seeds is None else seeds
-    scale = 256.0 / (256 - q) if q else 1.0
-    # int32 seeds pass as C ints (two's complement, as the kernel reads them)
-    s0, s1 = (((int(s) + 2 ** 31) & _M32) - 2 ** 31 for s in seeds)
-    return q, scale, s0, s1
-
-
 def _kernel_fwd(x2, ln_scale, ln_bias, w1, b1, w2, b2, activation,
                 residual_scale, q, seeds):
     y = torch.empty_like(x2)
-    q, dscale, s0, s1 = _drop_args(q, seeds)
+    q, dscale, s0, s1 = drop_args(q, seeds)
     code = kernel_library().espnet_prenorm_ffn_fwd(
         x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         y.data_ptr(), x2.shape[0], x2.shape[1], w1.shape[1],
         float(residual_scale), ACTIVATIONS[activation], q, dscale, s0, s1,
-        _DTYPE_CODES[x2.dtype], _stream(x2))
+        DTYPE_CODES[x2.dtype], stream(x2))
     check_launch("prenorm_ffn", code)
     prenorm_ffn.launches += 1
     return y
@@ -189,10 +123,7 @@ def prenorm_ffn_bwd(x2, ln_scale, ln_bias, w1, b1, w2, gy, activation,
     f = w1.shape[1]
     gy = gy.to(x2.dtype).contiguous()
     lib = kernel_library()
-    rows = lib.espnet_prenorm_ffn_bwd_rows_per_block()
-    n_blocks = -(-m // rows)
-    groups = max(1, min(-(-m // rows),
-                        round(_WGRAD_BLOCKS / (f // _WGRAD_CHUNK))))
+    n_blocks, groups = bwd_grid(m, f)
     dev = x2.device
     dx = torch.empty_like(x2)
     xn_buf = torch.empty_like(x2)
@@ -201,15 +132,15 @@ def prenorm_ffn_bwd(x2, ln_scale, ln_bias, w1, b1, w2, gy, activation,
     dw1p = torch.empty(groups, d, f, dtype=torch.float32, device=dev)
     dw2p = torch.empty(groups, f, d, dtype=torch.float32, device=dev)
     db1p = torch.empty(groups, f, dtype=torch.float32, device=dev)
-    q, dscale, s0, s1 = _drop_args(q, seeds)
+    q, dscale, s0, s1 = drop_args(q, seeds)
     code = lib.espnet_prenorm_ffn_bwd(
         x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), gy.data_ptr(),
         dx.data_ptr(), xn_buf.data_ptr(), dz_buf.data_ptr(),
         partial.data_ptr(), dw1p.data_ptr(), dw2p.data_ptr(),
         db1p.data_ptr(), m, d, f, groups, float(residual_scale),
-        ACTIVATIONS[activation], q, dscale, s0, s1, _DTYPE_CODES[x2.dtype],
-        _stream(x2))
+        ACTIVATIONS[activation], q, dscale, s0, s1, DTYPE_CODES[x2.dtype],
+        stream(x2))
     check_launch("prenorm_ffn_bwd", code)
     prenorm_ffn_bwd.launches += 1
     sums = partial.sum(dim=0)

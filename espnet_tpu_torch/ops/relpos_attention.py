@@ -12,10 +12,15 @@ to the kernels in `csrc/relpos_attention.cu` (which never build the
 also writes each query row's softmax max and sum, and the backward kernel
 pair (`relpos_attention_bwd`) gives dq, dk, dv and dp; du and dv-bias are
 sums of the q gradients' two parts, taken here as the JAX package does.
-Anything else raises. Both compute in float32 whatever the input dtype and
-return q's dtype. The key bias is clamped at NEG = finfo(f32).min/2, as the
-Pallas kernel pads with NEG: a query whose keys are all masked averages v
-uniformly instead of giving NaN.
+Anything else raises. `kernel_takes` is the shape gate callers apply
+first: the JAX module's (`dk % 8 == 0`, espnet_tpu/models/attention.py).
+The kernels are built for head dims 32, 64 and 128; a smaller head dim
+the gate passes is zero-padded to the next of them (the scores, and so
+the result, do not change; the scale stays 1/sqrt of the real head dim),
+and one past 128 raises on the card. Both compute in float32 whatever the
+input dtype and return q's dtype. The key bias is clamped at
+NEG = finfo(f32).min/2, as the Pallas kernel pads with NEG: a query whose
+keys are all masked averages v uniformly instead of giving NaN.
 """
 
 from __future__ import annotations
@@ -25,15 +30,31 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from espnet_tpu_torch.ops.cuda_build import check_launch, kernel_library
 
 NEG = float(np.finfo(np.float32).min) / 2
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
-_BWD_HEAD_DIMS = (32, 64)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_HEAD_DIMS = (32, 64, 128)  # the instantiations in csrc/
 _BLOCK = 64  # query rows of one dp slab (BQ in the kernel)
+
+
+def kernel_takes(head_dim: int) -> bool:
+    """The shape gate, decided before any launch: True sends the call to the
+    kernels, False to `relpos_attention_plain`."""
+    return head_dim > 0 and head_dim % 8 == 0
+
+
+def kernel_head_dim(head_dim: int) -> int:
+    """The kernel head dim a call of this head dim runs at (zero padding
+    up to it); raises past the largest."""
+    for dim in KERNEL_HEAD_DIMS:
+        if head_dim <= dim:
+            return dim
+    raise ValueError(f"the attention kernels take head dims up to "
+                     f"{KERNEL_HEAD_DIMS[-1]}, not {head_dim}")
 
 
 def key_bias(lengths_bias: Optional[torch.Tensor], b: int, t: int,
@@ -71,10 +92,9 @@ def relpos_attention_plain(q, k, v, p, pos_bias_u, pos_bias_v,
 
 def _check_cuda_args(q, k, v, p, pos_bias_u, pos_bias_v):
     b, h, t, d = q.shape
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in DTYPE_CODES:
         raise TypeError(f"relpos_attention: unsupported dtype {q.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"relpos_attention: head dim {d} not in {_HEAD_DIMS}")
+    kernel_head_dim(d)
     expect = {  # name: (tensor, shape, dtype or None for any float)
         "q": (q, (b, h, t, d), q.dtype), "k": (k, (b, h, t, d), q.dtype),
         "v": (v, (b, h, t, d), q.dtype), "p": (p, (h, 2 * t - 1, d), q.dtype),
@@ -99,7 +119,7 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _kernel_fwd(q, k, v, p, u, vb, kb, with_stats: bool):
+def _kernel_fwd(q, k, v, p, u, vb, kb, scale: float, with_stats: bool):
     b, h, t, d = q.shape
     out = torch.empty_like(q)
     stats = (torch.empty(b, h, t, 2, dtype=torch.float32, device=q.device)
@@ -108,20 +128,21 @@ def _kernel_fwd(q, k, v, p, u, vb, kb, with_stats: bool):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
         u.data_ptr(), vb.data_ptr(), kb.data_ptr(), out.data_ptr(),
         None if stats is None else stats.data_ptr(),
-        b, h, t, d, _DTYPE_CODES[q.dtype], _stream(q))
+        b, h, t, d, scale, DTYPE_CODES[q.dtype], _stream(q))
     check_launch("relpos_attention", code)
     relpos_attention.launches += 1
     return out, stats
 
 
-def relpos_attention_bwd(q, k, v, p, u, vb, kb, out, stats, dout):
+def relpos_attention_bwd(q, k, v, p, u, vb, kb, out, stats, dout,
+                         scale: float):
     """Gradients (dq, dk, dv, dp, du, dvb) of the kernel's forward, from the
     CUDA backward kernel pair; dq, dk, dv, dp in q's dtype, du and dvb
     float32. `relpos_attention_bwd.launches` counts calls."""
     b, h, t, d = q.shape
-    if d not in _BWD_HEAD_DIMS:
+    if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"relpos_attention_bwd: head dim {d} not in "
-                         f"{_BWD_HEAD_DIMS}")
+                         f"{KERNEL_HEAD_DIMS}")
     dout = dout.to(q.dtype).contiguous()
     delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
     lib = kernel_library()
@@ -134,8 +155,8 @@ def relpos_attention_bwd(q, k, v, p, u, vb, kb, out, stats, dout):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
         u.data_ptr(), vb.data_ptr(), kb.data_ptr(), dout.data_ptr(),
         stats.data_ptr(), delta.data_ptr(), dqu.data_ptr(), dqv.data_ptr(),
-        slabs.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d,
-        _DTYPE_CODES[q.dtype], _stream(q))
+        slabs.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d, scale,
+        DTYPE_CODES[q.dtype], _stream(q))
     check_launch("relpos_attention_bwd", code)
     relpos_attention_bwd.launches += 1
     # overlap-add: slab row 0 of query block n is p row T-1-(64n+63)
@@ -152,16 +173,18 @@ def relpos_attention_bwd(q, k, v, p, u, vb, kb, out, stats, dout):
 
 class _RelposAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, p, u, vb, kb):
-        out, stats = _kernel_fwd(q, k, v, p, u, vb, kb, with_stats=True)
+    def forward(ctx, q, k, v, p, u, vb, kb, scale):
+        out, stats = _kernel_fwd(q, k, v, p, u, vb, kb, scale,
+                                 with_stats=True)
         ctx.save_for_backward(q, k, v, p, u, vb, kb, out, stats)
+        ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
         dq, dk, dv, dp, du, dvb = relpos_attention_bwd(*ctx.saved_tensors,
-                                                       dout)
-        return dq, dk, dv, dp, du, dvb, None
+                                                       dout, ctx.scale)
+        return dq, dk, dv, dp, du, dvb, None, None
 
 
 def relpos_attention(q, k, v, p, pos_bias_u, pos_bias_v, lengths_bias=None):
@@ -180,12 +203,17 @@ def relpos_attention(q, k, v, p, pos_bias_u, pos_bias_v, lengths_bias=None):
     _check_cuda_args(q, k, v, p, pos_bias_u, pos_bias_v)
     b, h, t, d = q.shape
     kb = key_bias(lengths_bias, b, t, q.device).detach().contiguous()
-    u = pos_bias_u.float().contiguous()
-    vb = pos_bias_v.float().contiguous()
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (q, k, v, p, u, vb)):
-        return _RelposAttention.apply(q, k, v, p, u, vb, kb)
-    return _kernel_fwd(q, k, v, p, u, vb, kb, with_stats=False)[0]
+    scale = 1.0 / math.sqrt(d)
+    xs = (q, k, v, p, pos_bias_u.float(), pos_bias_v.float())
+    pad = kernel_head_dim(d) - d
+    if pad:  # zero columns add nothing to a score; autograd slices them off
+        xs = tuple(F.pad(x, (0, pad)) for x in xs)
+    xs = tuple(x.contiguous() for x in xs)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        out = _RelposAttention.apply(*xs, kb, scale)
+    else:
+        out = _kernel_fwd(*xs, kb, scale, with_stats=False)[0]
+    return out[..., :d] if pad else out
 
 
 relpos_attention.launches = 0

@@ -1,9 +1,12 @@
 """Where the time of one train step goes, on the CUDA card.
 
     python -m espnet_tpu_torch.profile_train [--batch 64] [--secs 15]
+        [--encoder conformer|transformer|e_branchformer]
 
-Builds the bench conformer (full width and depth, bf16 compute, dropout 0.1,
-SpecAug, random weights from a seed), runs one warm-up train step through
+Builds the bench model (full width and depth, bf16 compute, dropout 0.1,
+SpecAug, random weights from a seed) with the encoder of the chosen
+configuration of `espnet_tpu_torch.configs`; runs one warm-up train step
+through
 `make_train_step`, then one step under `torch.profiler` and one step timed
 by the host clock alone. Prints the card's name and power limit, the step's
 wall time, the device time summed over all kernels (and so the device's idle
@@ -20,7 +23,8 @@ import time
 import numpy as np
 import torch
 
-from espnet_tpu_torch.models.asr import ASRConfig, ASRModel, init_random_
+from espnet_tpu_torch.configs import ENCODERS, bench_config
+from espnet_tpu_torch.models.asr import ASRModel, init_random_
 from espnet_tpu_torch.train.optim import build_optimizer
 from espnet_tpu_torch.train.steps import TrainState, make_train_step
 
@@ -43,6 +47,7 @@ def main() -> None:
     ap.add_argument("--secs", type=float, default=15.0)
     ap.add_argument("--labels", type=int, default=40)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--encoder", default="conformer", choices=sorted(ENCODERS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train needs a CUDA card")
@@ -52,7 +57,7 @@ def main() -> None:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    cfg = ASRConfig(vocab_size=5000, dtype=torch.bfloat16)
+    cfg = bench_config(torch.bfloat16, args.encoder)
     model = init_random_(ASRModel(cfg), torch.Generator().manual_seed(0))
     tx = build_optimizer("fused_adam", lr=2e-3, schedule="warmuplr",
                          warmup_steps=25000, d_model=cfg.d_model)
@@ -82,10 +87,11 @@ def main() -> None:
     rows = sorted(events, key=lambda e: e.self_device_time_total,
                   reverse=True)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"train step B={args.batch} x {args.secs} s: wall {wall * 1e3:.1f} "
+    print(f"{args.encoder} train step B={args.batch} x {args.secs} s: "
+          f"wall {wall * 1e3:.1f} "
           f"ms (host clock, unprofiled), loss {float(stats['loss']):.4f}; "
-          f"device time of the profiled step {device_ms:.1f} ms "
-          f"(idle share of the wall {max(0.0, 1 - device_ms / 1e3 / wall):.3f})",
+          f"device time of the profiled step {device_ms:.1f} ms (idle share "
+          f"of the wall {max(0.0, 1 - device_ms / 1e3 / wall):.3f})",
           flush=True)
     print(f"{'device ms':>10} {'share':>6} {'calls':>6}  kernel", flush=True)
     for e in rows[:args.top]:

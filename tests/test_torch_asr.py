@@ -17,10 +17,13 @@ from espnet_tpu.decode.asr_inference import Speech2Text as JSpeech2Text
 from espnet_tpu.decode.scorers import length_bonus_scorer as jlength_bonus
 from espnet_tpu.models.asr import ASRConfig as JASRConfig
 from espnet_tpu.models.asr import ASRModel as JASRModel
+from espnet_tpu.ops.normalize import global_mvn as jglobal_mvn
+from espnet_tpu.ops.normalize import global_mvn_params as jglobal_mvn_params
 from espnet_tpu_torch.convert import jax_params_to_state_dict, load_jax_params
 from espnet_tpu_torch.decode.asr_inference import Speech2Text
 from espnet_tpu_torch.decode.scorers import length_bonus_scorer
 from espnet_tpu_torch.models.asr import ASRConfig, ASRModel
+from espnet_tpu_torch.ops.normalize import global_mvn, global_mvn_params
 
 ENC_TOL = 1e-4     # float32, 2 conformer blocks over the log-mel frontend
 SCORE_TOL = 1e-3   # summed log-probs over <= 15 label steps
@@ -30,7 +33,7 @@ def _torch_config():
     return ASRConfig(vocab_size=32, d_model=64, num_heads=4, d_ff=128,
                      num_encoder_layers=2, num_decoder_layers=2,
                      decoder_d_ff=128, conformer_kernel_size=7,
-                     ctc_weight=0.3)
+                     ctc_weight=0.3, normalize="utterance_mvn")
 
 
 @pytest.fixture(scope="module")
@@ -54,20 +57,28 @@ def slice_models():
 
 
 def test_config_mirrors_the_jax_config():
-    jfields = {f.name for f in dataclasses.fields(JASRConfig)}
-    tfields = {f.name for f in dataclasses.fields(ASRConfig)}
-    assert tfields <= jfields
+    """Every field the port has exists in JAX with the same default, so a
+    config that leaves a field out means the same model in both."""
+    jdefaults = {f.name: f.default for f in dataclasses.fields(JASRConfig)}
+    for f in dataclasses.fields(ASRConfig):
+        assert f.name in jdefaults, f.name
+        want = jdefaults[f.name]
+        if f.name == "dtype":  # jnp.float32 vs torch.float32
+            assert str(f.default).split(".")[-1] == want.__name__
+        else:
+            assert f.default == want, (f.name, f.default, want)
     tc, jc = _torch_config(), _flagship_config()
     assert (tc.sos_id, tc.eos_id, tc.blank_id) == (jc.sos_id, jc.eos_id,
                                                    jc.blank_id)
 
 
 def test_unported_choices_raise():
-    for kw in (dict(ctc_weight=1.0), dict(ctc_weight=0.0)):
+    for kw in (dict(ctc_weight=1.0), dict(ctc_weight=0.0),
+               dict(encoder_type="longformer")):
         with pytest.raises(NotImplementedError):
             ASRModel(dataclasses.replace(_torch_config(), **kw))
-    with pytest.raises(TypeError):  # only the bench model's choices exist
-        ASRConfig(vocab_size=8, encoder_type="transformer")
+    with pytest.raises(ValueError, match="normalize"):
+        ASRModel(dataclasses.replace(_torch_config(), normalize="cmvn"))
 
 
 def test_encode_and_ctc_log_probs_match(slice_models):
@@ -156,3 +167,57 @@ def test_converter_refuses_what_it_cannot_place(slice_models):
     wrong = ASRModel(dataclasses.replace(_torch_config(), d_ff=256))
     with pytest.raises(ValueError, match="shape"):
         load_jax_params(wrong, params)
+
+
+def test_global_mvn_model_loads_its_stats_and_matches():
+    """The JAX default config normalises with global MVN: with random
+    (non-identity) statistics in the `mvn` collection, the port carries them
+    and encodes the same; from the params alone it refuses to load."""
+    rng = np.random.RandomState(3)
+    lens = np.array([6000, 4000], np.int32)
+    speech = (0.1 * rng.randn(2, 6000)).astype(np.float32)
+    jcfg = _flagship_config(normalize="global_mvn")
+    jm = JASRModel(jcfg)
+    v = fnn.meta.unbox(jax.jit(jm.init, static_argnums=(5,))(
+        jax.random.PRNGKey(0), jnp.asarray(speech), jnp.asarray(lens),
+        jnp.ones((2, 3), jnp.int32), jnp.full((2,), 3, jnp.int32), True))
+    mvn = {"mvn": {"mean": rng.randn(80).astype(np.float32),
+                   "inv_std": (0.5 + rng.rand(80)).astype(np.float32)}}
+    variables = {"params": v["params"], "mvn": mvn}
+    je, _ = jm.apply(variables, jnp.asarray(speech), jnp.asarray(lens),
+                     method=JASRModel.encode)
+    tcfg = dataclasses.replace(_torch_config(), normalize="global_mvn")
+    assert ASRConfig(vocab_size=32).normalize == "global_mvn"
+    with pytest.raises(KeyError, match="global MVN"):
+        load_jax_params(ASRModel(tcfg), v["params"])
+    tm = load_jax_params(ASRModel(tcfg), variables).eval()
+    np.testing.assert_array_equal(tm.mvn.inv_std.numpy(),
+                                  mvn["mvn"]["inv_std"])
+    with torch.no_grad():
+        te, _ = tm.encode(torch.from_numpy(speech), torch.from_numpy(lens))
+    np.testing.assert_allclose(te.numpy(), np.asarray(je), atol=ENC_TOL,
+                               rtol=ENC_TOL)
+    with pytest.raises(KeyError, match="mvn"):  # stats the model cannot use
+        load_jax_params(ASRModel(_torch_config()), variables)
+
+
+@pytest.mark.parametrize("norm_means,norm_vars", [(True, True), (True, False),
+                                                  (False, True)])
+def test_global_mvn_stats_and_apply_match_jax(norm_means, norm_vars):
+    """{count, sum, sum_square} -> (mean, inv_std), then the padded apply."""
+    rng = np.random.RandomState(4)
+    feats = (2.0 + rng.randn(500, 6)).astype(np.float32)
+    stats = {"count": 500, "sum": feats.sum(0),
+             "sum_square": (feats.astype(np.float64) ** 2).sum(0)}
+    want = jglobal_mvn_params(stats, norm_means, norm_vars)
+    got = global_mvn_params(stats, norm_means, norm_vars)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    x = rng.randn(2, 7, 6).astype(np.float32)
+    lens = np.array([7, 4], np.int32)
+    np.testing.assert_allclose(
+        global_mvn(torch.from_numpy(x), torch.from_numpy(lens),
+                   *map(torch.from_numpy, got)).numpy(),
+        np.asarray(jglobal_mvn(jnp.asarray(x), jnp.asarray(lens),
+                               *map(jnp.asarray, want))),
+        atol=1e-6, rtol=1e-6)

@@ -9,6 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from espnet_tpu_torch.ops import ffn as tfused
+from espnet_tpu_torch.ops import ffn_common
+from espnet_tpu_torch.ops import flash_attention as tflash
 from espnet_tpu_torch.ops import prenorm_ffn as tffn
 from espnet_tpu_torch.ops import relpos_attention as trel
 
@@ -129,17 +132,22 @@ def _grads(fn, args, idx, gout):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,d", [(200, 64), (1, 64), (64, 64), (65, 64),
-                                 (65, 32)])
+                                 (65, 32), (65, 128), (200, 128), (64, 48),
+                                 (65, 96)])
 def test_relpos_backward_kernels_match_plain(cuda, dtype, t, d):
+    """Head dims 48 and 96 run zero-padded to the kernels' 64 and 128."""
     lengths = (t, max(1, t // 3), 0)
     args = _relpos_args(cuda, dtype, t=t, d=d, lengths=lengths)
     gout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
         t)).to(cuda, dtype)
     before = trel.relpos_attention_bwd.launches
-    _, got = _grads(trel.relpos_attention, args, range(6), gout)
+    got_y, got = _grads(trel.relpos_attention, args, range(6), gout)
     torch.cuda.synchronize()
     assert trel.relpos_attention_bwd.launches == before + 1
-    _, want = _grads(trel.relpos_attention_plain, args, range(6), gout)
+    want_y, want = _grads(trel.relpos_attention_plain, args, range(6), gout)
+    assert got_y.shape == want_y.shape
+    torch.testing.assert_close(got_y.float(), want_y.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
     for name, g, w in zip("q k v p u vb".split(), got, want):
         _assert_grad_close(name, g, w, dtype)
     # masked keys of a partly masked utterance get exactly zero dk and dv
@@ -150,7 +158,8 @@ def test_relpos_backward_kernels_match_plain(cuda, dtype, t, d):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,drop,d", [(333, 0.0, 256), (300, 0.1, 256),
-                                      (600, 0.1, 256), (300, 0.1, 512)])
+                                      (600, 0.1, 256), (300, 0.1, 512),
+                                      (300, 0.1, 128), (333, 0.1, 384)])
 def test_prenorm_ffn_dropout_and_backward_match_plain(cuda, dtype, m, drop,
                                                       d):
     args = _ffn_args(cuda, dtype, m=m, d=d)
@@ -218,3 +227,145 @@ def test_ctc_loss_and_gradient_match_torch_ctc(cuda):
     ref.backward()
     torch.testing.assert_close(loss, ref, atol=1e-3, rtol=1e-5)
     torch.testing.assert_close(x.grad, y.grad, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,drop,activation,d", [
+    (333, 0.0, "swish", 256), (300, 0.1, "swish", 256),
+    (600, 0.1, "relu", 256), (300, 0.1, "swish", 512),
+    (300, 0.1, "relu", 128), (333, 0.1, "swish", 384)])
+def test_fused_ffn_kernels_match_plain(cuda, dtype, m, drop, activation, d):
+    x, _, _, w1, b1, w2, b2 = _ffn_args(cuda, dtype, m=m, d=d)
+    args = (x, w1, b1, w2, b2)
+    kw = dict(seed=-12345, drop_rate=drop, activation=activation)
+    gout = torch.randn(m, d, generator=torch.Generator().manual_seed(m)
+                       ).to(cuda, dtype)
+    fwd, bwd = tfused.fused_ffn.launches, tfused.fused_ffn_bwd.launches
+    got_y, got = _grads(lambda *a: tfused.fused_ffn(*a, **kw), args,
+                        range(5), gout)
+    torch.cuda.synchronize()
+    assert tfused.fused_ffn.launches == fwd + 1
+    assert tfused.fused_ffn_bwd.launches == bwd + 1
+    want_y, want = _grads(lambda *a: tfused.fused_ffn_plain(*a, **kw), args,
+                          range(5), gout)
+    torch.testing.assert_close(got_y.float(), want_y.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    for name, g, w in zip("x w1 b1 w2 b2".split(), got, want):
+        _assert_grad_close(name, g, w, dtype)
+
+
+def _flash_args(device, dtype, b=3, h=4, t=200, d=64, lengths=(200, 77, 0)):
+    rng = np.random.RandomState(8)
+    q, k, v = (torch.from_numpy(rng.randn(b, h, t, d).astype(np.float32))
+               .to(device, dtype) for _ in range(3))
+    valid = np.arange(t)[None, :] < np.asarray(lengths)[:, None]
+    bias = np.where(valid, 0.0, np.finfo(np.float32).min).astype(np.float32)
+    return q, k, v, torch.from_numpy(bias[:, None, None, :]).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d", [(200, 64), (1, 64), (64, 32), (65, 128),
+                                 (469, 64), (65, 48), (200, 96)])
+def test_flash_kernel_and_its_gradient_match_plain(cuda, dtype, t, d):
+    """Ragged keys, one utterance with every key masked (the uniform
+    average of v); the backward recomputes through the plain version. Head
+    dims 48 and 96 run zero-padded to the kernel's 64 and 128."""
+    args = _flash_args(cuda, dtype, t=t, d=d,
+                       lengths=(t, max(1, t // 3), 0))
+    gout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
+        t)).to(cuda, dtype)
+    before = tflash.flash_attention.launches
+    got_y, got = _grads(tflash.flash_attention, args, range(3), gout)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.launches == before + 1
+    want_y, want = _grads(tflash.flash_attention_plain, args, range(3), gout)
+    assert got_y.dtype == dtype and torch.isfinite(got_y.float()).all()
+    assert got_y.shape == want_y.shape
+    torch.testing.assert_close(got_y.float(), want_y.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    for name, g, w in zip("qkv", got, want):
+        _assert_grad_close(name, g, w, dtype)
+
+
+@pytest.mark.gpu
+def test_kernels_raise_for_shapes_the_gate_passes_but_they_lack(cuda):
+    """Head dims past 128 and d_model past 512 pass the JAX package's gates
+    but not the kernels: on the card they raise, never run plain."""
+    args = _relpos_args(cuda, torch.float32, t=20, d=136, lengths=(20, 9, 0))
+    assert trel.kernel_takes(136)
+    with pytest.raises(ValueError, match="up to 128"):
+        trel.relpos_attention(*args)
+    fargs = _flash_args(cuda, torch.float32, t=20, d=136,
+                        lengths=(20, 9, 0))
+    with pytest.raises(ValueError, match="up to 128"):
+        tflash.flash_attention(*fargs)
+    x, lns, lnb, w1, b1, w2, b2 = _ffn_args(cuda, torch.float32, m=40, d=640)
+    assert ffn_common.kernel_takes(640, 1024)
+    with pytest.raises(ValueError, match="D=640"):
+        tffn.prenorm_ffn(x, lns, lnb, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="D=640"):
+        tfused.fused_ffn(x, w1, b1, w2, b2)
+
+
+def _gate_model(device, d_model, heads, encoder_type="conformer"):
+    from espnet_tpu_torch.models.asr import ASRConfig, ASRModel, init_random_
+
+    cfg = ASRConfig(vocab_size=50, d_model=d_model, num_heads=heads,
+                    d_ff=4 * d_model, num_encoder_layers=2,
+                    num_decoder_layers=1, decoder_d_ff=4 * d_model,
+                    conformer_kernel_size=15, normalize="utterance_mvn",
+                    encoder_type=encoder_type, dtype=torch.bfloat16)
+    model = init_random_(ASRModel(cfg), torch.Generator().manual_seed(0))
+    return model.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model,heads,encoder_type,kernels", [
+    # d 144, dk 36: the JAX gates send every call to the plain versions
+    (144, 4, "conformer", set()),
+    (144, 4, "e_branchformer", set()), (144, 4, "transformer", set()),
+    # dk 128: the rel-pos forward and backward kernels
+    (512, 4, "conformer", {"relpos_attention", "relpos_attention_bwd",
+                           "prenorm_ffn", "prenorm_ffn_bwd"}),
+    # dk 96 padded to 128; the FFN kernels at D=384 and D=128
+    (384, 4, "conformer", {"relpos_attention", "relpos_attention_bwd",
+                           "prenorm_ffn", "prenorm_ffn_bwd"}),
+    (384, 4, "transformer", {"flash_attention", "prenorm_ffn",
+                             "prenorm_ffn_bwd"}),
+    (384, 4, "e_branchformer", {"relpos_attention", "relpos_attention_bwd",
+                                "fused_ffn", "fused_ffn_bwd"}),
+    (128, 4, "e_branchformer", {"relpos_attention", "relpos_attention_bwd",
+                                "fused_ffn", "fused_ffn_bwd"})])
+def test_gated_shapes_serve_and_train_on_card(cuda, d_model, heads,
+                                              encoder_type, kernels):
+    """Other widths serve and train on the card: each kernel launches
+    exactly where its shape gate sends the call, the plain versions run
+    elsewhere, decided before any launch: an encode and a train step."""
+    wrappers = {
+        "relpos_attention": trel.relpos_attention,
+        "relpos_attention_bwd": trel.relpos_attention_bwd,
+        "prenorm_ffn": tffn.prenorm_ffn,
+        "prenorm_ffn_bwd": tffn.prenorm_ffn_bwd,
+        "fused_ffn": tfused.fused_ffn, "fused_ffn_bwd": tfused.fused_ffn_bwd,
+        "flash_attention": tflash.flash_attention}
+    before = {k: fn.launches for k, fn in wrappers.items()}
+    model = _gate_model(cuda, d_model, heads, encoder_type)
+    speech = 0.1 * torch.randn(2, 16000, generator=torch.Generator()
+                               .manual_seed(1)).to(cuda)
+    lens = torch.tensor([16000, 12000], device=cuda)
+    with torch.no_grad():
+        enc, olens = model.eval().encode(speech, lens)
+    assert torch.isfinite(enc.float()).all()
+    model.train()
+    text = torch.randint(1, 49, (2, 6), device=cuda)
+    loss, _ = model(speech, lens, text, torch.tensor([6, 4], device=cuda),
+                    torch.Generator().manual_seed(2))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters()
+               if p.grad is not None)
+    launched = {k for k, fn in wrappers.items() if fn.launches > before[k]}
+    assert launched == kernels

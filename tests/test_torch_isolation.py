@@ -79,7 +79,9 @@ def test_port_files_found():
     assert {"asr_inference.py", "relpos_attention.py", "prenorm_ffn.py",
             "chip_smoke.py", "convert.py", "ctc_lattice.py", "ctc.py",
             "dropout.py", "specaug.py", "losses.py", "schedulers.py",
-            "optim.py", "steps.py"} <= names
+            "optim.py", "steps.py", "ffn.py", "flash_attention.py",
+            "branchformer.py", "normalize.py", "ffn_common.py",
+            "configs.py"} <= names
 
 
 _NO_CARD_SCRIPT = r"""
@@ -93,7 +95,8 @@ from espnet_tpu_torch.decode.asr_inference import Speech2Text
 from espnet_tpu_torch.models.asr import ASRConfig, ASRModel
 model = ASRModel(ASRConfig(vocab_size=8, d_model=32, num_heads=2, d_ff=128,
                            num_encoder_layers=1, num_decoder_layers=1,
-                           decoder_d_ff=64, conformer_kernel_size=3))
+                           decoder_d_ff=64, conformer_kernel_size=3,
+                           normalize="utterance_mvn"))
 for device in (None, "cuda"):
     try:
         Speech2Text(model, device=device)

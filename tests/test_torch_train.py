@@ -234,7 +234,7 @@ def _slice_configs():
     kw = dict(vocab_size=64, d_model=64, num_heads=2, d_ff=128,
               num_encoder_layers=2, num_decoder_layers=2, decoder_d_ff=128,
               conformer_kernel_size=7, ctc_weight=0.3, lsm_weight=0.1,
-              dropout_rate=0.0, use_specaug=False)
+              dropout_rate=0.0, use_specaug=False, normalize="utterance_mvn")
     jcfg = _flagship_config(vocab=64, **{k: v for k, v in kw.items()
                                          if k != "vocab_size"})
     return jcfg, ASRConfig(**kw)
