@@ -16,20 +16,27 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    over peak and bytes over 3.35 TB/s) and, where one PyTorch call computes
    the same function, that call: the forward kernels at the serve phase's
    shapes and the bench's decode geometry (B=8, T=469 / M=3000), then all
-   nine kernels at the training shapes (rel-pos forward and backward at
-   B=64, H=4, T=469, D=64; the pre-norm FFN forward with dropout 0.1 and
-   its backward at M=64*469, F=2048; the FFN of `fused_ffn` forward and
-   backward at the E-Branchformer's M=64*469, F=1024, and recorded beside
-   it at the decoder's M=64*41, F=2048; flash attention forward at the
-   transformer's B=64, H=4, T=469, D=64 with
+   fifteen kernel entry points at the training shapes (rel-pos forward and
+   backward at B=64, H=4, T=469, D=64; the pre-norm FFN forward with
+   dropout 0.1 and its backward at M=64*469, F=2048; the FFN of `fused_ffn`
+   forward and backward at the E-Branchformer's M=64*469, F=1024, and
+   recorded beside it at the decoder's M=64*41, F=2048; flash attention
+   forward at the transformer's B=64, H=4, T=469, D=64 with
    torch.nn.functional.scaled_dot_product_attention as a yardstick; the CTC
    lattice pair at B=64, T=469, S=81, with torch.nn.functional.ctc_loss as a
-   second oracle and yardstick), in float32 and bfloat16;
-4. for each of the three configurations at full width and depth (random
+   second oracle and yardstick; the conv sub-block's head and tail (split
+   route) at M=64*469, D=256 with dropout 0.1 and the whole-module kernel
+   at B=64, T=469, D=256, k=31 over ragged utterances of 1 to 469 frames,
+   and at D=144, each forward and backward, beside the plain route's
+   sub-block), in float32 and bfloat16; then shapes past the conv kernels
+   (D 640, k 33) must raise;
+4. for each of the five configurations at full width and depth (random
    weights from a seed; `espnet_tpu_torch.configs`): the bench conformer,
-   the `transformer` (ESPnet's AISHELL-1 transformer widths) and the
-   `e_branchformer` (ESPnet's LibriSpeech-100 E-Branchformer widths), each
-   with a 6-layer decoder:
+   the `transformer` (ESPnet's AISHELL-1 transformer widths), the
+   `e_branchformer` (ESPnet's LibriSpeech-100 E-Branchformer widths), and
+   the bench conformer with its conv sub-block through the head and tail
+   kernels (`conformer_conv_split`) or the whole-module kernel
+   (`conformer_conv_module`), each with a 6-layer decoder:
    a. serve: 4 requests of 4, 6, 9 and 12 s through Speech2Text with beam
       10; the launch counters must show the exact kernel launches of the
       one encode call and nothing else, and the float32 encoder output must
@@ -49,7 +56,7 @@ the elapsed seconds, and raising on failure (exit code other than 0):
 6. a `{"kernels": [...]}` JSON line (training shapes, bfloat16; launches
    from the 3 timed train steps of the configuration whose path holds the
    kernel: the conformer's, the transformer's for flash attention, the
-   E-Branchformer's for `fused_ffn`);
+   E-Branchformer's for `fused_ffn`, the two conv routes' for theirs);
 7. last line: {"ok": true, "device": {...}}.
 """
 
@@ -286,6 +293,142 @@ def fused_ffn_case(torch, m, dtype, seed, d=256, f=1024):
     return (x, w1, b1, w2, b2), fwd, bwd
 
 
+CONV_D, CONV_K = 256, 31  # the bench conformer's conv sub-block
+
+
+def glu_case(torch, m, dtype, seed, d=CONV_D):
+    """The split route's head and tail inputs: x, x_res (M, D); LN scale
+    and bias; W1 (D, 2D), b1; W2 (D, D), b2; and (flops, bytes) of the
+    head and tail forward and backward."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    x, xr = mk(m, d).to("cuda", dtype), mk(m, d).to("cuda", dtype)
+    lns, lnb = (1 + 0.1 * mk(d)).cuda(), (0.1 * mk(d)).cuda()
+    w1 = (mk(d, 2 * d) / d ** 0.5).to("cuda", dtype)
+    b1 = (0.1 * mk(2 * d)).cuda()
+    w2 = (mk(d, d) / d ** 0.5).to("cuda", dtype)
+    b2 = (0.1 * mk(d)).cuda()
+    es = x.element_size()
+    work = {  # products; each input read once, each output written once
+        "head": (4.0 * m * d * d, (2 * m * d + 2 * d * d) * es + 4 * d * 4),
+        "head_bwd": (12.0 * m * d * d, (3 * m * d + 4 * d * d) * es
+                     + 8 * d * 4),
+        "tail": (2.0 * m * d * d, (3 * m * d + d * d) * es + 3 * d * 4),
+        "tail_bwd": (4.0 * m * d * d, (3 * m * d + 2 * d * d) * es
+                     + 5 * d * 4),
+    }
+    return (x, lns, lnb, w1, b1), (x, xr, lns, lnb, w2, b2), work
+
+
+def module_case(torch, lengths, t, dtype, seed, d=CONV_D, k=CONV_K):
+    """The whole-module route's inputs: x (B, T, D), the (B, T) mask of
+    `lengths`, its 10 parameters, and (flops, bytes) of the forward and
+    backward (every frame is computed, masked or not)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    b = len(lengths)
+    x = mk(b, t, d).to("cuda", dtype)
+    mask = (torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]).cuda()
+    params = [(1 + 0.1 * mk(d)).cuda(), (0.1 * mk(d)).cuda(),
+              (mk(d, 2 * d) / d ** 0.5).to("cuda", dtype),
+              (0.1 * mk(2 * d)).cuda(), (0.3 * mk(k, d)).to("cuda", dtype),
+              (0.1 * mk(d)).cuda(), (1 + 0.1 * mk(d)).cuda(),
+              (0.1 * mk(d)).cuda(), (mk(d, d) / d ** 0.5).to("cuda", dtype),
+              (0.1 * mk(d)).cuda()]
+    m, es = b * t, x.element_size()
+    work = {
+        "fwd": (6.0 * m * d * d + 2.0 * m * d * k,
+                (2 * m * d + 3 * d * d + k * d) * es + m * 4 + 8 * d * 4),
+        "bwd": (16.0 * m * d * d + 6.0 * m * d * k,
+                (3 * m * d + 6 * d * d + 2 * k * d) * es + m * 4
+                + 16 * d * 4),
+    }
+    return x, mask, params, work
+
+
+def check_conv_kernels(torch, dn, dtype, label, m, b, t, lengths, drop,
+                       grads, iters):
+    """The six conv entry points against their plain versions at one shape:
+    the head and tail at M = m rows, the whole module at (b, t) with
+    `lengths`; forwards, and with `grads` the backward kernels too. Returns
+    the results by kernel name."""
+    from espnet_tpu_torch.ops import conv_glu as tglu
+    from espnet_tpu_torch.ops import conv_module as tcm
+
+    out = {}
+    head, tail, work = glu_case(torch, m, dtype, 12)
+    kw = {"seed": 271828, "drop_rate": drop}
+    lab = f"{label} M={m} D={CONV_D}"
+    with torch.no_grad():
+        out["prenorm_glu"] = check_kernel(
+            torch, "prenorm_glu", tglu.prenorm_glu, tglu.prenorm_glu_plain,
+            head, *work["head"], dn, lab, iters=iters)
+        out["postnorm_proj"] = check_kernel(
+            torch, "postnorm_proj", tglu.postnorm_proj,
+            tglu.postnorm_proj_plain, tail, *work["tail"], dn,
+            f"{lab} dropout {drop}", kw, iters=iters)
+    gout = torch.randn(m, CONV_D, generator=torch.Generator().manual_seed(
+        13)).to("cuda", dtype)
+    if grads:
+        out["prenorm_glu_bwd"] = check_grads(
+            torch, "prenorm_glu_bwd", dn, lab, tglu.prenorm_glu,
+            tglu.prenorm_glu_plain, head, 5, gout, *work["head_bwd"],
+            iters=iters)
+        out["postnorm_proj_bwd"] = check_grads(
+            torch, "postnorm_proj_bwd", dn, f"{lab} dropout {drop}",
+            lambda *a: tglu.postnorm_proj(*a, **kw),
+            lambda *a: tglu.postnorm_proj_plain(*a, **kw), tail, 6, gout,
+            *work["tail_bwd"], iters=iters)
+    for d, k in ((CONV_D, CONV_K), (144, 31)) if grads else ((CONV_D,
+                                                              CONV_K),):
+        x, mask, params, work = module_case(torch, lengths, t, dtype, 14,
+                                            d=d, k=k)
+        kw = {"seed": -31337, "drop_rate": drop, "kernel_size": k}
+        lab = (f"{label} B={b} T={t} D={d} k={k} lengths {min(lengths)}.."
+               f"{max(lengths)} dropout {drop}")
+        args = (x, *params)
+        kern = lambda x, *p: tcm.conv_module(x, mask, *p, **kw)  # noqa: E731
+        plain = lambda x, *p: tcm.conv_module_plain(  # noqa: E731
+            x, mask, *p, **kw)
+        with torch.no_grad():
+            r = check_kernel(torch, "conv_module", kern, plain, args,
+                             *work["fwd"], dn, lab, iters=iters)
+        gout = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+            15)).to("cuda", dtype)
+        rb = check_grads(torch, "conv_module_bwd", dn, lab, kern, plain,
+                         args, 11, gout, *work["bwd"],
+                         iters=iters) if grads else None
+        if d == CONV_D:
+            out.update({"conv_module": r, "conv_module_bwd": rb})
+    return out
+
+
+def plain_route_ms(torch, b, t, dtype, iters):
+    """The plain route's whole conv sub-block (LN, the PyTorch conv module,
+    FastDropout 0.1, residual) at (b, t, 256), k 31, the comparison for the
+    kernel routes: (forward ms, forward and backward ms)."""
+    from espnet_tpu_torch.models.conformer import ConvolutionModule
+    from espnet_tpu_torch.models.layers import LayerNorm
+    from espnet_tpu_torch.ops.dropout import fast_dropout
+
+    conv = ConvolutionModule(CONV_D, CONV_K, dtype).cuda()
+    norm = LayerNorm(CONV_D, dtype).cuda()
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randn(b, t, CONV_D, generator=gen).to("cuda", dtype) \
+        .requires_grad_(True)
+    mask = torch.ones(b, t, dtype=torch.bool, device="cuda")
+
+    def fwd():
+        return x + fast_dropout(conv(norm(x), mask), 0.1, gen)
+
+    def fwd_bwd():
+        fwd().backward(torch.ones_like(x))
+
+    with torch.no_grad():
+        f = time_ms(torch, fwd, iters)
+    return f, time_ms(torch, fwd_bwd, iters)
+
+
 def phase_kernels(torch, serve_b, serve_t):
     """The forward kernels against their plain versions at the serve and
     decode shapes."""
@@ -332,6 +475,35 @@ def phase_kernels(torch, serve_b, serve_t):
                          args, flops, nbytes, dn,
                          f"serve M={m} D=256 F=1024 swish",
                          {"activation": "swish"})
+        # the conv routes' forwards (ragged requests, the longest = T')
+        lengths = [max(1, serve_t - (serve_t * i) // (2 * serve_b))
+                   for i in range(serve_b)]
+        check_conv_kernels(torch, dn, dtype, "serve", m, serve_b, serve_t,
+                           lengths, 0.0, grads=False, iters=20)
+
+
+def check_conv_shapes_raise(torch):
+    """Shapes past the conv kernels raise on the card, never run plain:
+    D 640 for the head and tail, D 640 and k 33 for the whole module."""
+    from espnet_tpu_torch.ops import conv_glu as tglu
+    from espnet_tpu_torch.ops import conv_module as tcm
+
+    head, tail, _ = glu_case(torch, 40, torch.float32, 17, d=640)
+    cases = [("prenorm_glu D=640", lambda: tglu.prenorm_glu(*head)),
+             ("postnorm_proj D=640", lambda: tglu.postnorm_proj(*tail))]
+    for d, k in ((640, 31), (256, 33)):
+        x, mask, params, _ = module_case(torch, [9, 4], 9, torch.float32, 18,
+                                         d=d, k=k)
+        cases.append((f"conv_module D={d} k={k}",
+                      lambda x=x, mask=mask, p=params, k=k:
+                      tcm.conv_module(x, mask, *p, kernel_size=k)))
+    for name, call in cases:
+        try:
+            call()
+        except ValueError as e:
+            log("kernels", f"{name} raises as it should: {e}")
+        else:
+            raise AssertionError(f"{name} ran; the kernels do not take it")
 
 
 def ctc_case(torch, np, b, t, u, v, seed):
@@ -442,6 +614,18 @@ def phase_train_kernels(torch, np):
             main.update({"relpos_attention": r, "relpos_attention_bwd": rb,
                          "prenorm_ffn": rf, "prenorm_ffn_bwd": rfb,
                          "flash_attention": fa})
+        # the conv routes: ragged utterances of 1 frame to T
+        lengths = [t, 1] + [t - (i % 9) * 7 for i in range(2, b)]
+        conv = check_conv_kernels(torch, dn, dtype, "train", m, b, t,
+                                  lengths, 0.1, grads=True, iters=5)
+        if dtype == torch.bfloat16:
+            main.update(conv)
+            fwd_ms, step_ms = plain_route_ms(torch, b, t, dtype, 5)
+            log("kernels", f"plain conv sub-block (LN, PyTorch conv module, "
+                f"FastDropout, residual) train B={b} T={t} D={CONV_D} "
+                f"k={CONV_K} {dn}: forward {fwd_ms:.4f} ms, forward and "
+                f"backward {step_ms:.4f} ms")
+    check_conv_shapes_raise(torch)
 
     # the CTC lattice pair, float32, S = 2*40+1
     u, v = TRAIN_LABELS, 5000
@@ -535,6 +719,18 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                       "espnet_tpu/ops/pallas_ffn.py:137"),
     "flash_attention": ("espnet_tpu_torch/csrc/flash_attention.cu",
                         "espnet_tpu/ops/pallas_attention.py:133"),
+    "prenorm_glu": ("espnet_tpu_torch/csrc/conv_glu.cu",
+                    "espnet_tpu/ops/pallas_conv_glu.py:177"),
+    "prenorm_glu_bwd": ("espnet_tpu_torch/csrc/conv_glu.cu",
+                        "espnet_tpu/ops/pallas_conv_glu.py:137"),
+    "postnorm_proj": ("espnet_tpu_torch/csrc/conv_glu.cu",
+                      "espnet_tpu/ops/pallas_conv_glu.py:335"),
+    "postnorm_proj_bwd": ("espnet_tpu_torch/csrc/conv_glu.cu",
+                          "espnet_tpu/ops/pallas_conv_glu.py:294"),
+    "conv_module": ("espnet_tpu_torch/csrc/conv_module.cu",
+                    "espnet_tpu/ops/pallas_conv_module.py:305"),
+    "conv_module_bwd": ("espnet_tpu_torch/csrc/conv_module.cu",
+                        "espnet_tpu/ops/pallas_conv_module.py:252"),
 }
 REQUEST_SECONDS = (4.0, 6.0, 9.0, 12.0)
 SAMPLE_RATE = 16000
@@ -557,6 +753,15 @@ CONFIGS = {
                        {"fused_ffn": 2 * L, "fused_ffn_bwd": 2 * L,
                         "relpos_attention": L, "relpos_attention_bwd": L,
                         **CTC}),
+    # the conformer's conv sub-block through the head and tail kernels, or
+    # the whole-module kernel (configs.encoder_options)
+    "conformer_conv_split": (
+        {**CONFORMER[0], "prenorm_glu": L, "postnorm_proj": L},
+        {**CONFORMER[1], "prenorm_glu": L, "prenorm_glu_bwd": L,
+         "postnorm_proj": L, "postnorm_proj_bwd": L}),
+    "conformer_conv_module": (
+        {**CONFORMER[0], "conv_module": L},
+        {**CONFORMER[1], "conv_module": L, "conv_module_bwd": L}),
 }
 # conformers at other widths: d 144 (head dim 36 and d_model 144 fail the
 # JAX package's gates: plain everywhere, as there), d 384 (head dim 96,
@@ -570,6 +775,11 @@ GATE_CONFIGS = {
 MAIN_PATH = {  # kernel: the configuration whose train run gives its launches
     "fused_ffn": "e_branchformer", "fused_ffn_bwd": "e_branchformer",
     "flash_attention": "transformer",
+    **{k: "conformer_conv_split" for k in (
+        "prenorm_glu", "prenorm_glu_bwd", "postnorm_proj",
+        "postnorm_proj_bwd")},
+    "conv_module": "conformer_conv_module",
+    "conv_module_bwd": "conformer_conv_module",
 }
 
 
@@ -593,8 +803,9 @@ def serve_shapes(cfg, lengths):
 
 def reset_counts():
     """Set every kernel's launch count to 0; returns the wrappers by name."""
-    from espnet_tpu_torch.ops import (ctc_lattice, ffn, flash_attention,
-                                      prenorm_ffn, relpos_attention)
+    from espnet_tpu_torch.ops import (conv_glu, conv_module, ctc_lattice, ffn,
+                                      flash_attention, prenorm_ffn,
+                                      relpos_attention)
 
     wrappers = {
         "relpos_attention": relpos_attention.relpos_attention,
@@ -606,6 +817,12 @@ def reset_counts():
         "fused_ffn": ffn.fused_ffn,
         "fused_ffn_bwd": ffn.fused_ffn_bwd,
         "flash_attention": flash_attention.flash_attention,
+        "prenorm_glu": conv_glu.prenorm_glu,
+        "prenorm_glu_bwd": conv_glu.prenorm_glu_bwd,
+        "postnorm_proj": conv_glu.postnorm_proj,
+        "postnorm_proj_bwd": conv_glu.postnorm_proj_bwd,
+        "conv_module": conv_module.conv_module,
+        "conv_module_bwd": conv_module.conv_module_bwd,
     }
     for fn in wrappers.values():
         fn.launches = 0
@@ -617,7 +834,7 @@ def sync(torch, device):
         torch.cuda.synchronize()
 
 
-def phase_serve(torch, np, cfg, device="cuda", tag="serve"):
+def phase_serve(torch, np, cfg, device="cuda", tag="serve", options=None):
     """Serve the requests through Speech2Text; returns the launch counts of
     the served run. (device="cpu" with a small config rehearses the phase
     where there is no card: the wrappers then take their plain versions.)"""
@@ -627,7 +844,8 @@ def phase_serve(torch, np, cfg, device="cuda", tag="serve"):
     from espnet_tpu_torch.models.asr import ASRModel, init_random_
 
     t = time.perf_counter()
-    model = init_random_(ASRModel(cfg), torch.Generator().manual_seed(0))
+    model = init_random_(ASRModel(cfg, options),
+                         torch.Generator().manual_seed(0))
     s2t = Speech2Text(model, device=device, beam_size=10, ctc_weight=0.3,
                       max_steps=40)
     n_params = sum(p.numel() for p in model.parameters())
@@ -672,7 +890,7 @@ def phase_serve(torch, np, cfg, device="cuda", tag="serve"):
     # the same weights in float32 and in bf16: the kernel path against the
     # plain path (asserted in float32, where the two differ only in rounding)
     for dtype in (torch.float32, torch.bfloat16):
-        m = ASRModel(dataclasses.replace(cfg, dtype=dtype))
+        m = ASRModel(dataclasses.replace(cfg, dtype=dtype), options)
         m.load_state_dict(model.state_dict())
         m = m.to(device).eval()
         with torch.no_grad():
@@ -707,7 +925,8 @@ def train_batch(np, b, seconds, u, vocab, seed):
             "text_lengths": np.full((b,), u, np.int32)}
 
 
-def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity"):
+def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity",
+                       options=None):
     """One float32 forward and backward of the full-width model with the
     kernels and with their plain versions (dropout and SpecAug off)."""
     import dataclasses
@@ -716,7 +935,8 @@ def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity"):
 
     cfg = dataclasses.replace(cfg, dtype=torch.float32, dropout_rate=0.0,
                               use_specaug=False)
-    model = init_random_(ASRModel(cfg), torch.Generator().manual_seed(1))
+    model = init_random_(ASRModel(cfg, options),
+                         torch.Generator().manual_seed(1))
     model = model.to(device).train()
     batch = train_batch(np, len(REQUEST_SECONDS), REQUEST_SECONDS, 20,
                         cfg.vocab_size, 2)
@@ -759,7 +979,7 @@ def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity"):
 
 def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
                 seconds=TRAIN_SECONDS, labels=TRAIN_LABELS,
-                steps=TRAIN_TIMED_STEPS, tag="train"):
+                steps=TRAIN_TIMED_STEPS, tag="train", options=None):
     """The bench's training run through make_train_step: 1 warm-up step,
     then `steps` timed steps. Returns the launch counts of the timed steps.
     (device="cpu" with a small config rehearses the phase where there is no
@@ -769,7 +989,8 @@ def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
     from espnet_tpu_torch.train.steps import TrainState, make_train_step
 
     t = time.perf_counter()
-    model = init_random_(ASRModel(cfg), torch.Generator().manual_seed(0))
+    model = init_random_(ASRModel(cfg, options),
+                         torch.Generator().manual_seed(0))
     tx = build_optimizer("fused_adam", lr=2e-3, schedule="warmuplr",
                          warmup_steps=25000, d_model=cfg.d_model)
     step = make_train_step(model, tx, device=device)
@@ -827,19 +1048,23 @@ def expected_counts(per_step: dict, steps: int) -> dict:
 
 
 def run_config(torch, np, name, cfg, per_encode, per_step, parity=True,
-               train_batch_size=TRAIN_BATCH, train_steps=TRAIN_TIMED_STEPS):
-    """Serve, (train parity,) train one configuration; checks the exact
-    launches of the encode and of the timed train steps. Returns the train
-    steps' launch counts."""
-    serve = phase_serve(torch, np, cfg, tag=f"serve[{name}]")
+               train_batch_size=TRAIN_BATCH, train_steps=TRAIN_TIMED_STEPS,
+               options=None):
+    """Serve, (train parity,) train one configuration (`options`: its
+    encoder options); checks the exact launches of the encode and of the
+    timed train steps. Returns the train steps' launch counts."""
+    serve = phase_serve(torch, np, cfg, tag=f"serve[{name}]",
+                        options=options)
     want = expected_counts(per_encode, 1)
     if serve != want:
         raise AssertionError(f"{name}: one encode launched {serve}, "
                              f"expected {want}")
     if parity:
-        phase_train_parity(torch, np, cfg, tag=f"train-parity[{name}]")
+        phase_train_parity(torch, np, cfg, tag=f"train-parity[{name}]",
+                           options=options)
     launches, _ = phase_train(torch, np, cfg, batch_size=train_batch_size,
-                              steps=train_steps, tag=f"train[{name}]")
+                              steps=train_steps, tag=f"train[{name}]",
+                              options=options)
     want = expected_counts(per_step, train_steps)
     if launches != want:
         raise AssertionError(f"{name}: {train_steps} train steps launched "
@@ -851,7 +1076,7 @@ def main() -> int:
     import numpy as np
     import torch
 
-    from espnet_tpu_torch.configs import bench_config
+    from espnet_tpu_torch.configs import bench_config, encoder_options
 
     name = phase_device(torch)
     phase_build()
@@ -860,7 +1085,7 @@ def main() -> int:
     phase_kernels(torch, serve_b, serve_t)
     results = phase_train_kernels(torch, np)
     launches = {c: run_config(torch, np, c, bench_config(torch.bfloat16, c),
-                              *counts)
+                              *counts, options=encoder_options(c))
                 for c, counts in CONFIGS.items()}
     for c, (overrides, *counts) in GATE_CONFIGS.items():
         run_config(torch, np, c, bench_config(torch.bfloat16, **overrides),

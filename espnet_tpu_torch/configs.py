@@ -7,6 +7,9 @@ gives the `ASRConfig` of bench.py's model (raw input, SpecAug, utterance
 MVN, 12 x 256 encoder, 6 x 2048 decoder, CTC weight 0.3, label smoothing
 0.1, dropout 0.1, vocab 5000) with the encoder of the named configuration
 (`ENCODERS`); keyword overrides replace any field after that.
+`encoder_options(name)` gives the configuration's encoder options (the
+`encoder_options` of `ASRModel`): the conformer's conv routes, which the
+JAX `ASRConfig` has no field for.
 """
 
 from __future__ import annotations
@@ -32,6 +35,14 @@ ENCODERS = {
     # ASRConfig has no field for it): a departure from the recipe, which
     # sets merge_conv_kernel 31.
     "e_branchformer": {"encoder_type": "e_branchformer", "d_ff": 1024},
+    # bench.py's conformer with its conv sub-block through the head and tail
+    # kernels (JAX: fused_conv_split) or the whole-module kernel (fused_conv)
+    "conformer_conv_split": {"encoder_type": "conformer"},
+    "conformer_conv_module": {"encoder_type": "conformer"},
+}
+OPTIONS = {
+    "conformer_conv_split": {"fused_conv_split": True},
+    "conformer_conv_module": {"fused_conv": True},
 }
 
 
@@ -42,3 +53,11 @@ def bench_config(dtype, name: str = "conformer", **overrides) -> ASRConfig:
                          f"{sorted(ENCODERS)}")
     fields = {**BENCH, **ENCODERS[name], "dtype": dtype, **overrides}
     return ASRConfig(**fields)
+
+
+def encoder_options(name: str) -> dict:
+    """The encoder options of configuration `name` (empty for most)."""
+    if name not in ENCODERS:
+        raise ValueError(f"unknown configuration {name!r}; one of "
+                         f"{sorted(ENCODERS)}")
+    return dict(OPTIONS.get(name, {}))

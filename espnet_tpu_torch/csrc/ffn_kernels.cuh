@@ -10,6 +10,11 @@
 //
 // both in espnet_tpu/ops/pallas_ffn.py, act swish|relu.
 //
+// Its device pieces -- `ln_row` / `layer_norm_rows`, `tile_product`, the
+// hash (`tile_stream`, `keep_counter`), `ln_bwd_row`, `store_block_sums`
+// -- and the weight-gradient kernel `atb_kernel` also build the conformer
+// conv kernels (conv_glu.cu, conv_module.cu).
+//
 // Dropout is the Pallas kernels' counter hash (`_keep_mask`), bit for bit:
 // element (row g, column c) of a tensor of width C belongs to the logical
 // 256-row tile pid = g / 256, its counter is (g % 256) * C + c, the stream
@@ -82,20 +87,37 @@ __device__ __forceinline__ unsigned fmix32(unsigned x) {
   return x;
 }
 
-// Stream id of the logical tile holding row g.
-__device__ __forceinline__ unsigned drop_stream(int seed, int g) {
+// Stream id of hash tile `tile` (the Pallas kernel's program id).
+__device__ __forceinline__ unsigned tile_stream(int seed, int tile) {
   return fmix32(static_cast<unsigned>(seed)) ^
-         (static_cast<unsigned>(g / DROP_TILE) * 0x9E3779B9u);
+         (static_cast<unsigned>(tile) * 0x9E3779B9u);
+}
+
+// Keep bit of the element with counter `counter` (row within the tile times
+// the width, plus the column) in the tile of stream id `stream`.
+__device__ __forceinline__ bool keep_counter(unsigned stream, unsigned counter,
+                                             int q) {
+  return (fmix32(counter + stream * 0x9E3779B9u) >> 24) >=
+         static_cast<unsigned>(q);
+}
+
+// Stream id of the logical 256-row tile holding row g.
+__device__ __forceinline__ unsigned drop_stream(int seed, int g) {
+  return tile_stream(seed, g / DROP_TILE);
 }
 
 // Keep bit of (row g, column c) of a width-C tensor, given g's stream id.
 __device__ __forceinline__ bool drop_keep(unsigned stream, int g, int C,
                                           int c, int q) {
-  const unsigned counter = static_cast<unsigned>(g % DROP_TILE) *
-                               static_cast<unsigned>(C) +
-                           static_cast<unsigned>(c);
-  return (fmix32(counter + stream * 0x9E3779B9u) >> 24) >=
-         static_cast<unsigned>(q);
+  return keep_counter(stream,
+                      static_cast<unsigned>(g % DROP_TILE) *
+                              static_cast<unsigned>(C) +
+                          static_cast<unsigned>(c),
+                      q);
+}
+
+__device__ __forceinline__ float sigmoidf(float x) {
+  return 1.f / (1.f + expf(-x));
 }
 
 __device__ __forceinline__ float act_fwd(float h, int act) {
@@ -108,46 +130,178 @@ __device__ __forceinline__ float act_grad(float h, int act) {
   return s * (1.f + h * (1.f - s));
 }
 
-// LayerNorm of BM rows of x into xn_s (rounded to T); warp w does rows
-// 4w..4w+3. Optionally keeps each row's mean and 1/std.
-template <typename T, int D>
+// LayerNorm (eps 1e-6) of one row of n <= DP values held by one warp (value
+// d = lane + 32 e of src; a row that is not `valid` reads as zeros):
+// dst[d] = round_to<T>(epi(xhat * scale + bias)) for d < n and 0 for
+// n <= d < DP, with epi the swish where SWISH, else the identity. dst may be
+// src. Returns the row's mean and 1/std.
+template <typename S, typename T, int DP, bool SWISH>
+__device__ __forceinline__ void ln_row(const S* src, int n, bool valid,
+                                       const float* __restrict__ scale,
+                                       const float* __restrict__ bias,
+                                       float* dst, float& mean_out,
+                                       float& inv_out) {
+  constexpr int ZJ = DP / 32;
+  const int lane = threadIdx.x & 31;
+  float vals[ZJ];
+  float sum = 0.f;
+#pragma unroll
+  for (int e = 0; e < ZJ; ++e) {
+    const int d = lane + 32 * e;
+    vals[e] = valid && d < n ? to_f32(src[d]) : 0.f;
+    sum += vals[e];
+  }
+  const float mean = warp_sum(sum) / n;
+  float sq = 0.f;
+#pragma unroll
+  for (int e = 0; e < ZJ; ++e) {
+    vals[e] = lane + 32 * e < n ? vals[e] - mean : 0.f;
+    sq += vals[e] * vals[e];
+  }
+  const float inv = rsqrtf(warp_sum(sq) / n + LN_EPS);
+#pragma unroll
+  for (int e = 0; e < ZJ; ++e) {
+    const int d = lane + 32 * e;
+    float v = 0.f;
+    if (d < n) {
+      v = vals[e] * inv * scale[d] + bias[d];
+      if (SWISH) v = v * sigmoidf(v);
+    }
+    dst[d] = round_to<T>(v);
+  }
+  mean_out = mean;
+  inv_out = inv;
+}
+
+// LayerNorm of BM rows of x (M x D) into xn_s (rounded to T, epi as in
+// ln_row); warp w does rows 4w..4w+3. Optionally keeps each row's mean and
+// 1/std.
+template <typename T, int D, bool SWISH = false>
 __device__ __forceinline__ void layer_norm_rows(
     const T* __restrict__ x, const float* __restrict__ ln_scale,
     const float* __restrict__ ln_bias, float* xn_s, float* mean_s,
     float* inv_s, int row0, int M) {
-  constexpr int LDX = D + 1;
-  constexpr int ZJ = D / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int rr = 0; rr < BM / 8; ++rr) {
     const int r = warp * (BM / 8) + rr;
     const int gi = row0 + r;
-    float vals[ZJ];
-    float sum = 0.f;
-#pragma unroll
-    for (int e = 0; e < ZJ; ++e) {
-      vals[e] = gi < M ? to_f32(x[static_cast<size_t>(gi) * D + lane + 32 * e])
-                       : 0.f;
-      sum += vals[e];
-    }
-    const float mean = warp_sum(sum) / D;
-    float sq = 0.f;
-#pragma unroll
-    for (int e = 0; e < ZJ; ++e) {
-      vals[e] -= mean;
-      sq += vals[e] * vals[e];
-    }
-    const float inv = rsqrtf(warp_sum(sq) / D + LN_EPS);
-#pragma unroll
-    for (int e = 0; e < ZJ; ++e) {
-      const int d = lane + 32 * e;
-      xn_s[r * LDX + d] =
-          round_to<T>(vals[e] * inv * ln_scale[d] + ln_bias[d]);
-    }
+    float mean, inv;
+    ln_row<T, T, D, SWISH>(x + static_cast<size_t>(gi < M ? gi : 0) * D, D,
+                           gi < M, ln_scale, ln_bias, xn_s + r * (D + 1),
+                           mean, inv);
     if (mean_s != nullptr && lane == 0) {
       mean_s[r] = mean;
       inv_s[r] = inv;
     }
+  }
+}
+
+// The block's product of its 32 rows of A (shared memory, row r at
+// a_s + r * lda; warp w holds rows w, w+8, w+16, w+24) with NJ * 32 columns
+// of W (K x ncols, W(k, c) = w[k * ld + c]; TRANS: w[c * ld + k]):
+// acc[ii][jj] += sum_{k < K} A(w + 8 ii, k) W(k, lane + 32 jj). Slabs of KS
+// rows of W pass through w_s (KS x (NJ * 32 + TRANS) floats). With GUARD,
+// rows k >= K and columns c >= ncols of W read as 0, and A's columns from
+// K up to the next multiple of KS must hold finite values (the callers
+// keep zeros there); without it (the FFN forward), K must be a multiple of
+// KS and ncols at least NJ * 32. Every thread of the block calls it; it
+// begins with a barrier, so the caller's writes to a_s before the call are
+// seen.
+template <typename T, int NJ, bool TRANS, bool GUARD = true>
+__device__ __forceinline__ void tile_product(const float* a_s, int lda,
+                                             const T* __restrict__ w, int ld,
+                                             int K, int ncols, float* w_s,
+                                             float (&acc)[4][NJ]) {
+  constexpr int NC = NJ * 32;
+  constexpr int LDW = NC + (TRANS ? 1 : 0);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  for (int k0 = 0; k0 < K; k0 += KS) {
+    __syncthreads();  // earlier readers of w_s done, a_s written
+    for (int e = tid; e < KS * NC; e += THREADS) {
+      // neighbouring threads on neighbouring addresses of w
+      const int kk = TRANS ? e % KS : e / NC;
+      const int c = TRANS ? e / KS : e % NC;
+      const int k = k0 + kk;
+      float v = 0.f;
+      if (!GUARD || (k < K && c < ncols))
+        v = to_f32(TRANS ? w[static_cast<size_t>(c) * ld + k]
+                         : w[static_cast<size_t>(k) * ld + c]);
+      w_s[kk * LDW + c] = v;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < KS; ++kk) {
+      float a[4], wv[NJ];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+        a[ii] = a_s[(warp + 8 * ii) * lda + k0 + kk];
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) wv[jj] = w_s[kk * LDW + lane + 32 * jj];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) acc[ii][jj] += a[ii] * wv[jj];
+    }
+  }
+}
+
+// LayerNorm backward of one row held by one warp (value lane + 32 e < n):
+// dxv = d LN / d x for the gradient dyv of LN's output, given the row's
+// xhat and 1/std; adds dyv * xhat and dyv to the LN scale and bias sums.
+template <int ZJ>
+__device__ __forceinline__ void ln_bwd_row(const float (&dyv)[ZJ],
+                                           const float (&xh)[ZJ],
+                                           const float* __restrict__ scale,
+                                           float inv, int n,
+                                           float (&dxv)[ZJ], float (&dls)[ZJ],
+                                           float (&dlb)[ZJ]) {
+  const int lane = threadIdx.x & 31;
+  float dxh[ZJ];
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < ZJ; ++jj) {
+    const int d = lane + 32 * jj;
+    dxh[jj] = 0.f;
+    if (d >= n) continue;
+    dxh[jj] = dyv[jj] * scale[d];
+    s1 += dxh[jj];
+    s2 += dxh[jj] * xh[jj];
+    dls[jj] += dyv[jj] * xh[jj];
+    dlb[jj] += dyv[jj];
+  }
+  const float m1 = warp_sum(s1) / n;
+  const float m2 = warp_sum(s2) / n;
+#pragma unroll
+  for (int jj = 0; jj < ZJ; ++jj)
+    dxv[jj] = (dxh[jj] - m1 - xh[jj] * m2) * inv;
+}
+
+// The block's sums over its 8 warps of NP per-thread column vectors (vals[p]
+// [jj] for column lane + 32 jj) into out[p * n + d], d < n. red: 8 * NP *
+// ZJ * 32 floats of shared memory that no thread reads any more.
+template <int NP, int ZJ>
+__device__ __forceinline__ void store_block_sums(const float (&vals)[NP][ZJ],
+                                                 float* red, float* out,
+                                                 int n) {
+  constexpr int W = ZJ * 32;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  __syncthreads();
+#pragma unroll
+  for (int jj = 0; jj < ZJ; ++jj)
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      red[(warp * NP + p) * W + lane + 32 * jj] = vals[p][jj];
+  __syncthreads();
+  for (int e = tid; e < NP * W; e += THREADS) {
+    float s = 0.f;
+    for (int w = 0; w < 8; ++w) s += red[w * NP * W + e];
+    const int p = e / W, d = e % W;
+    if (d < n) out[p * n + d] = s;
   }
 }
 
@@ -222,30 +376,10 @@ __global__ void __launch_bounds__(THREADS)
     for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) hacc[ii][jj] = 0.f;
-
-    for (int k0 = 0; k0 < D; k0 += KS) {
-      __syncthreads();  // earlier readers of w1_s (and xn_s writes) done
-      for (int e = tid; e < KS * BF; e += THREADS) {
-        const int kk = e / BF, f = e % BF;
-        w1_s[e] = to_f32(w1[static_cast<size_t>(k0 + kk) * F + c0 + f]);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KS; ++kk) {
-        float a[4], wv[4];
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii)
-          a[ii] = xn_s[(warp + 8 * ii) * LDX + k0 + kk];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) wv[jj] = w1_s[kk * BF + lane + 32 * jj];
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) hacc[ii][jj] += a[ii] * wv[jj];
-      }
-    }
-    // The previous chunk's readers of h_s passed the barrier at the top of
-    // the k0 loop above, so h_s may be written now.
+    tile_product<T, 4, false, false>(xn_s, LDX, w1 + c0, F, D, BF, w1_s,
+                                     hacc);
+    // The previous chunk's readers of h_s passed the first barrier of the
+    // product above, so h_s may be written now.
 #pragma unroll
     for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
@@ -258,28 +392,9 @@ __global__ void __launch_bounds__(THREADS)
                    : 0.f;
         h_s[(warp + 8 * ii) * LDH + f] = round_to<T>(hv);
       }
-
-    for (int k0 = 0; k0 < BF; k0 += KS) {
-      __syncthreads();  // h_s complete; earlier readers of w2_s done
-      for (int e = tid; e < KS * D; e += THREADS) {
-        const int kk = e / D, n = e % D;
-        w2_s[e] = to_f32(w2[static_cast<size_t>(c0 + k0 + kk) * D + n]);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KS; ++kk) {
-        float a[4], wv[ZJ];
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii)
-          a[ii] = h_s[(warp + 8 * ii) * LDH + k0 + kk];
-#pragma unroll
-        for (int jj = 0; jj < ZJ; ++jj) wv[jj] = w2_s[kk * D + lane + 32 * jj];
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-          for (int jj = 0; jj < ZJ; ++jj) z[ii][jj] += a[ii] * wv[jj];
-      }
-    }
+    tile_product<T, ZJ, false, false>(h_s, LDH,
+                                      w2 + static_cast<size_t>(c0) * D, D,
+                                      BF, D, w2_s, z);
   }
 
 #pragma unroll
@@ -360,10 +475,14 @@ __global__ void __launch_bounds__(THREADS)
                           M);
   else
     load_rows<T, D>(x, xn_s, row0, M);
-  // dz = drop1(s * g) (LN) or g, rounded; partial db2 over this warp's rows
-  float db2p[ZJ];
+  // per-thread column sums: dLN scale, dLN bias, db2 | db2
+  constexpr int NP = LN ? 3 : 1;
+  float part[NP][ZJ];
 #pragma unroll
-  for (int e = 0; e < ZJ; ++e) db2p[e] = 0.f;
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int e = 0; e < ZJ; ++e) part[p][e] = 0.f;
+  // dz = drop1(s * g) (LN) or g, rounded; partial db2 over this warp's rows
   for (int rr = 0; rr < BM / 8; ++rr) {
     const int r = warp * (BM / 8) + rr;
     const int gi = row0 + r;
@@ -378,7 +497,7 @@ __global__ void __launch_bounds__(THREADS)
           v *= res_scale;
           if (q > 0) v = drop_keep(st, gi, D, d, q) ? v * dscale : 0.f;
         }
-        db2p[e] += v;
+        part[NP - 1][e] += v;
       }
       const float vb = round_to<T>(v);
       dz_s[r * LDX + d] = vb;
@@ -481,9 +600,6 @@ __global__ void __launch_bounds__(THREADS)
 
   // LayerNorm backward per row (warp `warp` holds rows warp+8ii whole);
   // without LN, dx is the accumulated product itself
-  float dls[ZJ], dlb[ZJ];
-#pragma unroll
-  for (int jj = 0; jj < ZJ; ++jj) dls[jj] = dlb[jj] = 0.f;
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii) {
     const int r = warp + 8 * ii;
@@ -497,47 +613,22 @@ __global__ void __launch_bounds__(THREADS)
       continue;
     }
     const float mean = mean_s[r], inv = inv_s[r];
-    float xh[ZJ], dxh[ZJ];
-    float s1 = 0.f, s2 = 0.f;
+    float xh[ZJ], dxl[ZJ];
+#pragma unroll
+    for (int jj = 0; jj < ZJ; ++jj)
+      xh[jj] = (to_f32(x[static_cast<size_t>(gi) * D + lane + 32 * jj]) -
+                mean) * inv;
+    ln_bwd_row<ZJ>(z[ii], xh, ln_scale, inv, D, dxl, part[0], part[LN]);
 #pragma unroll
     for (int jj = 0; jj < ZJ; ++jj) {
-      const int d = lane + 32 * jj;
-      xh[jj] = (to_f32(x[static_cast<size_t>(gi) * D + d]) - mean) * inv;
-      dxh[jj] = z[ii][jj] * ln_scale[d];
-      s1 += dxh[jj];
-      s2 += dxh[jj] * xh[jj];
-      dls[jj] += z[ii][jj] * xh[jj];
-      dlb[jj] += z[ii][jj];
-    }
-    const float m1 = warp_sum(s1) / D;
-    const float m2 = warp_sum(s2) / D;
-#pragma unroll
-    for (int jj = 0; jj < ZJ; ++jj) {
-      const int d = lane + 32 * jj;
-      const size_t g = static_cast<size_t>(gi) * D + d;
-      const float dxl = (dxh[jj] - m1 - xh[jj] * m2) * inv;
-      dx[g] = from_f32<T>(to_f32(gy[g]) + dxl);
+      const size_t g = static_cast<size_t>(gi) * D + lane + 32 * jj;
+      dx[g] = from_f32<T>(to_f32(gy[g]) + dxl[jj]);
     }
   }
   // per-block partial sums over the 8 warps: reuse xn_s as (8, NP, D)
-  constexpr int NP = LN ? 3 : 1;  // dLN scale, dLN bias, db2 | db2
-  __syncthreads();
-  float* red = xn_s;
-#pragma unroll
-  for (int jj = 0; jj < ZJ; ++jj) {
-    const int d = lane + 32 * jj;
-    if (LN) {
-      red[(warp * NP + 0) * D + d] = dls[jj];
-      red[(warp * NP + 1) * D + d] = dlb[jj];
-    }
-    red[(warp * NP + NP - 1) * D + d] = db2p[jj];
-  }
-  __syncthreads();
-  for (int e = tid; e < NP * D; e += THREADS) {
-    float s = 0.f;
-    for (int w = 0; w < 8; ++w) s += red[w * NP * D + e];
-    partial[static_cast<size_t>(blockIdx.x) * NP * D + e] = s;
-  }
+  store_block_sums<NP, ZJ>(part, xn_s,
+                           partial + static_cast<size_t>(blockIdx.x) * NP * D,
+                           D);
 }
 
 // ---------------------------------------------------------------------------
@@ -682,6 +773,82 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   if (tid < BF2) db1p[part * F + c0 + tid] = db1acc;
+}
+
+// ---------------------------------------------------------------------------
+// Weight gradient of a product with its rows' inputs and output gradients
+// stored: out[group][k][n] = sum over the group's rows m of A[m][k] B[m][n]
+// (A: M x K, B: M x N, row-major, type T; out float32). A block owns a
+// WT x WT tile of the result and one group of rows, stages WR rows of each
+// operand at a time in shared memory and keeps its 4 x 4 outputs per thread
+// in registers; the groups' partial sums are added afterwards (no atomics).
+// ---------------------------------------------------------------------------
+
+constexpr int WT = 64;  // result tile (ops/ffn_common.py WGRAD_TILE)
+constexpr int WR = 32;  // rows staged per step
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    atb_kernel(const T* __restrict__ a, const T* __restrict__ b,
+               float* __restrict__ out, int M, int K, int N,
+               int rows_per_group) {
+  __shared__ float a_s[WR][WT + 1];
+  __shared__ float b_s[WR][WT + 1];
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * WT, k0 = blockIdx.y * WT;
+  const int rbeg = blockIdx.z * rows_per_group;
+  const int rend = min(M, rbeg + rows_per_group);
+  const int tk = tid / 16, tn = tid % 16;  // outputs k0+tk+16i, n0+tn+16j
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int r0 = rbeg; r0 < rend; r0 += WR) {
+    __syncthreads();  // the previous step's readers are done
+    for (int e = tid; e < WR * WT; e += THREADS) {
+      const int r = e / WT, c = e % WT;
+      const int m = r0 + r;
+      const bool row_ok = m < rend;
+      a_s[r][c] = row_ok && k0 + c < K
+                      ? to_f32(a[static_cast<size_t>(m) * K + k0 + c])
+                      : 0.f;
+      b_s[r][c] = row_ok && n0 + c < N
+                      ? to_f32(b[static_cast<size_t>(m) * N + n0 + c])
+                      : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int r = 0; r < WR; ++r) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = a_s[r][tk + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = b_s[r][tn + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+    }
+  }
+  float* o = out + static_cast<size_t>(blockIdx.z) * K * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + tk + 16 * i, n = n0 + tn + 16 * j;
+      if (k < K && n < N) o[static_cast<size_t>(k) * N + n] = acc[i][j];
+    }
+}
+
+// out: (groups, K, N) float32 partial sums of A^T B.
+template <typename T>
+int launch_atb(const T* a, const T* b, float* out, int M, int K, int N,
+               int groups, cudaStream_t stream) {
+  const int rows_per_group = (M + groups - 1) / groups;
+  atb_kernel<T><<<dim3((N + WT - 1) / WT, (K + WT - 1) / WT, groups),
+                  THREADS, 0, stream>>>(a, b, out, M, K, N, rows_per_group);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Kernel>

@@ -104,35 +104,41 @@ class GlobalMVN(nn.Module):
         return global_mvn(x, lengths, self.mean, self.inv_std)
 
 
-def build_encoder(c: ASRConfig) -> nn.Module:
+def build_encoder(c: ASRConfig,
+                  encoder_options: Optional[Dict] = None) -> nn.Module:
     """The encoder of `c.encoder_type`, built as the JAX `ASRModel` builds
     it (the branchformers' cgMLP width is d_ff, their conv kernel the
-    conformer's)."""
+    conformer's). `encoder_options` are further keyword arguments of the
+    encoder's constructor that the JAX `ASRConfig` has no field for: the
+    conformer's kernel routes `fused_conv` and `fused_conv_split`."""
+    opts = dict(encoder_options or {})
     if c.encoder_type == "conformer":
         return ConformerEncoder(
             c.n_mels, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
             c.conformer_kernel_size, c.subsampling_factor, c.dtype,
-            c.dropout_rate)
+            c.dropout_rate, **opts)
     if c.encoder_type == "transformer":
         return TransformerEncoder(
             c.n_mels, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
-            c.subsampling_factor, c.dtype, c.dropout_rate)
+            c.subsampling_factor, c.dtype, c.dropout_rate, **opts)
     if c.encoder_type in VARIANTS:
         return BranchformerEncoder(
             c.n_mels, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
             cgmlp_hidden=c.d_ff, cgmlp_kernel=c.conformer_kernel_size,
             subsampling_factor=c.subsampling_factor, variant=c.encoder_type,
             merge_kernel=MERGE_KERNEL, dtype=c.dtype,
-            dropout_rate=c.dropout_rate)
+            dropout_rate=c.dropout_rate, **opts)
     raise NotImplementedError(
         f"encoder_type {c.encoder_type!r} is not ported (conformer, "
         f"transformer, {', '.join(VARIANTS)})")
 
 
 class ASRModel(nn.Module):
-    """Frontend + encoder + CTC head + transformer decoder."""
+    """Frontend + encoder + CTC head + transformer decoder.
+    `encoder_options` go to `build_encoder`."""
 
-    def __init__(self, config: ASRConfig):
+    def __init__(self, config: ASRConfig,
+                 encoder_options: Optional[Dict] = None):
         super().__init__()
         if not 0.0 < config.ctc_weight < 1.0:
             raise NotImplementedError(
@@ -142,9 +148,10 @@ class ASRModel(nn.Module):
         if c.normalize not in NORMALIZE:
             raise ValueError(f"normalize {c.normalize!r} not in {NORMALIZE}")
         self.config = c
+        self.encoder_options = dict(encoder_options or {})
         if c.normalize == "global_mvn":
             self.mvn = GlobalMVN(c.n_mels)
-        self.encoder = build_encoder(c)
+        self.encoder = build_encoder(c, self.encoder_options)
         self.decoder = TransformerDecoder(
             c.vocab_size, c.d_model, c.num_heads, c.decoder_d_ff,
             c.num_decoder_layers, c.dtype, c.dropout_rate)

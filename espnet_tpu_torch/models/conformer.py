@@ -12,9 +12,17 @@ encode call launches 2 FFN kernels and 1 attention kernel per block, and a
 backward as many backward kernel pairs. Shapes the JAX package's gates
 send to its plain versions (a d_model or d_ff that is not a multiple of
 128, a head dim that is not a multiple of 8) go to the plain versions here
-too, decided from the shapes before any launch. The conv module is
-plain PyTorch: its fused kernels are opt-in in the JAX package and not on
-this path.
+too, decided from the shapes before any launch.
+
+The conv sub-block (pre-LN, conv module, dropout, residual) has the JAX
+block's three routes (`conv_route`): plain PyTorch (the default, as in
+JAX); `fused_conv_split`, the head and tail kernels of `ops.conv_glu` around
+a depthwise conv left to PyTorch (one launch of each per block and encode;
+auto on the card when ESPNET_TPU_CONV_SPLIT=1, as JAX's auto is on the TPU;
+its gate is d_model a multiple of 128); and `fused_conv`, the whole
+sub-block as one kernel of `ops.conv_module` (no gate; it wins when both are
+set). The parameters are the plain route's in every route, so a JAX
+checkpoint loads the same way.
 
 Dropout (rate `dropout_rate`) is where the JAX package has it: after the
 scaled subsampling output, inside and after each macaron FFN (in the
@@ -24,7 +32,8 @@ module is training and the caller passes a `torch.Generator`.
 
 from __future__ import annotations
 
-from typing import List
+import os
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -35,13 +44,18 @@ from espnet_tpu_torch.models.layers import Dense, LayerNorm
 from espnet_tpu_torch.models.subsampling import Conv2dSubsampling
 from espnet_tpu_torch.models.transformer import (PositionwiseFeedForward,
                                                   prenorm_residual_ffn)
-from espnet_tpu_torch.ops.dropout import FastDropout
+from espnet_tpu_torch.ops import conv_glu as _glu
+from espnet_tpu_torch.ops import conv_module as _cm
+from espnet_tpu_torch.ops.dropout import FastDropout, draw_seeds
+from espnet_tpu_torch.ops.ffn_common import kernel_takes
 from espnet_tpu_torch.ops.masks import attention_bias, make_valid_mask
 
 
 class ConvolutionModule(nn.Module):
     """Pointwise (2D) -> GLU -> depthwise -> LayerNorm -> swish -> pointwise;
-    the residual is added by the caller."""
+    the residual is added by the caller. `use_kernel` is the one switch of
+    the conv sub-block's kernel route, whichever the block selects: False
+    sends the split and whole-module routes to their plain versions."""
 
     def __init__(self, d_model: int, kernel_size: int = 31,
                  dtype=torch.float32):
@@ -55,6 +69,16 @@ class ConvolutionModule(nn.Module):
                                         groups=d_model)
         self.norm = LayerNorm(d_model, dtype)
         self.pointwise_conv2 = Dense(d_model, d_model, dtype=dtype)
+        # False: the plain versions even on the card (chip_smoke.py compares)
+        self.use_kernel = True
+
+    def weights(self):
+        """(W1 (D, 2D), W2 (D, D), taps (k, D)) in the compute dtype, laid
+        out as the kernels take them (the JAX kernels' layouts)."""
+        dt = self.dtype
+        return (self.pointwise_conv1.weight.t().to(dt).contiguous(),
+                self.pointwise_conv2.weight.t().to(dt).contiguous(),
+                self.depthwise_conv.weight[:, 0, :].t().to(dt).contiguous())
 
     def forward(self, x, pad_mask):
         """x: (B, T, D); pad_mask: (B, T) True = valid."""
@@ -71,12 +95,72 @@ class ConvolutionModule(nn.Module):
         return self.pointwise_conv2(h * torch.sigmoid(h))
 
 
+def conv_route(fused_conv: Optional[bool], fused_conv_split: Optional[bool],
+               x: torch.Tensor, d_model: int) -> str:
+    """The JAX ConformerBlock's choice for its conv sub-block
+    (espnet_tpu/models/conformer.py): "split" when `fused_conv_split` (None
+    = auto: on the card with ESPNET_TPU_CONV_SPLIT=1) is set, `fused_conv`
+    is not, and d_model passes the gate (`_ffn_tileable(x, d, d, 256)` less
+    its row count); else "module" when `fused_conv` is set; else "plain"."""
+    whole = bool(fused_conv)
+    split = fused_conv_split
+    if split is None:
+        split = (x.device.type == "cuda"
+                 and os.environ.get("ESPNET_TPU_CONV_SPLIT", "0") == "1")
+    if split and not whole and kernel_takes(d_model, d_model):
+        return "split"
+    return "module" if whole else "plain"
+
+
+def conv_split_residual(x, norm: LayerNorm, conv: ConvolutionModule,
+                        pad_mask, rate: float, generator):
+    """x + drop(conv(LN(x))) as the head kernel, the depthwise conv in the
+    compute dtype (PyTorch's, as JAX leaves it to XLA) and the tail kernel
+    with its hash dropout (one int32 seed when `rate` > 0)."""
+    dt = conv.dtype
+    seed = draw_seeds(generator, 1)[0] if rate > 0.0 else None
+    head, tail = ((_glu.prenorm_glu, _glu.postnorm_proj) if conv.use_kernel
+                  else (_glu.prenorm_glu_plain, _glu.postnorm_proj_plain))
+    w1, w2, _ = conv.weights()
+    xd = x.to(dt).contiguous()
+    g = head(xd, norm.weight, norm.bias, w1, conv.pointwise_conv1.bias)
+    g = g * pad_mask[:, :, None].to(dt)
+    dwc = conv.depthwise_conv
+    g = nn.functional.conv1d(g.transpose(1, 2), dwc.weight.to(dt),
+                             padding=dwc.padding, groups=dwc.groups)
+    g = g.transpose(1, 2) + dwc.bias.to(dt)
+    return tail(g.contiguous(), xd, conv.norm.weight, conv.norm.bias, w2,
+                conv.pointwise_conv2.bias, seed, rate)
+
+
+def conv_module_residual(x, norm: LayerNorm, conv: ConvolutionModule,
+                         pad_mask, rate: float, generator):
+    """x + drop(conv(LN(x))) as one whole-module kernel (one int32 seed
+    when `rate` > 0)."""
+    seed = draw_seeds(generator, 1)[0] if rate > 0.0 else None
+    fn = _cm.conv_module if conv.use_kernel else _cm.conv_module_plain
+    w1, w2, taps = conv.weights()
+    dwc = conv.depthwise_conv
+    return fn(x.to(conv.dtype).contiguous(), pad_mask.contiguous(),
+              norm.weight, norm.bias, w1, conv.pointwise_conv1.bias, taps,
+              dwc.bias, conv.norm.weight, conv.norm.bias, w2,
+              conv.pointwise_conv2.bias, seed, rate, dwc.kernel_size[0])
+
+
 class ConformerBlock(nn.Module):
+    """One conformer layer. `fused_conv` and `fused_conv_split` select the
+    conv sub-block's route as the JAX block's fields of the same names do
+    (`conv_route`)."""
+
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
                  kernel_size: int = 31, dtype=torch.float32,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1,
+                 fused_conv: Optional[bool] = None,
+                 fused_conv_split: Optional[bool] = None):
         super().__init__()
         self.dtype = dtype
+        self.fused_conv = fused_conv
+        self.fused_conv_split = fused_conv_split
         self.dropout = FastDropout(dropout_rate)
         self.norm_ff1 = LayerNorm(d_model, dtype)
         self.ff1 = PositionwiseFeedForward(d_model, d_ff, "swish", dtype)
@@ -96,24 +180,39 @@ class ConformerBlock(nn.Module):
                 if self.training and generator is not None else 0.0)
         return prenorm_residual_ffn(x, norm, ff, 0.5, rate, generator)
 
+    def _conv_sub_block(self, x, pad_mask, generator):
+        """x + drop(conv(LN(x))) through the selected route."""
+        route = conv_route(self.fused_conv, self.fused_conv_split, x,
+                           self.norm_conv.normalized_shape[0])
+        if route == "plain":
+            return x + self.dropout(self.conv(self.norm_conv(x), pad_mask),
+                                    generator)
+        rate = (self.dropout.rate
+                if self.training and generator is not None else 0.0)
+        fn = conv_split_residual if route == "split" else conv_module_residual
+        return fn(x, self.norm_conv, self.conv, pad_mask, rate, generator)
+
     def forward(self, x, pos_emb, bias, pad_mask, generator=None):
         drop = self.dropout
         x = self._macaron(x, self.norm_ff1, self.ff1, generator)
         x = x + drop(self.self_attn(self.norm_attn(x), pos_emb, bias),
                      generator)
-        x = x + drop(self.conv(self.norm_conv(x), pad_mask), generator)
+        x = self._conv_sub_block(x, pad_mask, generator)
         x = self._macaron(x, self.norm_ff2, self.ff2, generator)
         return self.norm_final(x)
 
 
 class ConformerEncoder(nn.Module):
     """Conv2d-subsampled conformer encoder. Returns (hidden (B, T', D),
-    output lengths)."""
+    output lengths). `fused_conv` and `fused_conv_split` go to every block
+    (the encoder options of `models.asr.build_encoder`)."""
 
     def __init__(self, n_feats: int, d_model: int = 256, num_heads: int = 4,
                  d_ff: int = 2048, num_layers: int = 12,
                  kernel_size: int = 31, subsampling_factor: int = 4,
-                 dtype=torch.float32, dropout_rate: float = 0.1):
+                 dtype=torch.float32, dropout_rate: float = 0.1,
+                 fused_conv: Optional[bool] = None,
+                 fused_conv_split: Optional[bool] = None):
         super().__init__()
         self.d_model = d_model
         self.num_layers = num_layers
@@ -123,7 +222,8 @@ class ConformerEncoder(nn.Module):
         self.dropout = FastDropout(dropout_rate)
         for i in range(num_layers):
             self.add_module(f"layer{i}", ConformerBlock(
-                d_model, num_heads, d_ff, kernel_size, dtype, dropout_rate))
+                d_model, num_heads, d_ff, kernel_size, dtype, dropout_rate,
+                fused_conv, fused_conv_split))
 
     def layers(self) -> List[ConformerBlock]:
         return [getattr(self, f"layer{i}") for i in range(self.num_layers)]

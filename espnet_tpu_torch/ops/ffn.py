@@ -31,9 +31,9 @@ import torch
 
 from espnet_tpu_torch.ops.cuda_build import check_launch, kernel_library
 from espnet_tpu_torch.ops.ffn_common import (ACTIVATIONS, DTYPE_CODES, act,
-                                             bwd_grid, check_kernel_dims,
-                                             drop_args, keep_mask,
-                                             quantize_rate, stream)
+                                             bwd_grid, check_args,
+                                             check_kernel_dims, drop_args,
+                                             keep_mask, quantize_rate, stream)
 
 
 def _check_options(drop_rate: float, seed, activation: str) -> None:
@@ -65,23 +65,11 @@ def _check_cuda_args(x2, w1, b1, w2, b2):
     m, d = x2.shape
     f = w1.shape[-1]
     check_kernel_dims("fused_ffn", x2, f)
-    expect = {
+    check_args("fused_ffn", {
         "x": (x2, (m, d), x2.dtype), "w1": (w1, (d, f), x2.dtype),
         "w2": (w2, (f, d), x2.dtype), "b1": (b1, (f,), torch.float32),
         "b2": (b2, (d,), torch.float32),
-    }
-    for name, (t, shape, dtype) in expect.items():
-        if t.device != x2.device:
-            raise ValueError(f"fused_ffn: {name} is on {t.device}, "
-                             f"x on {x2.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"fused_ffn: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if t.dtype != dtype:
-            raise TypeError(f"fused_ffn: {name} is {t.dtype}, "
-                            f"expected {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_ffn: {name} is not contiguous")
+    }, x2)
 
 
 def _kernel_fwd(x2, w1, b1, w2, b2, activation, q, seed):

@@ -1,7 +1,10 @@
 """What the two FFN ops (`ops.prenorm_ffn`, `ops.ffn`) share: their kernels
 come from one templated source (`csrc/ffn_kernels.cuh`), so they take the
 same shapes, the same dropout arguments and the same backward grid, and
-their dropout is one counter hash.
+their dropout is one counter hash. The conv ops (`ops.conv_glu`,
+`ops.conv_module`) build their kernels from the same header's pieces and
+share the hash, the LayerNorm, the argument checks and the grid of its
+weight-gradient kernel (`wgrad_groups`).
 
 `kernel_takes` is the shape gate: the JAX package's (`_ffn_tileable`,
 espnet_tpu/models/transformer.py), d_model and d_ff multiples of 128,
@@ -47,6 +50,33 @@ def check_kernel_dims(name: str, x2: torch.Tensor, d_ff: int) -> None:
                          f"{TILE})")
 
 
+LN_EPS = 1e-6  # flax's LayerNorm epsilon, the Pallas kernels' too
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm over the last dim with eps 1e-6, in x's dtype."""
+    return torch.nn.functional.layer_norm(x, (x.shape[-1],), scale.float(),
+                                          bias.float(), LN_EPS)
+
+
+def check_args(name: str, expect: dict, like: torch.Tensor) -> None:
+    """Raise unless every tensor of `expect` (argument name: (tensor, shape,
+    dtype)) lies on `like`'s device, contiguous, with that shape and
+    dtype."""
+    for arg, (t, shape, dtype) in expect.items():
+        if t.device != like.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, "
+                             f"x on {like.device}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} is not contiguous")
+
+
 def quantize_rate(drop_rate: float) -> int:
     """The 1/256-quantised drop level q of FastDropout (0.1 -> 26)."""
     return 0 if drop_rate <= 0.0 else max(1, min(255, round(drop_rate * 256)))
@@ -66,18 +96,24 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def keep_mask(rows: int, cols: int, seed: int, q: int,
-              device=None) -> torch.Tensor:
-    """(rows, cols) bool keep mask of the Pallas kernel's hash for one int32
-    seed: row g lies in the 256-row tile g // 256, whose stream id is
+def keep_mask(rows: int, cols: int, seed: int, q: int, device=None,
+              tile_rows: int = DROP_TILE) -> torch.Tensor:
+    """(rows, cols) bool keep mask of the Pallas kernels' hash for one int32
+    seed: row g lies in the tile g // tile_rows, whose stream id is
     fmix32(seed) ^ (tile * 0x9E3779B9); element (g, c) hashes counter
-    (g % 256) * cols + c and is kept when the top byte is >= q."""
+    (g % tile_rows) * cols + c and is kept when the top byte is >= q.
+
+    The FFN kernels and the conv tail tile the flattened rows by 256 (the
+    default); the whole conv module's tile is one utterance, so its mask
+    over B utterances of T frames is `keep_mask(B * T, D, seed, q,
+    tile_rows=T)` (the counter of frame t is t * D + c, whatever T is
+    padded to)."""
     g = torch.arange(rows, dtype=torch.int64, device=device)
     s = _fmix32(torch.tensor(int(seed) & _M32, dtype=torch.int64,
                              device=device))
-    stream = s ^ _mul32(g // DROP_TILE, 0x9E3779B9)
+    stream = s ^ _mul32(g // tile_rows, 0x9E3779B9)
     c = torch.arange(cols, dtype=torch.int64, device=device)
-    x = ((g % DROP_TILE)[:, None] * cols + c[None, :]) & _M32
+    x = ((g % tile_rows)[:, None] * cols + c[None, :]) & _M32
     x = (x + _mul32(stream, 0x9E3779B9)[:, None]) & _M32
     return (_fmix32(x) >> 24) >= q
 
@@ -112,3 +148,15 @@ def bwd_grid(m: int, d_ff: int):
     groups = max(1, min(n_blocks,
                         round(_WGRAD_BLOCKS / (d_ff // _WGRAD_CHUNK))))
     return n_blocks, groups
+
+
+# the output tile of the A^T B weight-gradient kernel (csrc/ffn_kernels.cuh)
+WGRAD_TILE = 64
+
+
+def wgrad_groups(m: int, k: int, n: int) -> int:
+    """Row groups of the generic weight-gradient kernel (`A^T B` over M rows,
+    a (K, N) result in 64 x 64 tiles): enough blocks to fill the card twice,
+    at least 32 rows a group."""
+    tiles = -(-k // WGRAD_TILE) * -(-n // WGRAD_TILE)
+    return max(1, min(-(-m // 32), round(_WGRAD_BLOCKS / tiles)))

@@ -31,11 +31,10 @@ import torch
 
 from espnet_tpu_torch.ops.cuda_build import check_launch, kernel_library
 from espnet_tpu_torch.ops.ffn_common import (ACTIVATIONS, DTYPE_CODES, act,
-                                             bwd_grid, check_kernel_dims,
-                                             drop_args, keep_mask,
+                                             bwd_grid, check_args,
+                                             check_kernel_dims, drop_args,
+                                             keep_mask, layer_norm,
                                              quantize_rate, stream)
-
-LN_EPS = 1e-6
 
 
 def _check_options(drop_rate: float, seeds, activation: str) -> None:
@@ -58,8 +57,7 @@ def prenorm_ffn_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
     d = x.shape[-1]
     xf = x.reshape(-1, d).float()
     m = xf.shape[0]
-    xn = torch.nn.functional.layer_norm(
-        xf, (d,), ln_scale.float(), ln_bias.float(), LN_EPS)
+    xn = layer_norm(xf, ln_scale, ln_bias)
     h = xn.to(dt).float() @ w1.float() + b1.float()
     a = act(h, activation)
     scale = 256.0 / (256 - q) if q else 1.0
@@ -77,24 +75,13 @@ def _check_cuda_args(x2, ln_scale, ln_bias, w1, b1, w2, b2):
     m, d = x2.shape
     f = w1.shape[-1]
     check_kernel_dims("prenorm_ffn", x2, f)
-    expect = {
+    f32 = torch.float32
+    check_args("prenorm_ffn", {
         "x": (x2, (m, d), x2.dtype), "w1": (w1, (d, f), x2.dtype),
-        "w2": (w2, (f, d), x2.dtype), "ln_scale": (ln_scale, (d,), torch.float32),
-        "ln_bias": (ln_bias, (d,), torch.float32), "b1": (b1, (f,), torch.float32),
-        "b2": (b2, (d,), torch.float32),
-    }
-    for name, (t, shape, dtype) in expect.items():
-        if t.device != x2.device:
-            raise ValueError(f"prenorm_ffn: {name} is on {t.device}, "
-                             f"x on {x2.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"prenorm_ffn: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if t.dtype != dtype:
-            raise TypeError(f"prenorm_ffn: {name} is {t.dtype}, "
-                            f"expected {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"prenorm_ffn: {name} is not contiguous")
+        "w2": (w2, (f, d), x2.dtype), "ln_scale": (ln_scale, (d,), f32),
+        "ln_bias": (ln_bias, (d,), f32), "b1": (b1, (f,), f32),
+        "b2": (b2, (d,), f32),
+    }, x2)
 
 
 def _kernel_fwd(x2, ln_scale, ln_bias, w1, b1, w2, b2, activation,

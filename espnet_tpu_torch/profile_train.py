@@ -1,7 +1,7 @@
 """Where the time of one train step goes, on the CUDA card.
 
     python -m espnet_tpu_torch.profile_train [--batch 64] [--secs 15]
-        [--encoder conformer|transformer|e_branchformer]
+        [--encoder NAME]  (a configuration of espnet_tpu_torch.configs)
 
 Builds the bench model (full width and depth, bf16 compute, dropout 0.1,
 SpecAug, random weights from a seed) with the encoder of the chosen
@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from espnet_tpu_torch.configs import ENCODERS, bench_config
+from espnet_tpu_torch.configs import ENCODERS, bench_config, encoder_options
 from espnet_tpu_torch.models.asr import ASRModel, init_random_
 from espnet_tpu_torch.train.optim import build_optimizer
 from espnet_tpu_torch.train.steps import TrainState, make_train_step
@@ -58,7 +58,8 @@ def main() -> None:
     print(smi, flush=True)
 
     cfg = bench_config(torch.bfloat16, args.encoder)
-    model = init_random_(ASRModel(cfg), torch.Generator().manual_seed(0))
+    model = init_random_(ASRModel(cfg, encoder_options(args.encoder)),
+                         torch.Generator().manual_seed(0))
     tx = build_optimizer("fused_adam", lr=2e-3, schedule="warmuplr",
                          warmup_steps=25000, d_model=cfg.d_model)
     step = make_train_step(model, tx, device="cuda")

@@ -22,6 +22,7 @@ from espnet_tpu_torch.convert import jax_params_to_state_dict, load_jax_params
 from espnet_tpu_torch.models.asr import ASRConfig, ASRModel
 from espnet_tpu_torch.models.attention import (MultiHeadAttention,
                                                RelPositionMultiHeadAttention)
+from espnet_tpu_torch.models.conformer import ConvolutionModule
 from espnet_tpu_torch.models.transformer import (PositionwiseFeedForward,
                                                  TransformerEncoderLayer)
 from espnet_tpu_torch.ops import ffn as tffn
@@ -124,14 +125,15 @@ def test_loss_and_every_gradient_match_jax(slice_setup):
     ("e_branchformer", {RelPositionMultiHeadAttention: 2,
                         PositionwiseFeedForward: 4}),
     ("conformer", {RelPositionMultiHeadAttention: 2,
-                   PositionwiseFeedForward: 4}),
+                   PositionwiseFeedForward: 4, ConvolutionModule: 2}),
 ])
 def test_set_use_kernels_reaches_every_kernel_module(encoder_type, switches):
     """The encoder's kernel-bearing modules (and the decoder's attention,
     which takes the flash route where its shapes allow) all follow; each
     kernel route has one switch, on the module that holds its weights (an
     FFN's, whether a layer sends it to the pre-norm or the plain FFN
-    kernels), and no layer has one of its own."""
+    kernels; the conv module's, whichever conv route its block selects),
+    and no layer has one of its own."""
     model = ASRModel(_configs(encoder_type)[1])
     for enabled in (False, True):
         model.set_use_kernels(enabled)
@@ -141,7 +143,7 @@ def test_set_use_kernels_reaches_every_kernel_module(encoder_type, switches):
             assert all(m.use_kernel is enabled for m in mods)
     owners = {type(m) for m in model.modules() if hasattr(m, "use_kernel")}
     assert owners <= {MultiHeadAttention, RelPositionMultiHeadAttention,
-                      PositionwiseFeedForward}
+                      PositionwiseFeedForward, ConvolutionModule}
     assert TransformerEncoderLayer not in owners
 
 

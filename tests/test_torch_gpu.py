@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from espnet_tpu_torch.ops import conv_glu as tglu
+from espnet_tpu_torch.ops import conv_module as tcm
 from espnet_tpu_torch.ops import ffn as tfused
 from espnet_tpu_torch.ops import ffn_common
 from espnet_tpu_torch.ops import flash_attention as tflash
@@ -369,3 +371,120 @@ def test_gated_shapes_serve_and_train_on_card(cuda, d_model, heads,
                if p.grad is not None)
     launched = {k for k, fn in wrappers.items() if fn.launches > before[k]}
     assert launched == kernels
+
+
+def _glu_args(device, dtype, m, d):
+    rng = np.random.RandomState(d + m)
+    x, xr = rng.randn(m, d), rng.randn(m, d)
+    lns, lnb = 1 + 0.2 * rng.randn(d), 0.2 * rng.randn(d)
+    w1, b1 = rng.randn(d, 2 * d) / np.sqrt(d), 0.2 * rng.randn(2 * d)
+    w2, b2 = rng.randn(d, d) / np.sqrt(d), 0.2 * rng.randn(d)
+    t = [torch.from_numpy(a.astype(np.float32)).to(device)
+         for a in (x, xr, lns, lnb, w1, b1, w2, b2)]
+    for i in (0, 1, 4, 6):  # activations and weights in the compute dtype
+        t[i] = t[i].to(dtype)
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,drop", [(333, 256, 0.0), (300, 256, 0.1),
+                                      (300, 128, 0.1), (97, 384, 0.1),
+                                      (300, 512, 0.1)])
+def test_conv_head_and_tail_kernels_match_plain(cuda, dtype, m, d, drop):
+    """The split route's head (`prenorm_glu`) and tail (`postnorm_proj`,
+    hash dropout over 256-row tiles), forward and backward."""
+    x, xr, lns, lnb, w1, b1, w2, b2 = _glu_args(cuda, dtype, m, d)
+    gout = torch.randn(m, d, generator=torch.Generator().manual_seed(m)
+                       ).to(cuda, dtype)
+    counts = [f.launches for f in (tglu.prenorm_glu, tglu.prenorm_glu_bwd,
+                                   tglu.postnorm_proj,
+                                   tglu.postnorm_proj_bwd)]
+    head = (x, lns, lnb, w1, b1)
+    got_y, got = _grads(tglu.prenorm_glu, head, range(5), gout)
+    kw = dict(seed=-4242, drop_rate=drop)
+    tail = (x, xr, lns, lnb, w2, b2)
+    got_t, got_tg = _grads(lambda *a: tglu.postnorm_proj(*a, **kw), tail,
+                           range(6), gout)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (tglu.prenorm_glu, tglu.prenorm_glu_bwd,
+                                 tglu.postnorm_proj, tglu.postnorm_proj_bwd)
+            ] == [c + 1 for c in counts]
+    want_y, want = _grads(tglu.prenorm_glu_plain, head, range(5), gout)
+    want_t, want_tg = _grads(lambda *a: tglu.postnorm_proj_plain(*a, **kw),
+                             tail, range(6), gout)
+    for g, w in ((got_y, want_y), (got_t, want_t)):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        torch.testing.assert_close(g.float(), w.float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+    for name, g, w in zip("x lns lnb w1 b1".split(), got, want):
+        _assert_grad_close("head " + name, g, w, dtype)
+    for name, g, w in zip("g x_res lns lnb w2 b2".split(), got_tg, want_tg):
+        _assert_grad_close("tail " + name, g, w, dtype)
+
+
+def _module_args(device, dtype, lengths, t, d, k):
+    rng = np.random.RandomState(d + k + t)
+    b = len(lengths)
+    x = rng.randn(b, t, d)
+    mask = torch.from_numpy(np.arange(t)[None, :]
+                            < np.asarray(lengths)[:, None]).to(device)
+    p = [1 + 0.2 * rng.randn(d), 0.2 * rng.randn(d),
+         rng.randn(d, 2 * d) / np.sqrt(d), 0.2 * rng.randn(2 * d),
+         0.3 * rng.randn(k, d), 0.2 * rng.randn(d),
+         1 + 0.2 * rng.randn(d), 0.2 * rng.randn(d),
+         rng.randn(d, d) / np.sqrt(d), 0.2 * rng.randn(d)]
+    t_ = [torch.from_numpy(a.astype(np.float32)).to(device)
+          for a in [x] + p]
+    for i in (0, 3, 5, 9):  # x, w1, dw, w2 in the compute dtype
+        t_[i] = t_[i].to(dtype)
+    return t_[0], mask, t_[1:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,k,t,lengths,drop", [
+    (256, 31, 75, (75, 40, 1), 0.1), (144, 31, 70, (70, 3, 33), 0.1),
+    (128, 7, 33, (33, 32, 1), 0.0), (512, 31, 64, (64, 17), 0.1),
+    (384, 15, 5, (5, 1), 0.1), (64, 1, 40, (40, 39), 0.1)])
+def test_conv_module_kernels_match_plain(cuda, dtype, d, k, t, lengths,
+                                         drop):
+    """The whole-module route, forward and backward: ragged utterances (1
+    frame and T among them), d 144 and 64 (no JAX gate on this route), k 1
+    to 31, tiles of 32 frames with T not a multiple of 32."""
+    x, mask, params = _module_args(cuda, dtype, lengths, t, d, k)
+    kw = dict(seed=97, drop_rate=drop, kernel_size=k)
+    args = (x, mask, *params)
+    gout = torch.randn(x.shape, generator=torch.Generator().manual_seed(t)
+                       ).to(cuda, dtype)
+    fwd, bwd = tcm.conv_module.launches, tcm.conv_module_bwd.launches
+    diff = [0] + list(range(2, 12))
+    got_y, got = _grads(lambda *a: tcm.conv_module(*a, **kw), args, diff,
+                        gout)
+    torch.cuda.synchronize()
+    assert tcm.conv_module.launches == fwd + 1
+    assert tcm.conv_module_bwd.launches == bwd + 1
+    want_y, want = _grads(lambda *a: tcm.conv_module_plain(*a, **kw), args,
+                          diff, gout)
+    assert got_y.dtype == dtype and torch.isfinite(got_y.float()).all()
+    torch.testing.assert_close(got_y.float(), want_y.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    names = "x ln1s ln1b w1 b1 dw db ln2s ln2b w2 b2".split()
+    for name, g, w in zip(names, got, want):
+        _assert_grad_close(name, g, w, dtype)
+
+
+@pytest.mark.gpu
+def test_conv_kernels_raise_past_their_shapes(cuda):
+    """The head and tail take D 128-512 (the split gate passes only
+    multiples of 128); the whole module D up to 512 and k up to 31 (its
+    route has no gate): past that they raise on the card."""
+    x, xr, lns, lnb, w1, b1, w2, b2 = _glu_args(cuda, torch.float32, 40, 640)
+    with pytest.raises(ValueError, match="D=640"):
+        tglu.prenorm_glu(x, lns, lnb, w1, b1)
+    with pytest.raises(ValueError, match="D=640"):
+        tglu.postnorm_proj(x, xr, lns, lnb, w2, b2)
+    for d, k in ((640, 31), (256, 33)):
+        x, mask, params = _module_args(cuda, torch.float32, (9, 4), 9, d, k)
+        with pytest.raises(ValueError, match="up to"):
+            tcm.conv_module(x, mask, *params, kernel_size=k)

@@ -81,7 +81,7 @@ def test_port_files_found():
             "dropout.py", "specaug.py", "losses.py", "schedulers.py",
             "optim.py", "steps.py", "ffn.py", "flash_attention.py",
             "branchformer.py", "normalize.py", "ffn_common.py",
-            "configs.py"} <= names
+            "configs.py", "conv_glu.py", "conv_module.py"} <= names
 
 
 _NO_CARD_SCRIPT = r"""
