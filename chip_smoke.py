@@ -14,17 +14,19 @@ the elapsed seconds, and raising on failure (exit code other than 0):
 3. kernels: each kernel against its plain PyTorch version, timed with CUDA
    events beside the plain version, the bound (the larger of operations
    over peak and bytes over 3.35 TB/s) and, where one PyTorch call computes
-   the same function, that call: the forward kernels at the serve phase's
-   shapes and the bench's decode geometry (B=8, T=469 / M=3000), then all
-   fifteen kernel entry points at the training shapes (rel-pos forward and
-   backward at B=64, H=4, T=469, D=64; the pre-norm FFN forward with
-   dropout 0.1 and its backward at M=64*469, F=2048; the FFN of `fused_ffn`
-   forward and backward at the E-Branchformer's M=64*469, F=1024, and
-   recorded beside it at the decoder's M=64*41, F=2048; flash attention
-   forward at the transformer's B=64, H=4, T=469, D=64 with
+   the same function, that call (in bf16 the flash forward and the FFN
+   backward pairs run on tensor cores, float32 on the CUDA cores, so the
+   float32 checks hold the parity mode): the forward kernels at the serve
+   phase's shapes and the bench's decode geometry (B=8, T=469 / M=3000),
+   then all fifteen kernel entry points at the training shapes (rel-pos
+   forward and backward at B=64, H=4, T=469, D=64; the pre-norm FFN forward
+   with dropout 0.1 and its backward at M=64*469, F=2048; the FFN of
+   `fused_ffn` forward and backward at the E-Branchformer's M=64*469,
+   F=1024, and recorded beside it at the decoder's M=64*41, F=2048; flash
+   attention forward at the transformer's B=64, H=4, T=469, D=64 with
    torch.nn.functional.scaled_dot_product_attention as a yardstick; the CTC
-   lattice pair at B=64, T=469, S=81, with torch.nn.functional.ctc_loss as a
-   second oracle and yardstick; the conv sub-block's head and tail (split
+   lattice pair at B=64, T=469, S=81, with torch.nn.functional.ctc_loss as
+   a second oracle and yardstick; the conv sub-block's head and tail (split
    route) at M=64*469, D=256 with dropout 0.1 and the whole-module kernel
    at B=64, T=469, D=256, k=31 over ragged utterances of 1 to 469 frames,
    and at D=144, each forward and backward, beside the plain route's

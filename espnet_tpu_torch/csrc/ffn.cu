@@ -38,31 +38,45 @@ extern "C" int espnet_ffn_fwd(const void* x, const void* w1, const float* b1,
 }
 
 // Backward of espnet_ffn_fwd (same x, weights and options) for the output
-// gradient gy (M, D, x's dtype). Writes dx (M, D), partial (ceil(M/32), D)
-// float32 = the per-block sums of db2, and dw1p (groups, D, F), dw2p
-// (groups, F, D), db1p (groups, F) float32 = per-group sums.
+// gradient gy (M, D, x's dtype). Writes dx (M, D) and float32 partial sums:
+// partial (row blocks, D) of db2, dw1p (groups, D, F) and dw2p (groups, F,
+// D) over row groups of rows_per_group rows, and db1p over row groups
+// (float32: (groups, F)) or row blocks (bf16: (row blocks, F)). bf16 runs on
+// tensor cores and also writes a_buf and dh_buf (M, F), 16-byte aligned
+// like every bf16 input; float32 runs on the CUDA cores and takes null for
+// them. Row blocks as in espnet_ffn_bwd_rows_per_block (prenorm_ffn.cu).
 extern "C" int espnet_ffn_bwd(const void* x, const void* w1, const float* b1,
                               const void* w2, const void* gy, void* dx,
-                              float* partial, float* dw1p, float* dw2p,
-                              float* db1p, int M, int D, int F, int groups,
+                              void* a_buf, void* dh_buf, float* partial,
+                              float* dw1p, float* dw2p, float* db1p, int M,
+                              int D, int F, int groups, int rows_per_group,
                               int act, int q, float dscale, int seed,
                               int dtype, void* stream) {
   using namespace espnet_port;
-  if (!options_ok(M, F, act, q) || groups < 1) return kUnsupported;
+  if (!options_ok(M, F, act, q) || groups < 1 || rows_per_group < 1 ||
+      static_cast<long long>(groups) * rows_per_group < M)
+    return kUnsupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Drop dr{q, dscale, seed, 0};
-#define ESPNET_FFN_BWD(T, DD)                                                \
-  return launch_bwd<T, DD, false>(x, nullptr, nullptr, w1, b1, w2, gy, dx,   \
-                                  nullptr, nullptr, partial, dw1p, dw2p,     \
-                                  db1p, M, F, groups, 1.f, act, dr, s)
-  if (dtype == kFloat32 && D == 128) ESPNET_FFN_BWD(float, 128);
-  if (dtype == kFloat32 && D == 256) ESPNET_FFN_BWD(float, 256);
-  if (dtype == kFloat32 && D == 384) ESPNET_FFN_BWD(float, 384);
-  if (dtype == kFloat32 && D == 512) ESPNET_FFN_BWD(float, 512);
-  if (dtype == kBFloat16 && D == 128) ESPNET_FFN_BWD(__nv_bfloat16, 128);
-  if (dtype == kBFloat16 && D == 256) ESPNET_FFN_BWD(__nv_bfloat16, 256);
-  if (dtype == kBFloat16 && D == 384) ESPNET_FFN_BWD(__nv_bfloat16, 384);
-  if (dtype == kBFloat16 && D == 512) ESPNET_FFN_BWD(__nv_bfloat16, 512);
+#define ESPNET_FFN_BWD(DD)                                                   \
+  return launch_bwd<float, DD, false>(x, nullptr, nullptr, w1, b1, w2, gy,   \
+                                      dx, nullptr, nullptr, partial, dw1p,   \
+                                      dw2p, db1p, M, F, groups,              \
+                                      rows_per_group, 1.f, act, dr, s)
+  if (dtype == kFloat32 && D == 128) ESPNET_FFN_BWD(128);
+  if (dtype == kFloat32 && D == 256) ESPNET_FFN_BWD(256);
+  if (dtype == kFloat32 && D == 384) ESPNET_FFN_BWD(384);
+  if (dtype == kFloat32 && D == 512) ESPNET_FFN_BWD(512);
 #undef ESPNET_FFN_BWD
+#define ESPNET_FFN_BWD_TC(DD)                                               \
+  return launch_bwd_tc<DD, false>(x, nullptr, nullptr, w1, b1, w2, gy, dx,  \
+                                  nullptr, nullptr, a_buf, dh_buf, partial, \
+                                  dw1p, dw2p, db1p, M, F, groups,           \
+                                  rows_per_group, 1.f, act, dr, s)
+  if (dtype == kBFloat16 && D == 128) ESPNET_FFN_BWD_TC(128);
+  if (dtype == kBFloat16 && D == 256) ESPNET_FFN_BWD_TC(256);
+  if (dtype == kBFloat16 && D == 384) ESPNET_FFN_BWD_TC(384);
+  if (dtype == kBFloat16 && D == 512) ESPNET_FFN_BWD_TC(512);
+#undef ESPNET_FFN_BWD_TC
   return kUnsupported;
 }

@@ -32,37 +32,61 @@
 // What bounds it on an H100: the forward does 4·M·D·F flops and the
 // backward 10·M·D·F (the TPU kernels' count: the recomputed first product,
 // da, dx, dW1 and dW2) against (2·M·D + 2·D·F) elements, some 600 flops
-// per byte at M=30k, D=256, F=2048: bound by arithmetic. This first version
-// does the products on the CUDA cores in float32 (no tensor cores yet), far
-// below the bf16 bound, and the backward recomputes two of its products
-// once more (14·M·D·F in all).
+// per byte at M=30k, D=256, F=2048: bound by arithmetic, so the products
+// belong on the tensor cores.
 //
-// What the design does about it:
-// * The (M, F) hidden activation never reaches device memory, forward or
-//   backward. The forward block owns BM rows, normalises them (LN) or
-//   copies them into shared memory once and walks F in chunks whose
-//   activations go through shared memory straight into the float32 output
-//   accumulator in registers.
-// * The backward needs dx, which sums over F for each row, and dW1, dW2,
-//   which sum over all rows for each column of F; no block sees both. So it
-//   runs two kernels. `bwd_dx` owns BM rows and walks F (as the forward),
-//   recomputing h and da chunk by chunk to accumulate dx (LN: dxn) in
-//   registers; with LN it writes dx, the rounded LN(x) and dz (M x D each,
-//   not M x F), without LN only dx (the second kernel reads x and dy), and
-//   per-block partial sums of dLN scale, dLN bias and db2 (without LN, of
-//   db2 alone). `bwd_w` owns a BF2-wide column
-//   chunk of F and a group of rows; it keeps its W1 and W2 chunks in shared
-//   memory, recomputes h, a and dh for its rows from the stored LN(x) and
-//   dz (or x and dy), and accumulates the chunk's dW1, dW2 and db1 in
-//   registers. The few groups' partial sums are added afterwards
-//   (deterministic, no atomics).
+// The forward (both dtypes) and the float32 backward run on the CUDA cores
+// (`tile_product`): float32 is the port's parity mode, and tensor-core
+// float32 would be TF32, about three decimal digits. The forward block owns
+// BM rows, normalises them (LN) or copies them into shared memory once and
+// walks F in chunks whose activations go through shared memory straight
+// into the float32 output accumulator in registers: the (M, F) hidden
+// activation never reaches device memory.
+//
+// The backward needs dx, which sums over F for each row, and dW1, dW2,
+// which sum over all rows for each column of F; no block sees both, so it
+// is two kernels.
+//
+// * bf16, on tensor cores (mma.sync m16n8k16 with ldmatrix fragments and a
+//   cp.async ring; see tensor_core.cuh). `ffn_bwd_rows_tc_kernel` owns 64
+//   rows (32 at D > 256, for shared memory), keeps the rounded LN(x) (or x)
+//   and dz = s·drop1(gy) (or gy) tiles in shared memory, and walks F in
+//   32-wide chunks whose W1 and W2 slabs arrive through a two-stage
+//   cp.async ring, loading the next chunk while it computes on this one.
+//   Per chunk it runs three products on mma: h = LN(x)·W1 + b1
+//   (recomputed), da = dz·W2ᵀ, and, once dh = drop0(da)·act'(h) is rounded
+//   into shared memory, dxn += dh·W1ᵀ in float32 registers. It writes
+//   a = drop0(act(h)) and dh once each as (M, F) bf16 tensors (coalesced,
+//   from shared memory) and db1's per-block partial sums of the unrounded
+//   dh. After the walk, dxn goes through shared memory to the warp-per-row
+//   LayerNorm backward (`ln_bwd_row`), which writes dx and the per-block
+//   partials of dLN scale, dLN bias and db2. Then `atb_tc_kernel`, one
+//   tensor-core A^T B kernel, runs twice: dW1 = LN(x)ᵀ·dh (D x F) and
+//   dW2 = aᵀ·dz (F x D), each split over row groups into float32 partials
+//   that are added afterwards (deterministic, no atomics). The products
+//   come to the bound's 10·M·D·F; the price is 2·M·F bf16 written and read
+//   once (246 MB at the conformer's training shapes, transient).
+//   mma.sync rather than wgmma with TMA: the epilogues (hash, activation
+//   gradient, LayerNorm backward) sit between the products at fragment
+//   granularity, which the warp-level instructions keep simple; wgmma is
+//   later work.
+// * float32, on the CUDA cores. `bwd_dx` owns BM rows and walks F (as the
+//   forward), recomputing h and da chunk by chunk to accumulate dx (LN:
+//   dxn) in registers; with LN it writes dx, the rounded LN(x) and dz
+//   (M x D each), without LN only dx, and per-block partial sums of dLN
+//   scale, dLN bias and db2 (without LN, of db2 alone). `bwd_w` owns a
+//   BF2-wide column chunk of F and a group of rows, keeps its W1 and W2
+//   chunks in shared memory, recomputes h, a and dh for its rows from the
+//   stored LN(x) and dz (or x and dy), and accumulates the chunk's dW1,
+//   dW2 and db1 in registers (14·M·D·F flops in all).
 // * Rows past M are read as zeros (finite) and never stored or summed.
 // * D is a template argument, a multiple of 128 up to 512 (the entry points
 //   instantiate 128, 256, 384 and 512): at D = 640 the forward's and the
-//   dx kernel's shared memory would pass the 227 KB a block may have.
+//   dx kernels' shared memory would pass the 227 KB a block may have.
 #pragma once
 
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace espnet_port {
 namespace {
@@ -128,6 +152,19 @@ __device__ __forceinline__ float act_grad(float h, int act) {
   if (act == kRelu) return h > 0.f ? 1.f : 0.f;
   const float s = 1.f / (1.f + expf(-h));
   return s * (1.f + h * (1.f - s));
+}
+
+// act(h) and act'(h) together, the swish's sigmoid computed once.
+__device__ __forceinline__ void act_and_grad(float h, int act, float& a,
+                                             float& grad) {
+  if (act == kRelu) {
+    a = fmaxf(h, 0.f);
+    grad = h > 0.f ? 1.f : 0.f;
+    return;
+  }
+  const float s = 1.f / (1.f + expf(-h));
+  a = h * s;
+  grad = s * (1.f + h * (1.f - s));
 }
 
 // LayerNorm (eps 1e-6) of one row of n <= DP values held by one warp (value
@@ -851,6 +888,464 @@ int launch_atb(const T* a, const T* b, float* out, int M, int K, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward on tensor cores, kernel 2: out[group][k][n] = sum over the
+// group's rows m of A[m][k] B[m][n] (A: M x K, B: M x N, row-major bf16;
+// out float32; K and N multiples of TC_TILE; A, B 16-byte aligned). A block
+// of 8 warps (2 x 4, each 64 x 32 of the result) owns a TC_TILE x TC_TILE
+// tile and one group of rows, which pass through a TC_STAGES-deep cp.async
+// ring TC_ROWS at a time; both operands hold the reduction index along
+// their rows, so both are read with ldmatrix.trans. Rows past the group
+// read as zeros; an empty group writes zeros.
+// ---------------------------------------------------------------------------
+
+constexpr int TC_TILE = 128;  // result tile (ops/ffn_common.py TC_WGRAD_TILE)
+constexpr int TC_ROWS = 32;   // rows per stage (ffn_common.py TC_WGRAD_ROWS)
+constexpr int TC_STAGES = 3;
+constexpr int TC_LDT = TC_TILE + 8;  // bf16 row stride in shared memory
+constexpr size_t atb_tc_smem_bytes() {
+  return sizeof(bf16) * TC_STAGES * 2 * TC_ROWS * TC_LDT;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    atb_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                  float* __restrict__ out, int M, int K, int N,
+                  int rows_per_group) {
+  static_assert(sizeof(T) == 2, "the tensor-core A^T B takes bf16");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sa = reinterpret_cast<bf16*>(smem_raw);  // [stage][row][TC_LDT]
+  bf16* sb = sa + TC_STAGES * TC_ROWS * TC_LDT;
+  const bf16* ag = reinterpret_cast<const bf16*>(a);
+  const bf16* bg = reinterpret_cast<const bf16*>(b);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wk = warp >> 2;  // 64 result rows (k) each
+  const int wn = warp & 3;   // 32 result columns (n) each
+  const int n0 = blockIdx.x * TC_TILE, k0 = blockIdx.y * TC_TILE;
+  const int rbeg = blockIdx.z * rows_per_group;
+  const int rend = min(M, rbeg + rows_per_group);
+  const int steps = rend > rbeg ? (rend - rbeg + TC_ROWS - 1) / TC_ROWS : 0;
+
+  auto load = [&](int step, int st) {
+    constexpr int CPR = TC_TILE / 8;  // 16-byte chunks per row
+    const int r0 = rbeg + step * TC_ROWS;
+    for (int e = tid; e < TC_ROWS * CPR; e += THREADS) {
+      const int r = e / CPR, c = e % CPR;
+      const int m = r0 + r;
+      const bool ok = m < rend;
+      const size_t mo = static_cast<size_t>(ok ? m : 0);
+      cp_async16(sa + (st * TC_ROWS + r) * TC_LDT + c * 8,
+                 ag + mo * K + k0 + c * 8, ok ? 16 : 0);
+      cp_async16(sb + (st * TC_ROWS + r) * TC_LDT + c * 8,
+                 bg + mo * N + n0 + c * 8, ok ? 16 : 0);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();  // step s landed; step s-1's readers are done
+    const int next = s + TC_STAGES - 1;
+    if (next < steps) load(next, next % TC_STAGES);
+    cp_async_commit();
+    const int st = s % TC_STAGES;
+    const bf16* A = sa + st * TC_ROWS * TC_LDT;
+    const bf16* B = sb + st * TC_ROWS * TC_LDT;
+#pragma unroll
+    for (int kk = 0; kk < TC_ROWS / 16; ++kk) {
+      unsigned af[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4_trans(af[mt], A + (kk * 16 + (lane & 7) +
+                                       (lane >> 4) * 8) * TC_LDT +
+                                      wk * 64 + mt * 16 +
+                                      ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        unsigned bf[4];
+        ldmatrix_x4_trans(bf, B + (kk * 16 + (lane & 7) +
+                                   ((lane >> 3) & 1) * 8) * TC_LDT +
+                                  wn * 32 + np * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+          mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* o = out + static_cast<size_t>(blockIdx.z) * K * N;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int kr = k0 + wk * 64 + mt * 16 + g;
+      const int nc = n0 + wn * 32 + nt * 8 + 2 * t4;
+      *reinterpret_cast<float2*>(o + static_cast<size_t>(kr) * N + nc) =
+          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(o + static_cast<size_t>(kr + 8) * N + nc) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 backward on tensor cores, kernel 1: a row block's dx, a and dh, and
+// its partial sums (see the note at the top).
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BF = 32;  // hidden units per chunk
+
+template <int D>
+struct TcRows {
+  static constexpr int BMR = D <= 256 ? 64 : 32;  // rows per block
+  static constexpr int LDX = D + 8;      // bf16 stride: x / dz rows, W2 slab
+  static constexpr int LDF = TC_BF + 8;  // bf16 stride: W1 slab, a / dh tiles
+  static constexpr int LDZ = D + 8;      // float stride of the dxn staging
+  static constexpr int WM = BMR / 16;    // warps along rows
+  static constexpr int WN = 8 / WM;      // warps along columns
+  static constexpr int XN = BMR * LDX;   // elements of the x or dz tile
+  static constexpr int SLAB = D * LDF + TC_BF * LDX;  // one ring stage
+  static constexpr int TILE = BMR * LDF;              // the a or dh tile
+  static constexpr size_t bytes = sizeof(bf16) * (2 * XN + 2 * SLAB + 2 * TILE)
+                                  + sizeof(float) * (WM * TC_BF + 2 * BMR);
+  static_assert(sizeof(float) * BMR * LDZ <= sizeof(bf16) * 2 * SLAB,
+                "dxn is staged in the ring");
+  static_assert(sizeof(float) * 8 * 3 * D <= sizeof(bf16) * 2 * XN,
+                "the block sums reuse the x and dz tiles");
+  static_assert(bytes <= 232448, "a block may have 227 KB");
+};
+
+template <int D, bool LN>
+__global__ void __launch_bounds__(THREADS)
+    ffn_bwd_rows_tc_kernel(const bf16* __restrict__ x,
+                           const float* __restrict__ ln_scale,
+                           const float* __restrict__ ln_bias,
+                           const bf16* __restrict__ w1,
+                           const float* __restrict__ b1,
+                           const bf16* __restrict__ w2,
+                           const bf16* __restrict__ gy, bf16* __restrict__ dx,
+                           bf16* __restrict__ xn_out, bf16* __restrict__ dz_out,
+                           bf16* __restrict__ a_out, bf16* __restrict__ dh_out,
+                           float* __restrict__ partial,
+                           float* __restrict__ db1p, int M, int F,
+                           float res_scale, int act, int q, float dscale,
+                           int seed0, int seed1) {
+  using L = TcRows<D>;
+  constexpr int BMR = L::BMR, LDX = L::LDX, LDF = L::LDF, LDZ = L::LDZ;
+  constexpr int WM = L::WM, WN = L::WN;
+  constexpr int NT = TC_BF / (8 * WN);  // n-tiles of h and da per warp
+  constexpr int NX = D / (8 * WN);      // n-tiles of dxn per warp
+  constexpr int ZJ = D / 32;
+  constexpr int NP = LN ? 3 : 1;
+  static_assert(NT == 1 || NT == 2, "h tile per warp");
+  static_assert(NX % 2 == 0, "dxn n-tiles go in pairs");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xn_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dz_s = xn_s + L::XN;
+  bf16* ring = dz_s + L::XN;  // [stage]: W1 slab [D][LDF], W2 slab [BF][LDX]
+  bf16* a_s = ring + 2 * L::SLAB;
+  bf16* dh_s = a_s + L::TILE;
+  float* red_s = reinterpret_cast<float*>(dh_s + L::TILE);  // [WM][TC_BF]
+  float* mean_s = red_s + WM * TC_BF;
+  float* inv_s = mean_s + BMR;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = blockIdx.x * BMR;
+
+  auto load_slab = [&](int c0, int st) {
+    bf16* w1s = ring + st * L::SLAB;  // W1[d][c0 + f]
+    bf16* w2s = w1s + D * LDF;        // W2[c0 + f][d]
+    constexpr int C1 = TC_BF / 8, C2 = D / 8;
+    for (int e = tid; e < D * C1; e += THREADS) {
+      const int d = e / C1, c = e % C1;
+      cp_async16(w1s + d * LDF + c * 8,
+                 w1 + static_cast<size_t>(d) * F + c0 + c * 8, 16);
+    }
+    for (int e = tid; e < TC_BF * C2; e += THREADS) {
+      const int f = e / C2, c = e % C2;
+      cp_async16(w2s + f * LDX + c * 8,
+                 w2 + static_cast<size_t>(c0 + f) * D + c * 8, 16);
+    }
+  };
+  load_slab(0, 0);
+  cp_async_commit();
+
+  // LN(x) (or x) and dz = s·drop1(gy) (or gy), rounded, zeros past M; warp
+  // w does rows w·BMR/8 ...
+  for (int rr = 0; rr < BMR / 8; ++rr) {
+    const int r = warp * (BMR / 8) + rr;
+    const int gi = row0 + r;
+    const bool ok = gi < M;
+    const size_t base = static_cast<size_t>(ok ? gi : 0) * D;
+    float xv[ZJ];
+#pragma unroll
+    for (int e = 0; e < ZJ; ++e)
+      xv[e] = ok ? to_f32(x[base + lane + 32 * e]) : 0.f;
+    if (LN) {
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < ZJ; ++e) sum += xv[e];
+      const float mean = warp_sum(sum) / D;
+      float sq = 0.f;
+#pragma unroll
+      for (int e = 0; e < ZJ; ++e) {
+        xv[e] -= mean;
+        sq += xv[e] * xv[e];
+      }
+      const float inv = rsqrtf(warp_sum(sq) / D + LN_EPS);
+#pragma unroll
+      for (int e = 0; e < ZJ; ++e) {
+        const int d = lane + 32 * e;
+        xv[e] = xv[e] * inv * ln_scale[d] + ln_bias[d];
+      }
+      if (lane == 0) {
+        mean_s[r] = mean;
+        inv_s[r] = inv;
+      }
+    }
+    const unsigned st1 = drop_stream(seed1, gi);
+#pragma unroll
+    for (int e = 0; e < ZJ; ++e) {
+      const int d = lane + 32 * e;
+      const bf16 xb = from_f32<bf16>(ok ? xv[e] : 0.f);
+      float v = ok ? to_f32(gy[base + d]) : 0.f;
+      if (LN) {
+        v *= res_scale;
+        if (q > 0) v = drop_keep(st1, gi, D, d, q) ? v * dscale : 0.f;
+      }
+      const bf16 vb = from_f32<bf16>(v);
+      xn_s[r * LDX + d] = xb;
+      dz_s[r * LDX + d] = vb;
+      if (LN && ok) {
+        xn_out[base + d] = xb;
+        dz_out[base + d] = vb;
+      }
+    }
+  }
+
+  // this lane's fragment rows and their dropout streams
+  const int ra = wm * 16 + g;
+  const unsigned st0[2] = {drop_stream(seed0, row0 + ra),
+                           drop_stream(seed0, row0 + ra + 8)};
+  const int nb = wn * NT * 8;  // this warp's first column of a chunk
+  const int xc = wn * NX * 8;  // this warp's first column of dxn
+  float zacc[NX][4];           // dxn, float32
+#pragma unroll
+  for (int n = 0; n < NX; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) zacc[n][e] = 0.f;
+
+  const int chunks = F / TC_BF;
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int c0 = ch * TC_BF;
+    const int st = ch & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // slab ch landed; chunk ch-1's readers are done
+    if (ch + 1 < chunks) {
+      load_slab(c0 + TC_BF, st ^ 1);
+      cp_async_commit();
+    }
+    const bf16* w1s = ring + st * L::SLAB;
+    const bf16* w2s = w1s + D * LDF;
+
+    // h = LN(x) W1[:, chunk] (W1 slab rows are k: ldmatrix.trans) and
+    // da = dz W2[chunk, :]ᵀ (W2 slab rows are n: ldmatrix)
+    float hacc[NT][4], dacc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hacc[n][e] = dacc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int aoff = (wm * 16 + (lane & 15)) * LDX + kk * 16 +
+                       (lane >> 4) * 8;
+      unsigned ax[4], az[4];
+      ldmatrix_x4(ax, xn_s + aoff);
+      ldmatrix_x4(az, dz_s + aoff);
+      const bf16* p1 = w1s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                 LDF + nb;
+      if constexpr (NT == 2) {
+        unsigned bw1[4], bw2[4];
+        ldmatrix_x4_trans(bw1, p1 + (lane >> 4) * 8);
+        ldmatrix_x4(bw2, w2s + (nb + (lane & 7) + (lane >> 4) * 8) * LDX +
+                             kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(hacc[0], ax, bw1[0], bw1[1]);
+        mma_bf16(hacc[1], ax, bw1[2], bw1[3]);
+        mma_bf16(dacc[0], az, bw2[0], bw2[1]);
+        mma_bf16(dacc[1], az, bw2[2], bw2[3]);
+      } else {
+        unsigned bw1[2], bw2[2];
+        ldmatrix_x2_trans(bw1, p1);
+        ldmatrix_x2(bw2, w2s + (nb + (lane & 7)) * LDX + kk * 16 +
+                             ((lane >> 3) & 1) * 8);
+        mma_bf16(hacc[0], ax, bw1[0], bw1[1]);
+        mma_bf16(dacc[0], az, bw2[0], bw2[1]);
+      }
+    }
+
+    // a = drop0(act(h)), dh = drop0(da)·act'(h): rounded into the tiles;
+    // db1 sums the unrounded dh
+    float db1v[NT][2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      db1v[n][0] = db1v[n][1] = 0.f;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = ra + 8 * hr;
+        const int gi = row0 + r;
+        const int c = nb + n * 8 + 2 * t4;
+        float av[2], dv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int f = c0 + c + e;
+          const float h = hacc[n][2 * hr + e] + b1[f];
+          float a, grad;
+          act_and_grad(h, act, a, grad);
+          float da = dacc[n][2 * hr + e];
+          if (q > 0) {
+            const bool keep = drop_keep(st0[hr], gi, F, f, q);
+            a = keep ? a * dscale : 0.f;
+            da = keep ? da * dscale : 0.f;
+          }
+          av[e] = a;
+          dv[e] = da * grad;
+          db1v[n][e] += dv[e];
+        }
+        *reinterpret_cast<__nv_bfloat162*>(a_s + r * LDF + c) =
+            __floats2bfloat162_rn(av[0], av[1]);
+        *reinterpret_cast<__nv_bfloat162*>(dh_s + r * LDF + c) =
+            __floats2bfloat162_rn(dv[0], dv[1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = db1v[n][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0) red_s[wm * TC_BF + nb + n * 8 + 2 * t4 + e] = v;
+      }
+    }
+    __syncthreads();  // the a and dh tiles and the db1 sums are complete
+
+    // dxn += dh W1[:, chunk]ᵀ (W1 slab rows are n: ldmatrix)
+#pragma unroll
+    for (int kk = 0; kk < TC_BF / 16; ++kk) {
+      unsigned ad[4];
+      ldmatrix_x4(ad, dh_s + (wm * 16 + (lane & 15)) * LDF + kk * 16 +
+                          (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NX / 2; ++np) {
+        unsigned bw[4];
+        ldmatrix_x4(bw, w1s + (xc + np * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                  LDF + kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(zacc[2 * np], ad, bw[0], bw[1]);
+        mma_bf16(zacc[2 * np + 1], ad, bw[2], bw[3]);
+      }
+    }
+    // a and dh to device memory, 16 bytes a thread, rows past M dropped
+    constexpr int CR = TC_BF / 8;
+    for (int e = tid; e < BMR * CR; e += THREADS) {
+      const int r = e / CR, c = e % CR;
+      const int gi = row0 + r;
+      if (gi >= M) continue;
+      const size_t go = static_cast<size_t>(gi) * F + c0 + c * 8;
+      *reinterpret_cast<uint4*>(a_out + go) =
+          *reinterpret_cast<const uint4*>(a_s + r * LDF + c * 8);
+      *reinterpret_cast<uint4*>(dh_out + go) =
+          *reinterpret_cast<const uint4*>(dh_s + r * LDF + c * 8);
+    }
+    if (tid < TC_BF) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < WM; ++w) sum += red_s[w * TC_BF + tid];
+      db1p[static_cast<size_t>(blockIdx.x) * F + c0 + tid] = sum;
+    }
+  }
+  __syncthreads();  // every reader of the ring is done
+
+  // dxn through shared memory (the ring) to one warp per row
+  float* z_s = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int n = 0; n < NX; ++n) {
+    const int c = xc + n * 8 + 2 * t4;
+    *reinterpret_cast<float2*>(z_s + ra * LDZ + c) =
+        make_float2(zacc[n][0], zacc[n][1]);
+    *reinterpret_cast<float2*>(z_s + (ra + 8) * LDZ + c) =
+        make_float2(zacc[n][2], zacc[n][3]);
+  }
+  __syncthreads();
+
+  // LayerNorm backward per row (or dx = dxn) and the column sums: dLN
+  // scale, dLN bias and db2 (LN), db2 (no LN); db2 sums the unrounded dz
+  float part[NP][ZJ];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int e = 0; e < ZJ; ++e) part[p][e] = 0.f;
+  for (int rr = 0; rr < BMR / 8; ++rr) {
+    const int r = warp * (BMR / 8) + rr;
+    const int gi = row0 + r;
+    if (gi >= M) continue;  // uniform across the warp
+    const size_t base = static_cast<size_t>(gi) * D;
+    const unsigned st1 = drop_stream(seed1, gi);
+    float zv[ZJ], gv[ZJ];
+#pragma unroll
+    for (int jj = 0; jj < ZJ; ++jj) {
+      const int d = lane + 32 * jj;
+      zv[jj] = z_s[r * LDZ + d];
+      gv[jj] = to_f32(gy[base + d]);
+      float v = gv[jj];
+      if (LN) {
+        v *= res_scale;
+        if (q > 0) v = drop_keep(st1, gi, D, d, q) ? v * dscale : 0.f;
+      }
+      part[NP - 1][jj] += v;
+    }
+    if constexpr (!LN) {
+#pragma unroll
+      for (int jj = 0; jj < ZJ; ++jj)
+        dx[base + lane + 32 * jj] = from_f32<bf16>(zv[jj]);
+    } else {
+      const float mean = mean_s[r], inv = inv_s[r];
+      float xh[ZJ], dxl[ZJ];
+#pragma unroll
+      for (int jj = 0; jj < ZJ; ++jj)
+        xh[jj] = (to_f32(x[base + lane + 32 * jj]) - mean) * inv;
+      ln_bwd_row<ZJ>(zv, xh, ln_scale, inv, D, dxl, part[0], part[LN]);
+#pragma unroll
+      for (int jj = 0; jj < ZJ; ++jj)
+        dx[base + lane + 32 * jj] = from_f32<bf16>(gv[jj] + dxl[jj]);
+    }
+  }
+  // per-block sums over the 8 warps: reuse the x and dz tiles as (8, NP, D)
+  store_block_sums<NP, ZJ>(part, reinterpret_cast<float*>(smem_raw),
+                           partial + static_cast<size_t>(blockIdx.x) * NP * D,
+                           D);
+}
+
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t smem) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -886,8 +1381,8 @@ int launch_bwd(const void* x, const float* ln_scale, const float* ln_bias,
                const void* w1, const float* b1, const void* w2,
                const void* gy, void* dx, void* xn_buf, void* dz_buf,
                float* partial, float* dw1p, float* dw2p, float* db1p, int M,
-               int F, int groups, float res_scale, int act, Drop dr,
-               cudaStream_t stream) {
+               int F, int groups, int rows_per_group, float res_scale,
+               int act, Drop dr, cudaStream_t stream) {
   auto k1 = ffn_bwd_dx_kernel<T, D, LN>;
   const size_t smem1 = dx_smem_bytes<D>();
   if (int err = set_smem(k1, smem1)) return err;
@@ -900,12 +1395,52 @@ int launch_bwd(const void* x, const float* ln_scale, const float* ln_bias,
   auto k2 = ffn_bwd_w_kernel<T, D>;
   const size_t smem2 = w_smem_bytes<D>();
   if (int err = set_smem(k2, smem2)) return err;
-  const int rows_per_group = (M + groups - 1) / groups;
   k2<<<dim3(F / BF2, groups), THREADS, smem2, stream>>>(
       static_cast<const T*>(LN ? xn_buf : x),
       static_cast<const T*>(LN ? dz_buf : gy), static_cast<const T*>(w1), b1,
       static_cast<const T*>(w2), dw1p, dw2p, db1p, M, F, rows_per_group, act,
       dr.q, dr.scale, dr.seed0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 backward on tensor cores. With LN, xn_buf and dz_buf receive the
+// rounded LN(x) and dz; without LN they are null and the A^T B kernel reads
+// x and gy. a_buf and dh_buf receive a and dh (M x F); partial (row blocks,
+// NP, D) and db1p (row blocks, F) the row blocks' sums; dw1p (groups, D, F)
+// and dw2p (groups, F, D) the row groups' sums of rows_per_group rows each.
+template <int D, bool LN>
+int launch_bwd_tc(const void* x, const float* ln_scale, const float* ln_bias,
+                  const void* w1, const float* b1, const void* w2,
+                  const void* gy, void* dx, void* xn_buf, void* dz_buf,
+                  void* a_buf, void* dh_buf, float* partial, float* dw1p,
+                  float* dw2p, float* db1p, int M, int F, int groups,
+                  int rows_per_group, float res_scale, int act, Drop dr,
+                  cudaStream_t stream) {
+  static_assert(BF % TC_TILE == 0 && D % TC_TILE == 0,
+                "options_ok's multiple of F covers the A^T B tiles");
+  auto k1 = ffn_bwd_rows_tc_kernel<D, LN>;
+  const size_t smem1 = TcRows<D>::bytes;
+  if (int err = set_smem(k1, smem1)) return err;
+  constexpr int BMR = TcRows<D>::BMR;
+  k1<<<(M + BMR - 1) / BMR, THREADS, smem1, stream>>>(
+      static_cast<const bf16*>(x), ln_scale, ln_bias,
+      static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2),
+      static_cast<const bf16*>(gy), static_cast<bf16*>(dx),
+      static_cast<bf16*>(xn_buf), static_cast<bf16*>(dz_buf),
+      static_cast<bf16*>(a_buf), static_cast<bf16*>(dh_buf), partial, db1p, M,
+      F, res_scale, act, dr.q, dr.scale, dr.seed0, dr.seed1);
+  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  auto k2 = atb_tc_kernel<bf16>;
+  const size_t smem2 = atb_tc_smem_bytes();
+  if (int err = set_smem(k2, smem2)) return err;
+  const bf16* xa = static_cast<const bf16*>(LN ? xn_buf : x);
+  const bf16* dzb = static_cast<const bf16*>(LN ? dz_buf : gy);
+  // dW1 = LN(x)^T dh: (D, F); dW2 = a^T dz: (F, D)
+  k2<<<dim3(F / TC_TILE, D / TC_TILE, groups), THREADS, smem2, stream>>>(
+      xa, static_cast<const bf16*>(dh_buf), dw1p, M, D, F, rows_per_group);
+  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  k2<<<dim3(D / TC_TILE, F / TC_TILE, groups), THREADS, smem2, stream>>>(
+      static_cast<const bf16*>(a_buf), dzb, dw2p, M, F, D, rows_per_group);
   return static_cast<int>(cudaGetLastError());
 }
 

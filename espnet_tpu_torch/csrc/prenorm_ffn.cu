@@ -42,36 +42,61 @@ extern "C" int espnet_prenorm_ffn_fwd(const void* x, const float* ln_scale,
 
 // Backward of espnet_prenorm_ffn_fwd (same x, weights and options) for the
 // output gradient gy (M, D, x's dtype). Writes dx (M, D), scratch xn_buf and
-// dz_buf (M, D, x's dtype), partial (ceil(M/32), 3, D) float32 = per-block
-// sums of dLN scale, dLN bias and db2, and dw1p (groups, D, F), dw2p
-// (groups, F, D), db1p (groups, F) float32 = per-group sums.
+// dz_buf (M, D, x's dtype), and float32 partial sums: partial (row blocks,
+// 3, D) of dLN scale, dLN bias and db2, dw1p (groups, D, F) and dw2p
+// (groups, F, D) over row groups of rows_per_group rows, and db1p over row
+// groups (float32: (groups, F)) or row blocks (bf16: (row blocks, F)).
+// bf16 runs on tensor cores and also writes a_buf and dh_buf (M, F), 16-byte
+// aligned like every bf16 input (row blocks of espnet_ffn_bwd_rows_per_block
+// rows); float32 runs on the CUDA cores (row blocks of 32 rows) and takes
+// null for a_buf and dh_buf.
 extern "C" int espnet_prenorm_ffn_bwd(
     const void* x, const float* ln_scale, const float* ln_bias,
     const void* w1, const float* b1, const void* w2, const void* gy,
-    void* dx, void* xn_buf, void* dz_buf, float* partial, float* dw1p,
-    float* dw2p, float* db1p, int M, int D, int F, int groups,
-    float res_scale, int act, int q, float dscale, int seed0, int seed1,
-    int dtype, void* stream) {
+    void* dx, void* xn_buf, void* dz_buf, void* a_buf, void* dh_buf,
+    float* partial, float* dw1p, float* dw2p, float* db1p, int M, int D,
+    int F, int groups, int rows_per_group, float res_scale, int act, int q,
+    float dscale, int seed0, int seed1, int dtype, void* stream) {
   using namespace espnet_port;
-  if (!options_ok(M, F, act, q) || groups < 1) return kUnsupported;
+  if (!options_ok(M, F, act, q) || groups < 1 || rows_per_group < 1 ||
+      static_cast<long long>(groups) * rows_per_group < M)
+    return kUnsupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Drop dr{q, dscale, seed0, seed1};
-#define ESPNET_PFFN_BWD(T, DD)                                            \
-  return launch_bwd<T, DD, true>(x, ln_scale, ln_bias, w1, b1, w2, gy, dx, \
-                                 xn_buf, dz_buf, partial, dw1p, dw2p, db1p, \
-                                 M, F, groups, res_scale, act, dr, s)
-  if (dtype == kFloat32 && D == 128) ESPNET_PFFN_BWD(float, 128);
-  if (dtype == kFloat32 && D == 256) ESPNET_PFFN_BWD(float, 256);
-  if (dtype == kFloat32 && D == 384) ESPNET_PFFN_BWD(float, 384);
-  if (dtype == kFloat32 && D == 512) ESPNET_PFFN_BWD(float, 512);
-  if (dtype == kBFloat16 && D == 128) ESPNET_PFFN_BWD(__nv_bfloat16, 128);
-  if (dtype == kBFloat16 && D == 256) ESPNET_PFFN_BWD(__nv_bfloat16, 256);
-  if (dtype == kBFloat16 && D == 384) ESPNET_PFFN_BWD(__nv_bfloat16, 384);
-  if (dtype == kBFloat16 && D == 512) ESPNET_PFFN_BWD(__nv_bfloat16, 512);
+#define ESPNET_PFFN_BWD(DD)                                                 \
+  return launch_bwd<float, DD, true>(x, ln_scale, ln_bias, w1, b1, w2, gy,  \
+                                     dx, xn_buf, dz_buf, partial, dw1p,     \
+                                     dw2p, db1p, M, F, groups,              \
+                                     rows_per_group, res_scale, act, dr, s)
+  if (dtype == kFloat32 && D == 128) ESPNET_PFFN_BWD(128);
+  if (dtype == kFloat32 && D == 256) ESPNET_PFFN_BWD(256);
+  if (dtype == kFloat32 && D == 384) ESPNET_PFFN_BWD(384);
+  if (dtype == kFloat32 && D == 512) ESPNET_PFFN_BWD(512);
 #undef ESPNET_PFFN_BWD
+#define ESPNET_PFFN_BWD_TC(DD)                                                \
+  return launch_bwd_tc<DD, true>(x, ln_scale, ln_bias, w1, b1, w2, gy, dx,    \
+                                 xn_buf, dz_buf, a_buf, dh_buf, partial, dw1p, \
+                                 dw2p, db1p, M, F, groups, rows_per_group,    \
+                                 res_scale, act, dr, s)
+  if (dtype == kBFloat16 && D == 128) ESPNET_PFFN_BWD_TC(128);
+  if (dtype == kBFloat16 && D == 256) ESPNET_PFFN_BWD_TC(256);
+  if (dtype == kBFloat16 && D == 384) ESPNET_PFFN_BWD_TC(384);
+  if (dtype == kBFloat16 && D == 512) ESPNET_PFFN_BWD_TC(512);
+#undef ESPNET_PFFN_BWD_TC
   return kUnsupported;
 }
 
-extern "C" int espnet_prenorm_ffn_bwd_rows_per_block() {
-  return espnet_port::BM;
+// Rows per block of the backward's row kernel (the float32 `bwd_dx` or the
+// bf16 tensor-core kernel at model width D); -1 for what it does not take.
+extern "C" int espnet_ffn_bwd_rows_per_block(int D, int dtype) {
+  using namespace espnet_port;
+  if (dtype == kFloat32) return BM;
+  if (dtype != kBFloat16) return kUnsupported;
+  switch (D) {
+    case 128: return TcRows<128>::BMR;
+    case 256: return TcRows<256>::BMR;
+    case 384: return TcRows<384>::BMR;
+    case 512: return TcRows<512>::BMR;
+    default: return kUnsupported;
+  }
 }

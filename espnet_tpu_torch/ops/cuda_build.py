@@ -42,11 +42,11 @@ _SIGNATURES = {
     "espnet_relpos_attention_slab_rows": (_I,),
     "espnet_prenorm_ffn_fwd": ((_P,) * 8 + (_I,) * 3 + (_F, _I, _I, _F)
                                + (_I,) * 3 + (_P,)),
-    "espnet_prenorm_ffn_bwd": ((_P,) * 14 + (_I,) * 4 + (_F, _I, _I, _F)
+    "espnet_prenorm_ffn_bwd": ((_P,) * 16 + (_I,) * 5 + (_F, _I, _I, _F)
                                + (_I,) * 3 + (_P,)),
-    "espnet_prenorm_ffn_bwd_rows_per_block": (),
+    "espnet_ffn_bwd_rows_per_block": (_I, _I),
     "espnet_ffn_fwd": (_P,) * 6 + (_I,) * 5 + (_F, _I, _I, _P),
-    "espnet_ffn_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _I, _I, _P),
+    "espnet_ffn_bwd": (_P,) * 12 + (_I,) * 7 + (_F, _I, _I, _P),
     "espnet_flash_attention_fwd": (_P,) * 5 + (_I,) * 4 + (_F, _I, _P),
     "espnet_ctc_alphas": (_P,) * 5 + (_I,) * 3 + (_P,),
     "espnet_ctc_gamma": (_P,) * 6 + (_I,) * 3 + (_P,),

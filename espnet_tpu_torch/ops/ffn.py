@@ -31,9 +31,10 @@ import torch
 
 from espnet_tpu_torch.ops.cuda_build import check_launch, kernel_library
 from espnet_tpu_torch.ops.ffn_common import (ACTIVATIONS, DTYPE_CODES, act,
-                                             bwd_grid, check_args,
-                                             check_kernel_dims, drop_args,
-                                             keep_mask, quantize_rate, stream)
+                                             aligned16, bwd_buffers,
+                                             check_args, check_kernel_dims,
+                                             drop_args, keep_mask, ptr,
+                                             quantize_rate, stream)
 
 
 def _check_options(drop_rate: float, seed, activation: str) -> None:
@@ -87,31 +88,30 @@ def _kernel_fwd(x2, w1, b1, w2, b2, activation, q, seed):
 
 def fused_ffn_bwd(x2, w1, b1, w2, gy, activation, q, seed):
     """Gradients of the kernel's forward (the CUDA backward kernel pair):
-    (dx, dw1, db1, dw2, db2). `fused_ffn_bwd.launches` counts calls."""
+    (dx, dw1, db1, dw2, db2). bf16 runs on tensor cores (with two transient
+    (M, F) buffers), float32 on the CUDA cores. `fused_ffn_bwd.launches`
+    counts calls."""
     if x2.device.type != "cuda":
         raise ValueError(f"fused_ffn_bwd: unsupported device {x2.device}")
     m, d = x2.shape
     f = w1.shape[1]
     gy = gy.to(x2.dtype).contiguous()
-    lib = kernel_library()
-    n_blocks, groups = bwd_grid(m, f)
-    f32 = dict(dtype=torch.float32, device=x2.device)
-    dx = torch.empty_like(x2)
-    partial = torch.empty(n_blocks, d, **f32)  # per-block sums of db2
-    dw1p = torch.empty(groups, d, f, **f32)
-    dw2p = torch.empty(groups, f, d, **f32)
-    db1p = torch.empty(groups, f, **f32)
+    if x2.dtype == torch.bfloat16:
+        x2, w1, w2, gy = (aligned16(t) for t in (x2, w1, w2, gy))
+    lay, buf = bwd_buffers(x2, f, 1)  # partial: the per-block sums of db2
     q, dscale, s0, _ = drop_args(q, None if seed is None else (seed,))
-    code = lib.espnet_ffn_bwd(
+    code = kernel_library().espnet_ffn_bwd(
         x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        gy.data_ptr(), dx.data_ptr(), partial.data_ptr(), dw1p.data_ptr(),
-        dw2p.data_ptr(), db1p.data_ptr(), m, d, f, groups,
-        ACTIVATIONS[activation], q, dscale, s0, DTYPE_CODES[x2.dtype],
-        stream(x2))
+        gy.data_ptr(), buf["dx"].data_ptr(), ptr(buf["a"]), ptr(buf["dh"]),
+        buf["partial"].data_ptr(), buf["dw1p"].data_ptr(),
+        buf["dw2p"].data_ptr(), buf["db1p"].data_ptr(), m, d, f, lay.groups,
+        lay.rows_per_group, ACTIVATIONS[activation], q, dscale, s0,
+        DTYPE_CODES[x2.dtype], stream(x2))
     check_launch("fused_ffn_bwd", code)
     fused_ffn_bwd.launches += 1
-    return (dx, dw1p.sum(dim=0).to(w1.dtype), db1p.sum(dim=0),
-            dw2p.sum(dim=0).to(w2.dtype), partial.sum(dim=0))
+    return (buf["dx"], buf["dw1p"].sum(dim=0).to(w1.dtype),
+            buf["db1p"].sum(dim=0), buf["dw2p"].sum(dim=0).to(w2.dtype),
+            buf["partial"].sum(dim=0)[0])
 
 
 class _FusedFFN(torch.autograd.Function):

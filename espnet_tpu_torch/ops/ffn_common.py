@@ -17,9 +17,9 @@ passes the gate and raises on the card.
 
 from __future__ import annotations
 
-import torch
+from typing import NamedTuple, Optional, Tuple
 
-from espnet_tpu_torch.ops.cuda_build import kernel_library
+import torch
 
 ACTIVATIONS = {"swish": 0, "relu": 1}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -140,14 +140,78 @@ def stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def bwd_grid(m: int, d_ff: int):
-    """(row blocks of the dx kernel, row groups of the weight-gradient
-    kernel) of the backward pair for M rows."""
-    rows = kernel_library().espnet_prenorm_ffn_bwd_rows_per_block()
-    n_blocks = -(-m // rows)
-    groups = max(1, min(n_blocks,
+# The backward pair's grid (csrc/ffn_kernels.cuh). float32, on the CUDA
+# cores: `bwd_dx` over 32-row blocks, then `bwd_w` over 32-wide chunks of F
+# and row groups. bf16, on tensor cores: the row kernel over blocks of
+# TC_ROWS_PER_BLOCK[D] rows, then the A^T B kernel over 128 x 128 result
+# tiles and row groups that it walks 32 rows at a time.
+FP32_ROWS_PER_BLOCK = 32
+TC_ROWS_PER_BLOCK = {128: 64, 256: 64, 384: 32, 512: 32}
+TC_WGRAD_TILE = 128
+TC_WGRAD_ROWS = 32
+
+
+class BwdLayout(NamedTuple):
+    row_blocks: int      # blocks of the row kernel (rows of `partial`)
+    groups: int          # row groups of the weight-gradient partial sums
+    rows_per_group: int  # group g sums rows [g, g + 1) * rows_per_group
+    db1_parts: int       # rows of db1's partial sums
+    tensor_cores: bool   # the bf16 design: a and dh go through (M, F)
+
+
+def wgrad_split(m: int, k: int, n: int) -> Tuple[int, int]:
+    """(groups, rows per group) of the tensor-core A^T B kernel summing m
+    rows into a (k, n) result: enough groups to fill the card twice, each a
+    whole number of the kernel's 32-row steps, none empty."""
+    tiles = (k // TC_WGRAD_TILE) * (n // TC_WGRAD_TILE)
+    want = max(1, round(_WGRAD_BLOCKS / tiles))
+    rows = -(-m // want)
+    rows = -(-rows // TC_WGRAD_ROWS) * TC_WGRAD_ROWS
+    return -(-m // rows), rows
+
+
+def bwd_layout(m: int, d: int, d_ff: int, dtype: torch.dtype) -> BwdLayout:
+    """The backward pair's grid for m rows of width d (d_ff hidden units)."""
+    if dtype == torch.bfloat16:
+        blocks = -(-m // TC_ROWS_PER_BLOCK[d])
+        groups, rows = wgrad_split(m, d, d_ff)
+        return BwdLayout(blocks, groups, rows, blocks, True)
+    blocks = -(-m // FP32_ROWS_PER_BLOCK)
+    groups = max(1, min(blocks,
                         round(_WGRAD_BLOCKS / (d_ff // _WGRAD_CHUNK))))
-    return n_blocks, groups
+    return BwdLayout(blocks, groups, -(-m // groups), groups, False)
+
+
+def bwd_buffers(x2: torch.Tensor, d_ff: int, n_sums: int):
+    """(layout, buffers) of the backward pair for x2 (M, D): dx; the float32
+    partial sums `partial` (row blocks, n_sums, D), `dw1p` (groups, D, d_ff),
+    `dw2p` (groups, d_ff, D) and `db1p` (db1_parts, d_ff); with tensor cores
+    also the (M, d_ff) scratch `a` and `dh` in x2's dtype, 2·M·d_ff elements
+    that live for one backward call."""
+    m, d = x2.shape
+    lay = bwd_layout(m, d, d_ff, x2.dtype)
+    f32 = dict(dtype=torch.float32, device=x2.device)
+    bufs = {"dx": torch.empty_like(x2),
+            "partial": torch.empty(lay.row_blocks, n_sums, d, **f32),
+            "dw1p": torch.empty(lay.groups, d, d_ff, **f32),
+            "dw2p": torch.empty(lay.groups, d_ff, d, **f32),
+            "db1p": torch.empty(lay.db1_parts, d_ff, **f32),
+            "a": None, "dh": None}
+    if lay.tensor_cores:
+        bufs["a"] = torch.empty(m, d_ff, dtype=x2.dtype, device=x2.device)
+        bufs["dh"] = torch.empty_like(bufs["a"])
+    return lay, bufs
+
+
+def ptr(t: Optional[torch.Tensor]):
+    """A tensor's device address for a C entry point (None: null)."""
+    return None if t is None else t.data_ptr()
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it at a 16-byte aligned address (the bf16
+    tensor-core kernels copy 16-byte chunks)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 # the output tile of the A^T B weight-gradient kernel (csrc/ffn_kernels.cuh)

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from espnet_tpu_torch.ops.cuda_build import check_launch, kernel_library
+from espnet_tpu_torch.ops.ffn_common import aligned16
 from espnet_tpu_torch.ops.relpos_attention import (DTYPE_CODES, NEG,
                                                    kernel_head_dim, key_bias)
 
@@ -85,6 +86,8 @@ def _kernel_fwd(q, k, v, kb):
     pad = kernel_head_dim(d) - d
     if pad:  # zero columns add nothing to a score
         q, k, v = (F.pad(x, (0, pad)).contiguous() for x in (q, k, v))
+    elif q.dtype == torch.bfloat16:
+        q, k, v = (aligned16(x) for x in (q, k, v))
     out = torch.empty_like(q)
     code = kernel_library().espnet_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(),

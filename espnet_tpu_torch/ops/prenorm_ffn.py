@@ -31,10 +31,11 @@ import torch
 
 from espnet_tpu_torch.ops.cuda_build import check_launch, kernel_library
 from espnet_tpu_torch.ops.ffn_common import (ACTIVATIONS, DTYPE_CODES, act,
-                                             bwd_grid, check_args,
-                                             check_kernel_dims, drop_args,
-                                             keep_mask, layer_norm,
-                                             quantize_rate, stream)
+                                             aligned16, bwd_buffers,
+                                             check_args, check_kernel_dims,
+                                             drop_args, keep_mask,
+                                             layer_norm, ptr, quantize_rate,
+                                             stream)
 
 
 def _check_options(drop_rate: float, seeds, activation: str) -> None:
@@ -102,37 +103,35 @@ def _kernel_fwd(x2, ln_scale, ln_bias, w1, b1, w2, b2, activation,
 def prenorm_ffn_bwd(x2, ln_scale, ln_bias, w1, b1, w2, gy, activation,
                     residual_scale, q, seeds):
     """Gradients of the kernel's forward (the CUDA backward kernel pair):
-    (dx, dln_scale, dln_bias, dw1, db1, dw2, db2). `prenorm_ffn_bwd.launches`
-    counts calls."""
+    (dx, dln_scale, dln_bias, dw1, db1, dw2, db2). bf16 runs on tensor
+    cores (with two transient (M, F) buffers), float32 on the CUDA cores.
+    `prenorm_ffn_bwd.launches` counts calls."""
     if x2.device.type != "cuda":
         raise ValueError(f"prenorm_ffn_bwd: unsupported device {x2.device}")
     m, d = x2.shape
     f = w1.shape[1]
     gy = gy.to(x2.dtype).contiguous()
-    lib = kernel_library()
-    n_blocks, groups = bwd_grid(m, f)
-    dev = x2.device
-    dx = torch.empty_like(x2)
+    if x2.dtype == torch.bfloat16:
+        x2, w1, w2, gy = (aligned16(t) for t in (x2, w1, w2, gy))
+    lay, buf = bwd_buffers(x2, f, 3)
     xn_buf = torch.empty_like(x2)
     dz_buf = torch.empty_like(x2)
-    partial = torch.empty(n_blocks, 3, d, dtype=torch.float32, device=dev)
-    dw1p = torch.empty(groups, d, f, dtype=torch.float32, device=dev)
-    dw2p = torch.empty(groups, f, d, dtype=torch.float32, device=dev)
-    db1p = torch.empty(groups, f, dtype=torch.float32, device=dev)
     q, dscale, s0, s1 = drop_args(q, seeds)
-    code = lib.espnet_prenorm_ffn_bwd(
+    code = kernel_library().espnet_prenorm_ffn_bwd(
         x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), gy.data_ptr(),
-        dx.data_ptr(), xn_buf.data_ptr(), dz_buf.data_ptr(),
-        partial.data_ptr(), dw1p.data_ptr(), dw2p.data_ptr(),
-        db1p.data_ptr(), m, d, f, groups, float(residual_scale),
-        ACTIVATIONS[activation], q, dscale, s0, s1, DTYPE_CODES[x2.dtype],
-        stream(x2))
+        buf["dx"].data_ptr(), xn_buf.data_ptr(), dz_buf.data_ptr(),
+        ptr(buf["a"]), ptr(buf["dh"]), buf["partial"].data_ptr(),
+        buf["dw1p"].data_ptr(), buf["dw2p"].data_ptr(),
+        buf["db1p"].data_ptr(), m, d, f, lay.groups, lay.rows_per_group,
+        float(residual_scale), ACTIVATIONS[activation], q, dscale, s0, s1,
+        DTYPE_CODES[x2.dtype], stream(x2))
     check_launch("prenorm_ffn_bwd", code)
     prenorm_ffn_bwd.launches += 1
-    sums = partial.sum(dim=0)
-    return (dx, sums[0], sums[1], dw1p.sum(dim=0).to(w1.dtype),
-            db1p.sum(dim=0), dw2p.sum(dim=0).to(w2.dtype), sums[2])
+    sums = buf["partial"].sum(dim=0)
+    return (buf["dx"], sums[0], sums[1], buf["dw1p"].sum(dim=0).to(w1.dtype),
+            buf["db1p"].sum(dim=0), buf["dw2p"].sum(dim=0).to(w2.dtype),
+            sums[2])
 
 
 class _PrenormFFN(torch.autograd.Function):

@@ -157,15 +157,31 @@ def test_relpos_backward_kernels_match_plain(cuda, dtype, t, d):
     assert (got[2][1, :, lengths[1]:] == 0).all()
 
 
+def _both_dtypes_then_bf16(cases, bf16_cases):
+    """`cases` in float32 and bf16, then `bf16_cases` in bf16: the shapes of
+    the tensor-core backward (rows of one and of several row blocks and
+    weight-gradient groups, both widths of F, both activations). In float32
+    a relu input within rounding of 0 may take the other branch than in the
+    plain version, and at thousands of rows one such element moves the
+    LayerNorm scale gradient past the float32 bound (1e-4), so the float32
+    parity mode keeps its own cases."""
+    return ([(dt,) + c for dt in (torch.float32, torch.bfloat16)
+             for c in cases] + [(torch.bfloat16,) + c for c in bf16_cases])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,drop,d", [(333, 0.0, 256), (300, 0.1, 256),
-                                      (600, 0.1, 256), (300, 0.1, 512),
-                                      (300, 0.1, 128), (333, 0.1, 384)])
+@pytest.mark.parametrize("dtype,m,drop,d,f,activation", _both_dtypes_then_bf16(
+    [(333, 0.0, 256, 1024, "swish"), (300, 0.1, 256, 1024, "swish"),
+     (600, 0.1, 256, 1024, "swish"), (300, 0.1, 512, 1024, "swish"),
+     (300, 0.1, 128, 1024, "swish"), (333, 0.1, 384, 1024, "swish")],
+    [(1, 0.1, 256, 2048, "swish"), (4097, 0.1, 256, 2048, "swish"),
+     (4097, 0.0, 512, 2048, "relu"), (333, 0.1, 128, 2048, "relu"),
+     (1, 0.0, 384, 1024, "relu"), (4097, 0.1, 384, 2048, "swish"),
+     (333, 0.1, 512, 1024, "relu"), (4097, 0.1, 128, 1024, "relu")]))
 def test_prenorm_ffn_dropout_and_backward_match_plain(cuda, dtype, m, drop,
-                                                      d):
-    args = _ffn_args(cuda, dtype, m=m, d=d)
-    kw = dict(activation="swish", residual_scale=0.5, drop_rate=drop,
+                                                      d, f, activation):
+    args = _ffn_args(cuda, dtype, m=m, d=d, f=f)
+    kw = dict(activation=activation, residual_scale=0.5, drop_rate=drop,
               seeds=(12345, -7))
     gout = torch.randn(m, d, generator=torch.Generator().manual_seed(m)
                        ).to(cuda, dtype)
@@ -232,13 +248,17 @@ def test_ctc_loss_and_gradient_match_torch_ctc(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,drop,activation,d", [
-    (333, 0.0, "swish", 256), (300, 0.1, "swish", 256),
-    (600, 0.1, "relu", 256), (300, 0.1, "swish", 512),
-    (300, 0.1, "relu", 128), (333, 0.1, "swish", 384)])
-def test_fused_ffn_kernels_match_plain(cuda, dtype, m, drop, activation, d):
-    x, _, _, w1, b1, w2, b2 = _ffn_args(cuda, dtype, m=m, d=d)
+@pytest.mark.parametrize("dtype,m,drop,activation,d,f", _both_dtypes_then_bf16(
+    [(333, 0.0, "swish", 256, 1024), (300, 0.1, "swish", 256, 1024),
+     (600, 0.1, "relu", 256, 1024), (300, 0.1, "swish", 512, 1024),
+     (300, 0.1, "relu", 128, 1024), (333, 0.1, "swish", 384, 1024)],
+    [(1, 0.1, "swish", 256, 2048), (4097, 0.1, "relu", 256, 2048),
+     (4097, 0.0, "swish", 512, 1024), (333, 0.1, "swish", 128, 2048),
+     (1, 0.0, "relu", 384, 2048), (4097, 0.1, "swish", 384, 1024),
+     (333, 0.0, "relu", 512, 2048), (4097, 0.0, "relu", 128, 1024)]))
+def test_fused_ffn_kernels_match_plain(cuda, dtype, m, drop, activation, d,
+                                       f):
+    x, _, _, w1, b1, w2, b2 = _ffn_args(cuda, dtype, m=m, d=d, f=f)
     args = (x, w1, b1, w2, b2)
     kw = dict(seed=-12345, drop_rate=drop, activation=activation)
     gout = torch.randn(m, d, generator=torch.Generator().manual_seed(m)
@@ -257,6 +277,21 @@ def test_fused_ffn_kernels_match_plain(cuda, dtype, m, drop, activation, d):
         _assert_grad_close(name, g, w, dtype)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_bwd_layout_matches_the_kernels(cuda, dtype):
+    """The Python layout of the backward pair (buffer shapes) and the
+    kernels' row blocks agree at every D the kernels are built for."""
+    from espnet_tpu_torch.ops.cuda_build import kernel_library
+
+    lib = kernel_library()
+    for d in ffn_common.KERNEL_MODEL_DIMS:
+        lay = ffn_common.bwd_layout(4097, d, 1024, dtype)
+        rows = lib.espnet_ffn_bwd_rows_per_block(
+            d, ffn_common.DTYPE_CODES[dtype])
+        assert lay.row_blocks == -(-4097 // rows), (d, rows)
+
+
 def _flash_args(device, dtype, b=3, h=4, t=200, d=64, lengths=(200, 77, 0)):
     rng = np.random.RandomState(8)
     q, k, v = (torch.from_numpy(rng.randn(b, h, t, d).astype(np.float32))
@@ -269,7 +304,12 @@ def _flash_args(device, dtype, b=3, h=4, t=200, d=64, lengths=(200, 77, 0)):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,d", [(200, 64), (1, 64), (64, 32), (65, 128),
-                                 (469, 64), (65, 48), (200, 96)])
+                                 (469, 64), (65, 48), (200, 96),
+                                 # one key tile and its edges, every head
+                                 # dim the kernels are built for
+                                 (1, 32), (63, 32), (65, 32), (469, 32),
+                                 (63, 64), (64, 64), (65, 64), (1, 128),
+                                 (63, 128), (64, 128), (469, 128)])
 def test_flash_kernel_and_its_gradient_match_plain(cuda, dtype, t, d):
     """Ragged keys, one utterance with every key masked (the uniform
     average of v); the backward recomputes through the plain version. Head
