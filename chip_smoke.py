@@ -14,9 +14,10 @@ the elapsed seconds, and raising on failure (exit code other than 0):
 3. kernels: each kernel against its plain PyTorch version, timed with CUDA
    events beside the plain version, the bound (the larger of operations
    over peak and bytes over 3.35 TB/s) and, where one PyTorch call computes
-   the same function, that call (in bf16 the flash forward and the FFN
-   backward pairs run on tensor cores, float32 on the CUDA cores, so the
-   float32 checks hold the parity mode): the forward kernels at the serve
+   the same function, that call (in bf16 the flash forward, the rel-pos
+   backward and the FFN forwards and backward pairs run on tensor cores,
+   float32 on the CUDA cores, so the float32 checks hold the parity mode):
+   the forward kernels at the serve
    phase's shapes and the bench's decode geometry (B=8, T=469 / M=3000),
    then all fifteen kernel entry points at the training shapes (rel-pos
    forward and backward at B=64, H=4, T=469, D=64; the pre-norm FFN forward

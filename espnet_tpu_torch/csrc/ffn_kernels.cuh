@@ -35,13 +35,27 @@
 // per byte at M=30k, D=256, F=2048: bound by arithmetic, so the products
 // belong on the tensor cores.
 //
-// The forward (both dtypes) and the float32 backward run on the CUDA cores
-// (`tile_product`): float32 is the port's parity mode, and tensor-core
-// float32 would be TF32, about three decimal digits. The forward block owns
-// BM rows, normalises them (LN) or copies them into shared memory once and
-// walks F in chunks whose activations go through shared memory straight
-// into the float32 output accumulator in registers: the (M, F) hidden
-// activation never reaches device memory.
+// The float32 forward and backward run on the CUDA cores (`tile_product`):
+// float32 is the port's parity mode, and tensor-core float32 would be TF32,
+// about three decimal digits. The forward block owns BM rows, normalises
+// them (LN) or copies them into shared memory once and walks F in chunks
+// whose activations go through shared memory straight into the float32
+// output accumulator in registers: the (M, F) hidden activation never
+// reaches device memory.
+//
+// The bf16 forward, `ffn_fwd_tc_kernel`, has the same shape on tensor
+// cores (mma.sync m16n8k16, ldmatrix, a two-stage cp.async ring; mma.sync
+// rather than wgmma because the activation, the hash and the rounding of a
+// sit between the two products at fragment granularity). A block owns 64
+// rows (32 at D > 256, as the backward's row kernel), keeps LN(x) (or x)
+// rounded to bf16 in shared memory with 16-byte row padding, and walks F in
+// 64-wide chunks (32 at D > 256) whose W1 and W2 slabs arrive through the
+// ring while the previous chunk computes: h = LN(x)·W1 + b1 on mma, the
+// activation and the stream-0 hash on the C fragments, a rounded into a
+// shared-memory tile, z += a·W2 on mma into float32 registers, the 8 warps
+// splitting z's D columns (WN ways) so that its accumulators fit at
+// D = 512. The epilogue adds b2, with LN the stream-1 hash and x + s·z,
+// and rounds once.
 //
 // The backward needs dx, which sums over F for each row, and dW1, dW2,
 // which sum over all rows for each column of F; no block sees both, so it
@@ -1346,6 +1360,224 @@ __global__ void __launch_bounds__(THREADS)
                            D);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward on tensor cores: a row block's y (see the note at the top).
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct TcFwd {
+  static constexpr int BMR = TcRows<D>::BMR;      // rows per block
+  static constexpr int BFC = D <= 256 ? 64 : 32;  // hidden units per chunk
+  static constexpr int LDX = D + 8;    // bf16 stride: LN(x) rows, W2 slab
+  static constexpr int LDF = BFC + 8;  // bf16 stride: W1 slab, a tile
+  static constexpr int WM = BMR / 16;  // warps along rows
+  static constexpr int WN = 8 / WM;    // warps along columns
+  static constexpr int SLAB = D * LDF + BFC * LDX;  // one ring stage
+  static constexpr size_t bytes =
+      sizeof(bf16) * (BMR * LDX + 2 * SLAB + BMR * LDF);
+  static_assert(bytes <= 232448, "a block may have 227 KB");
+};
+
+template <int D, bool LN>
+__global__ void __launch_bounds__(THREADS)
+    ffn_fwd_tc_kernel(const bf16* __restrict__ x,
+                      const float* __restrict__ ln_scale,
+                      const float* __restrict__ ln_bias,
+                      const bf16* __restrict__ w1,
+                      const float* __restrict__ b1,
+                      const bf16* __restrict__ w2,
+                      const float* __restrict__ b2, bf16* __restrict__ y,
+                      int M, int F, float res_scale, int act, int q,
+                      float dscale, int seed0, int seed1) {
+  using L = TcFwd<D>;
+  constexpr int BMR = L::BMR, BFC = L::BFC, LDX = L::LDX, LDF = L::LDF;
+  constexpr int WN = L::WN;
+  constexpr int NT = BFC / (8 * WN);  // n-tiles of h per warp
+  constexpr int NZ = D / (8 * WN);    // n-tiles of z per warp
+  constexpr int ZJ = D / 32;
+  static_assert(NT == 1 || NT % 2 == 0, "h n-tiles go alone or in pairs");
+  static_assert(NZ % 2 == 0, "z n-tiles go in pairs");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xn_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ring = xn_s + BMR * LDX;  // [stage]: W1 slab [D][LDF], W2 [BFC][LDX]
+  bf16* a_s = ring + 2 * L::SLAB;  // [BMR][LDF]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = blockIdx.x * BMR;
+
+  auto load_slab = [&](int c0, int st) {
+    bf16* w1s = ring + st * L::SLAB;  // W1[d][c0 + f]
+    bf16* w2s = w1s + D * LDF;        // W2[c0 + f][d]
+    constexpr int C1 = BFC / 8, C2 = D / 8;
+    for (int e = tid; e < D * C1; e += THREADS) {
+      const int d = e / C1, c = e % C1;
+      cp_async16(w1s + d * LDF + c * 8,
+                 w1 + static_cast<size_t>(d) * F + c0 + c * 8, 16);
+    }
+    for (int e = tid; e < BFC * C2; e += THREADS) {
+      const int f = e / C2, c = e % C2;
+      cp_async16(w2s + f * LDX + c * 8,
+                 w2 + static_cast<size_t>(c0 + f) * D + c * 8, 16);
+    }
+  };
+  load_slab(0, 0);
+  cp_async_commit();
+
+  // LN(x) (or x), rounded, zeros past M; warp w does rows w·BMR/8 ...
+  for (int rr = 0; rr < BMR / 8; ++rr) {
+    const int r = warp * (BMR / 8) + rr;
+    const int gi = row0 + r;
+    const bool ok = gi < M;
+    const size_t base = static_cast<size_t>(ok ? gi : 0) * D;
+    float xv[ZJ];
+#pragma unroll
+    for (int e = 0; e < ZJ; ++e)
+      xv[e] = ok ? to_f32(x[base + lane + 32 * e]) : 0.f;
+    if (LN) {
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < ZJ; ++e) sum += xv[e];
+      const float mean = warp_sum(sum) / D;
+      float sq = 0.f;
+#pragma unroll
+      for (int e = 0; e < ZJ; ++e) {
+        xv[e] -= mean;
+        sq += xv[e] * xv[e];
+      }
+      const float inv = rsqrtf(warp_sum(sq) / D + LN_EPS);
+#pragma unroll
+      for (int e = 0; e < ZJ; ++e) {
+        const int d = lane + 32 * e;
+        xv[e] = xv[e] * inv * ln_scale[d] + ln_bias[d];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < ZJ; ++e)
+      xn_s[r * LDX + lane + 32 * e] = from_f32<bf16>(ok ? xv[e] : 0.f);
+  }
+
+  // this lane's fragment rows and their dropout streams
+  const int ra = wm * 16 + g;
+  const unsigned st0[2] = {drop_stream(seed0, row0 + ra),
+                           drop_stream(seed0, row0 + ra + 8)};
+  const int nb = wn * NT * 8;  // this warp's first column of a chunk
+  const int zc = wn * NZ * 8;  // this warp's first column of z
+  float z[NZ][4];
+#pragma unroll
+  for (int n = 0; n < NZ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) z[n][e] = 0.f;
+
+  const int chunks = F / BFC;
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int c0 = ch * BFC;
+    const int st = ch & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // slab ch landed; chunk ch-1's readers are done
+    if (ch + 1 < chunks) {
+      load_slab(c0 + BFC, st ^ 1);
+      cp_async_commit();
+    }
+    const bf16* w1s = ring + st * L::SLAB;
+    const bf16* w2s = w1s + D * LDF;
+
+    // h = LN(x) W1[:, chunk] (W1 slab rows are k: ldmatrix.trans)
+    float hacc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hacc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned ax[4];
+      ldmatrix_x4(ax, xn_s + (wm * 16 + (lane & 15)) * LDX + kk * 16 +
+                          (lane >> 4) * 8);
+      const bf16* p1 = w1s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                 LDF + nb;
+      if constexpr (NT == 1) {
+        unsigned bw[2];
+        ldmatrix_x2_trans(bw, p1);
+        mma_bf16(hacc[0], ax, bw[0], bw[1]);
+      } else {
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          unsigned bw[4];
+          ldmatrix_x4_trans(bw, p1 + np * 16 + (lane >> 4) * 8);
+          mma_bf16(hacc[2 * np], ax, bw[0], bw[1]);
+          mma_bf16(hacc[2 * np + 1], ax, bw[2], bw[3]);
+        }
+      }
+    }
+    // a = drop0(act(h + b1)), rounded into the a tile
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = ra + 8 * hr;
+        const int c = nb + n * 8 + 2 * t4;
+        float av[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int f = c0 + c + e;
+          float a = act_fwd(hacc[n][2 * hr + e] + b1[f], act);
+          if (q > 0)
+            a = drop_keep(st0[hr], row0 + r, F, f, q) ? a * dscale : 0.f;
+          av[e] = a;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(a_s + r * LDF + c) =
+            __floats2bfloat162_rn(av[0], av[1]);
+      }
+    __syncthreads();  // the a tile is complete
+
+    // z += a W2[chunk, :] (W2 slab rows are k: ldmatrix.trans)
+#pragma unroll
+    for (int kk = 0; kk < BFC / 16; ++kk) {
+      unsigned aa[4];
+      ldmatrix_x4(aa, a_s + (wm * 16 + (lane & 15)) * LDF + kk * 16 +
+                          (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NZ / 2; ++np) {
+        unsigned bw[4];
+        ldmatrix_x4_trans(bw, w2s + (kk * 16 + (lane & 7) +
+                                     ((lane >> 3) & 1) * 8) * LDX +
+                                  zc + np * 16 + (lane >> 4) * 8);
+        mma_bf16(z[2 * np], aa, bw[0], bw[1]);
+        mma_bf16(z[2 * np + 1], aa, bw[2], bw[3]);
+      }
+    }
+  }
+
+  // y = z + b2, or with LN x + s·drop1(z + b2); rounded once
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int gi = row0 + ra + 8 * hr;
+    if (gi >= M) continue;
+    const unsigned st1 = drop_stream(seed1, gi);
+    const size_t base = static_cast<size_t>(gi) * D;
+#pragma unroll
+    for (int n = 0; n < NZ; ++n) {
+      const int c = zc + n * 8 + 2 * t4;
+      float out[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float zz = z[n][2 * hr + e] + b2[c + e];
+        if (LN) {
+          if (q > 0) zz = drop_keep(st1, gi, D, c + e, q) ? zz * dscale : 0.f;
+          zz = to_f32(x[base + c + e]) + res_scale * zz;
+        }
+        out[e] = zz;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(y + base + c) =
+          __floats2bfloat162_rn(out[0], out[1]);
+    }
+  }
+}
+
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t smem) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -1371,6 +1603,24 @@ int launch_fwd(const void* x, const float* ln_scale, const float* ln_bias,
       static_cast<const T*>(x), ln_scale, ln_bias, static_cast<const T*>(w1),
       b1, static_cast<const T*>(w2), b2, static_cast<T*>(y), M, F, res_scale,
       act, dr.q, dr.scale, dr.seed0, dr.seed1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 forward on tensor cores; x, w1 and w2 16-byte aligned.
+template <int D, bool LN>
+int launch_fwd_tc(const void* x, const float* ln_scale, const float* ln_bias,
+                  const void* w1, const float* b1, const void* w2,
+                  const float* b2, void* y, int M, int F, float res_scale,
+                  int act, Drop dr, cudaStream_t stream) {
+  auto kernel = ffn_fwd_tc_kernel<D, LN>;
+  const size_t smem = TcFwd<D>::bytes;
+  if (int err = set_smem(kernel, smem)) return err;
+  constexpr int BMR = TcFwd<D>::BMR;
+  kernel<<<(M + BMR - 1) / BMR, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(x), ln_scale, ln_bias,
+      static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,
+      static_cast<bf16*>(y), M, F, res_scale, act, dr.q, dr.scale, dr.seed0,
+      dr.seed1);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,6 +14,8 @@
 // ln_scale, ln_bias, b2: (D,) float32; b1: (F,) float32. F % 128 == 0.
 // act: 0 = swish, 1 = relu. q: dropout level in 1/256 (0 = none), dscale
 // its keep scale 256 / (256 - q); seed0 / seed1 the two streams' seeds.
+// bf16 runs on tensor cores and needs x, w1 and w2 16-byte aligned; float32
+// runs on the CUDA cores.
 extern "C" int espnet_prenorm_ffn_fwd(const void* x, const float* ln_scale,
                                       const float* ln_bias, const void* w1,
                                       const float* b1, const void* w2,
@@ -32,11 +34,15 @@ extern "C" int espnet_prenorm_ffn_fwd(const void* x, const float* ln_scale,
   if (dtype == kFloat32 && D == 256) ESPNET_PFFN_FWD(float, 256);
   if (dtype == kFloat32 && D == 384) ESPNET_PFFN_FWD(float, 384);
   if (dtype == kFloat32 && D == 512) ESPNET_PFFN_FWD(float, 512);
-  if (dtype == kBFloat16 && D == 128) ESPNET_PFFN_FWD(__nv_bfloat16, 128);
-  if (dtype == kBFloat16 && D == 256) ESPNET_PFFN_FWD(__nv_bfloat16, 256);
-  if (dtype == kBFloat16 && D == 384) ESPNET_PFFN_FWD(__nv_bfloat16, 384);
-  if (dtype == kBFloat16 && D == 512) ESPNET_PFFN_FWD(__nv_bfloat16, 512);
 #undef ESPNET_PFFN_FWD
+#define ESPNET_PFFN_FWD_TC(DD)                                             \
+  return launch_fwd_tc<DD, true>(x, ln_scale, ln_bias, w1, b1, w2, b2, y, M, \
+                                 F, res_scale, act, dr, s)
+  if (dtype == kBFloat16 && D == 128) ESPNET_PFFN_FWD_TC(128);
+  if (dtype == kBFloat16 && D == 256) ESPNET_PFFN_FWD_TC(256);
+  if (dtype == kBFloat16 && D == 384) ESPNET_PFFN_FWD_TC(384);
+  if (dtype == kBFloat16 && D == 512) ESPNET_PFFN_FWD_TC(512);
+#undef ESPNET_PFFN_FWD_TC
   return kUnsupported;
 }
 

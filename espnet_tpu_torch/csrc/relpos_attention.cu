@@ -13,10 +13,17 @@
 // and P·V) and the backward 16·B·H·T²·D (ac, bd and dO·V recomputed, then
 // dq's two parts, dk, dv and dp) against 4·B·H·T·D elements moved (7 in the
 // backward), so at T≈470, D=64 both are bound by arithmetic, not by device
-// memory. This first version does the products on the CUDA cores in float32
-// (no tensor cores yet), and its backward recomputes ac, bd and dO·V in both
-// passes (22·B·H·T²·D), so it runs well below the bf16 tensor-core bound
-// that chip_smoke.py reports beside it.
+// memory.
+//
+// Rounding points are the Pallas kernels': in bf16, q+u and q+v are rounded
+// to bf16 (u and v first, as `u.astype(q.dtype)` does), and in the backward
+// so are the probabilities P and dS before their products; products sum in
+// float32.
+//
+// Forward (both dtypes) and the float32 backward run on the CUDA cores in
+// float32 (float32 is the port's parity mode; tensor-core float32 would be
+// TF32). The float32 backward recomputes ac, bd and dO·V in both passes
+// (22·B·H·T²·D).
 //
 // What the design does about it:
 // * The (B, H, T, 2T-1) position-score tensor is never built. A block owns
@@ -40,10 +47,37 @@
 //   dk and dv. Pass 1 adds each key tile's dp window (BQ+BK-1 rows) into
 //   registers; the window's first BK rows are complete after the tile and
 //   go to the block's own slab, the other BQ-1 carry into the next tile, so
-//   every slab row is written once. The slabs are summed over the batch and
-//   overlap-added outside (deterministic, no atomics), as the JAX package
-//   does.
+//   every slab row is written once. A fold kernel sums the slabs over the
+//   batch and overlap-adds them into dp (deterministic, no atomics).
+//
+// The bf16 backward runs on tensor cores (`mma.sync` m16n8k16 with
+// `ldmatrix` fragments and a `cp.async` ring, tensor_core.cuh; mma.sync
+// rather than wgmma because the skewed bd read, the softmax and the dS
+// window sit between the products at fragment granularity):
+// * Pass 1, block per (q block, head, group of batch elements), 4 warps of
+//   16 query rows. It rounds Qu = q+u and Qv = q+v into shared memory and,
+//   per 64-key tile (K, V and the 128-row p window through a two-stage
+//   ring; one stage at D = 128, for shared memory), runs ac = Qu·Kᵀ, the
+//   warp's 80-row band of Qv·Pwᵀ (only the window rows its 16 queries
+//   reach), dPv = dO·Vᵀ on mma; the band goes through a float32 tile so
+//   that row r reads window row 63-r+c. P = exp(s - m)/l and dS = P∘(dPv -
+//   δ)·scale stay in registers, are rounded once and written as bf16 (B,
+//   H, Tp, Tp) planes (Tp = 64·⌈T/64⌉, zeros past T) for pass 2. dqu +=
+//   dS·K takes dS's C fragments as A fragments. dS is also written skewed
+//   into a 64x128 window tile (zeros elsewhere, written once), so dqv +=
+//   dSw·Pw and dPw = dSwᵀ·Qv are plain products; dPw's first 64 rows are
+//   complete after the tile and are added to the block's slab, the other
+//   64 carry to the next tile in a two-half float32 ring. The block walks
+//   its batch elements and sums their dp rows into one slab, so the slabs
+//   are (groups, H, ⌈T/64⌉, rows, D) float32 instead of one per element.
+// * Pass 2, block per (key tile, b·h): dv += Pᵀ·dO and dk += dSᵀ·Qu over
+//   the query tiles, both on mma from the stored planes (no recomputed
+//   scores). Products: 14·B·H·Tp²·D in pass 1 (the bd band is 80/64 of the
+//   square, dPw skips the window tile's all-zero blocks), 4 in pass 2. The
+//   price is the two planes (2·2·B·H·Tp² bytes, 268 MB at the training
+//   shape, transient).
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace espnet_port {
 namespace {
@@ -105,8 +139,10 @@ __global__ void __launch_bounds__(THREADS)
     const int r = e / D, d = e % D;
     const int i = i0 + r;
     const float x = i < Tn ? to_f32(qg[static_cast<size_t>(i) * D + d]) : 0.f;
-    qu_s[r * LD + d] = x + pos_u[h * D + d];
-    qv_s[r * LD + d] = x + pos_v[h * D + d];
+    // rounded to T as the Pallas kernel's q + u.astype(q.dtype), so the
+    // statistics belong to the scores the bf16 backward recomputes
+    qu_s[r * LD + d] = round_to<T>(x + round_to<T>(pos_u[h * D + d]));
+    qv_s[r * LD + d] = round_to<T>(x + round_to<T>(pos_v[h * D + d]));
   }
 
   float m[4], l[4], acc[4][DJ];
@@ -639,12 +675,51 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The dp fold, both dtypes: dp[h, pr] = sum over the slab groups and query
+// blocks n of slab[g, h, n, pr - (T-1-(64n+63))] (rows inside the slab), in
+// a fixed order.
+// ---------------------------------------------------------------------------
+
+constexpr int FOLD_THREADS = 256;
+
+__global__ void __launch_bounds__(FOLD_THREADS)
+    relpos_dp_fold_kernel(const float* __restrict__ slabs,
+                          float* __restrict__ dp, int groups, int H, int Tn,
+                          int D) {
+  const int nq = (Tn + BQ - 1) / BQ;
+  const int rows = nq * BK + BQ - 1;
+  const int h = blockIdx.y;
+  const int e = blockIdx.x * FOLD_THREADS + threadIdx.x;
+  const int pr = e / D, d = e % D;
+  if (pr >= 2 * Tn - 1) return;
+  float acc = 0.f;
+  for (int gi = 0; gi < groups; ++gi)
+    for (int n = 0; n < nq; ++n) {
+      const int row = pr - (Tn - 1 - (n * BQ + BQ - 1));
+      if (row >= 0 && row < rows)
+        acc += slabs[((static_cast<size_t>(gi) * H + h) * nq + n) * rows * D +
+                     static_cast<size_t>(row) * D + d];
+    }
+  dp[(static_cast<size_t>(h) * (2 * Tn - 1) + pr) * D + d] = acc;
+}
+
+int launch_fold(const float* slabs, float* dp, int groups, int H, int Tn,
+                int D, cudaStream_t stream) {
+  const int n = (2 * Tn - 1) * D;
+  relpos_dp_fold_kernel<<<dim3((n + FOLD_THREADS - 1) / FOLD_THREADS, H),
+                          FOLD_THREADS, 0, stream>>>(slabs, dp, groups, H, Tn,
+                                                     D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* p,
                const float* pos_u, const float* pos_v, const float* kbias,
                const void* dout, const float2* stats, const float* delta,
                float* dqu, float* dqv, float* slabs, float* dk, float* dv,
-               int B, int H, int Tn, float scale, cudaStream_t stream) {
+               float* dp, int B, int H, int Tn, float scale,
+               cudaStream_t stream) {
   auto k1 = relpos_attention_bwd_dq_kernel<T, D>;
   const size_t smem1 = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -667,7 +742,649 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* p,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(p), pos_u, pos_v, kbias,
       static_cast<const T*>(dout), stats, delta, dk, dv, H, Tn, scale);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_fold(slabs, dp, B, H, Tn, D, stream);  // one slab per element
+}
+
+// ---------------------------------------------------------------------------
+// bf16 backward on tensor cores (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int TC_THREADS = 128;  // 4 warps x 16 rows
+constexpr int PWR = 2 * BK;      // window rows of a tile (row 127 stays 0)
+constexpr int BAND = 80;         // window rows one warp's 16 queries reach
+constexpr int LDB = BAND + 8;    // float stride of a warp's bd band
+constexpr int LDW = PWR + 8;     // bf16 stride of the dS window tile
+constexpr int LDT = BK + 8;      // bf16 stride of the P and dS tiles (pass 2)
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct TcDq {
+  static constexpr int LD = D + 8;   // bf16 stride: Qu, Qv, dO, k, v, p rows
+  static constexpr int LDA = D + 4;  // float stride of the dp accumulator
+  static constexpr int STAGES = D <= 64 ? 2 : 1;
+  static constexpr int RING = (2 * BK + PWR) * LD;  // one stage: k, v, p
+  static constexpr size_t bytes =
+      sizeof(bf16) * (3 * BQ * LD + STAGES * RING + BQ * LDW) +
+      sizeof(float) * (STAGES * BK + 4 * 16 * LDB + 2 * BQ * LDA + 3 * BQ);
+  static_assert(bytes <= 232448, "a block may have 227 KB");
+};
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS)
+    relpos_bwd_dq_tc_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const bf16* __restrict__ p,
+        const float* __restrict__ pos_u, const float* __restrict__ pos_v,
+        const float* __restrict__ kbias, const bf16* __restrict__ dout,
+        const float2* __restrict__ stats, const float* __restrict__ delta,
+        float* __restrict__ dqu, float* __restrict__ dqv,
+        float* __restrict__ slabs, bf16* __restrict__ pbuf,
+        bf16* __restrict__ dsbuf, int B, int H, int Tn, int per_group,
+        float scale) {
+  static_assert(BQ == 64 && BK == 64, "the window tile assumes 64 x 64 tiles");
+  static_assert(D % 32 == 0, "D must be a multiple of 32");
+  using L = TcDq<D>;
+  constexpr int LD = L::LD, LDA = L::LDA, STAGES = L::STAGES;
+  constexpr int CPR = D / 8;    // 16-byte chunks per row
+  constexpr int KD = D / 16;    // k-steps over D
+  constexpr int ND = D / 8;     // n-tiles over D
+  constexpr int NS = BK / 8;    // n-tiles of a score tile
+  constexpr int NB = BAND / 8;  // n-tiles of a warp's bd band
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qu_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qv_s = qu_s + BQ * LD;
+  bf16* do_s = qv_s + BQ * LD;
+  bf16* ring = do_s + BQ * LD;  // [stage]: k [BK][LD], v [BK][LD], p [PWR][LD]
+  bf16* dsw_s = ring + STAGES * L::RING;                     // [BQ][LDW]
+  float* kb_s = reinterpret_cast<float*>(dsw_s + BQ * LDW);  // [stage][BK]
+  float* bd_s = kb_s + STAGES * BK;                          // [4][16][LDB]
+  float* acc_s = bd_s + 4 * 16 * LDB;                        // [2][BQ][LDA]
+  float* m_s = acc_s + 2 * BQ * LDA;
+  float* il_s = m_s + BQ;  // 1 / l
+  float* dl_s = il_s + BQ;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n_tiles = gridDim.x;  // key tiles = query blocks
+  const int Tp = n_tiles * BK;
+  const int h = blockIdx.y % H;
+  const int grp = blockIdx.y / H;
+  const int b0 = grp * per_group;
+  const int steps = (min(B, b0 + per_group) - b0) * n_tiles;
+  const int i0 = blockIdx.x * BQ;
+  const int slab_rows = n_tiles * BK + BQ - 1;
+  float* slab = slabs + (static_cast<size_t>(grp * H + h) * n_tiles +
+                         blockIdx.x) * slab_rows * D;
+  const bf16* pg = p + static_cast<size_t>(h) * (2 * Tn - 1) * D;
+  const int wb0 = 48 - 16 * warp;  // the warp's first window row (its band)
+  const int ra = warp * 16 + g;    // fragment rows ra and ra + 8
+
+  // the window tile's cells outside the skew pattern stay 0; the ring of
+  // dp accumulator halves starts at 0
+  for (int e = tid; e < BQ * LDW / 8; e += TC_THREADS)
+    reinterpret_cast<uint4*>(dsw_s)[e] = make_uint4(0u, 0u, 0u, 0u);
+  for (int e = tid; e < 2 * BQ * LDA; e += TC_THREADS) acc_s[e] = 0.f;
+
+  auto load_step = [&](int s, int st) {
+    const int b = b0 + s / n_tiles;
+    const int j0 = (s % n_tiles) * BK;
+    const size_t seq = static_cast<size_t>(b * H + h) * Tn * D;
+    bf16* ks = ring + st * L::RING;
+    bf16* vs = ks + BK * LD;
+    bf16* ps = vs + BK * LD;
+    for (int e = tid; e < BK * CPR; e += TC_THREADS) {
+      const int r = e / CPR, c = e % CPR;
+      const int j = j0 + r;
+      const bool ok = j < Tn;
+      const size_t gi = seq + static_cast<size_t>(ok ? j : 0) * D + c * 8;
+      cp_async16(ks + r * LD + c * 8, k + gi, ok ? 16 : 0);
+      cp_async16(vs + r * LD + c * 8, v + gi, ok ? 16 : 0);
+    }
+    // window row w holds p row T-1-(i0+BQ-1)+j0+w, zeros outside [0, 2T-1)
+    const int prow0 = Tn - 1 - (i0 + BQ - 1) + j0;
+    for (int e = tid; e < PWR * CPR; e += TC_THREADS) {
+      const int w = e / CPR, c = e % CPR;
+      const int pr = prow0 + w;
+      const bool ok = pr >= 0 && pr < 2 * Tn - 1;
+      cp_async16(ps + w * LD + c * 8,
+                 pg + static_cast<size_t>(ok ? pr : 0) * D + c * 8,
+                 ok ? 16 : 0);
+    }
+    if (tid < BK) {
+      const int j = j0 + tid;
+      const bool ok = j < Tn;
+      cp_async4(kb_s + st * BK + tid,
+                kbias + static_cast<size_t>(b) * Tn + (ok ? j : 0),
+                ok ? 4 : 0);
+    }
+  };
+  // Qu = bf16(q + bf16(u)), Qv likewise, dO, and the rows' m, 1/l, delta
+  // for batch element b; rows past T are zeros (their P is 0)
+  auto load_rows = [&](int b) {
+    const size_t seq = static_cast<size_t>(b * H + h) * Tn * D;
+    for (int e = tid; e < BQ * CPR; e += TC_THREADS) {
+      const int r = e / CPR, c = e % CPR;
+      const int i = i0 + r;
+      uint4 qx = make_uint4(0u, 0u, 0u, 0u), ox = qx;
+      if (i < Tn) {
+        const size_t gi = seq + static_cast<size_t>(i) * D + c * 8;
+        qx = *reinterpret_cast<const uint4*>(q + gi);
+        ox = *reinterpret_cast<const uint4*>(dout + gi);
+      }
+      const bf16* qe = reinterpret_cast<const bf16*>(&qx);
+      uint4 ux, vx;
+      bf16* ue = reinterpret_cast<bf16*>(&ux);
+      bf16* ve = reinterpret_cast<bf16*>(&vx);
+#pragma unroll
+      for (int e8 = 0; e8 < 8; ++e8) {
+        const int d = h * D + c * 8 + e8;
+        const float x = __bfloat162float(qe[e8]);
+        ue[e8] = __float2bfloat16(x + round_to<bf16>(pos_u[d]));
+        ve[e8] = __float2bfloat16(x + round_to<bf16>(pos_v[d]));
+      }
+      *reinterpret_cast<uint4*>(qu_s + r * LD + c * 8) = ux;
+      *reinterpret_cast<uint4*>(qv_s + r * LD + c * 8) = vx;
+      *reinterpret_cast<uint4*>(do_s + r * LD + c * 8) = ox;
+    }
+    for (int r = tid; r < BQ; r += TC_THREADS) {
+      const int i = i0 + r;
+      const size_t gi = static_cast<size_t>(b * H + h) * Tn + i;
+      const float2 st = i < Tn ? stats[gi] : make_float2(0.f, 1.f);
+      m_s[r] = st.x;
+      il_s[r] = 1.f / st.y;
+      dl_s[r] = i < Tn ? delta[gi] : 0.f;
+    }
+  };
+  // float32 dp accumulator half `phys` to slab rows row0 .. row0+nrows-1
+  // (the group's first element writes, the others add) and back to 0; the
+  // thread of a slab cell does not depend on the tile or the element
+  auto flush = [&](int phys, int row0, int nrows, bool first) {
+    float* half = acc_s + phys * BQ * LDA;
+    for (int e = tid; e < BQ * (D / 4); e += TC_THREADS) {
+      const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+      float4* src = reinterpret_cast<float4*>(half + r * LDA + c);
+      if (r < nrows) {
+        float4 x = *src;
+        float4* dst =
+            reinterpret_cast<float4*>(slab + static_cast<size_t>(row0 + r) * D + c);
+        if (!first) {
+          const float4 o = *dst;
+          x.x += o.x;
+          x.y += o.y;
+          x.z += o.z;
+          x.w += o.w;
+        }
+        *dst = x;
+      }
+      *src = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+
+  load_rows(b0);
+  load_step(0, 0);
+  cp_async_commit();
+
+  float aqu[ND][4], aqv[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) aqu[n][e] = aqv[n][e] = 0.f;
+
+  for (int s = 0; s < steps; ++s) {
+    const int kt = s % n_tiles;
+    const int b = b0 + s / n_tiles;
+    const int st = STAGES == 2 ? (s & 1) : 0;
+    const int j0 = kt * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // step s landed; step s-1's readers are done
+    if (STAGES == 2 && s + 1 < steps) {
+      load_step(s + 1, st ^ 1);
+      cp_async_commit();
+    }
+    if (kt == 0 && s > 0) {
+      load_rows(b);
+      __syncthreads();
+    }
+    const bf16* ks = ring + st * L::RING;
+    const bf16* vs = ks + BK * LD;
+    const bf16* ps = vs + BK * LD;
+    const float* kb = kb_s + st * BK;
+    const int aoff = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+
+    // ac = Qu Kᵀ: K's rows are the n index, its columns the k index
+    float sc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, qu_s + aoff + kk * 16);
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        unsigned bk[4];
+        ldmatrix_x4(bk, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[2 * np], a, bk[0], bk[1]);
+        mma_bf16(sc[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+    // bd: the warp's band of Qv Pwᵀ (window rows wb0 .. wb0+79) through
+    // its float32 tile; row r (rr = r - 16 warp) reads band column
+    // 63-r+c - wb0 = 15-rr+c
+    {
+      float bd[NB][4];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bd[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        unsigned a[4];
+        ldmatrix_x4(a, qv_s + aoff + kk * 16);
+#pragma unroll
+        for (int np = 0; np < NB / 2; ++np) {
+          unsigned bp[4];
+          ldmatrix_x4(bp, ps + (wb0 + np * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                   LD + kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(bd[2 * np], a, bp[0], bp[1]);
+          mma_bf16(bd[2 * np + 1], a, bp[2], bp[3]);
+        }
+      }
+      float* bw = bd_s + warp * 16 * LDB;
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        *reinterpret_cast<float2*>(bw + g * LDB + n * 8 + 2 * t4) =
+            make_float2(bd[n][0], bd[n][1]);
+        *reinterpret_cast<float2*>(bw + (g + 8) * LDB + n * 8 + 2 * t4) =
+            make_float2(bd[n][2], bd[n][3]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = g + 8 * (e >> 1);
+          sc[n][e] += bw[rr * LDB + 15 - rr + n * 8 + 2 * t4 + (e & 1)];
+        }
+    }
+    // dPv = dO Vᵀ
+    float dpv[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dpv[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, do_s + aoff + kk * 16);
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        unsigned bv[4];
+        ldmatrix_x4(bv, vs + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(dpv[2 * np], a, bv[0], bv[1]);
+        mma_bf16(dpv[2 * np + 1], a, bv[2], bv[3]);
+      }
+    }
+
+    // P = exp(s - m) / l and dS = P (dPv - delta) scale, zero for rows and
+    // keys past T; both rounded once, packed (rows ra, ra + 8)
+    unsigned pp[NS][2], dsp[NS][2];
+    {
+      const float mr[2] = {m_s[ra], m_s[ra + 8]};
+      const float il[2] = {il_s[ra], il_s[ra + 8]};
+      const float dl[2] = {dl_s[ra], dl_s[ra + 8]};
+      const bool rok[2] = {i0 + ra < Tn, i0 + ra + 8 < Tn};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + 2 * t4 + (e & 1);
+          const int hr = e >> 1;
+          float pv = 0.f;
+          if (rok[hr] && j0 + c < Tn)
+            pv = exp2f((sc[n][e] * scale + fmaxf(kb[c], NEG) - mr[hr]) *
+                       LOG2E) * il[hr];
+          sc[n][e] = pv;
+          dpv[n][e] = pv * (dpv[n][e] - dl[hr]) * scale;
+        }
+        pp[n][0] = pack_bf16(sc[n][0], sc[n][1]);
+        pp[n][1] = pack_bf16(sc[n][2], sc[n][3]);
+        dsp[n][0] = pack_bf16(dpv[n][0], dpv[n][1]);
+        dsp[n][1] = pack_bf16(dpv[n][2], dpv[n][3]);
+      }
+    }
+    // P and dS to their planes (row i0+ra of (b, h), columns j0 ..)
+    {
+      const size_t row = (static_cast<size_t>(b * H + h) * Tp + i0 + ra) *
+                             Tp + j0 + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const size_t o = row + n * 8;
+        *reinterpret_cast<unsigned*>(pbuf + o) = pp[n][0];
+        *reinterpret_cast<unsigned*>(pbuf + o + 8 * static_cast<size_t>(Tp)) =
+            pp[n][1];
+        *reinterpret_cast<unsigned*>(dsbuf + o) = dsp[n][0];
+        *reinterpret_cast<unsigned*>(dsbuf + o + 8 * static_cast<size_t>(Tp)) =
+            dsp[n][1];
+      }
+    }
+    // dqu += dS K: dS's C fragments of n-tiles 2kk, 2kk+1 are the A
+    // fragment of k-step kk; K's rows are the k index (ldmatrix.trans)
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const unsigned a[4] = {dsp[2 * kk][0], dsp[2 * kk][1],
+                             dsp[2 * kk + 1][0], dsp[2 * kk + 1][1]};
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        unsigned bk[4];
+        ldmatrix_x4_trans(bk, ks + (kk * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * LD +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16(aqu[2 * dp], a, bk[0], bk[1]);
+        mma_bf16(aqu[2 * dp + 1], a, bk[2], bk[3]);
+      }
+    }
+    // dS skewed into the window tile: (r, c) at window column 63-r+c
+    {
+      bf16* w0 = dsw_s + ra * LDW + wb0 + 15 - g;
+      bf16* w1 = dsw_s + (ra + 8) * LDW + wb0 + 7 - g;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const int c = n * 8 + 2 * t4;
+        const __nv_bfloat162 v0 =
+            *reinterpret_cast<const __nv_bfloat162*>(&dsp[n][0]);
+        const __nv_bfloat162 v1 =
+            *reinterpret_cast<const __nv_bfloat162*>(&dsp[n][1]);
+        w0[c] = v0.x;
+        w0[c + 1] = v0.y;
+        w1[c] = v1.x;
+        w1[c + 1] = v1.y;
+      }
+    }
+    __syncwarp();
+    // dqv += dSw Pw over the warp's band: Pw's rows are the k index
+#pragma unroll
+    for (int kk = 0; kk < BAND / 16; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, dsw_s + (warp * 16 + (lane & 15)) * LDW + wb0 + kk * 16 +
+                         (lane >> 4) * 8);
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        unsigned bp[4];
+        ldmatrix_x4_trans(bp, ps + (wb0 + kk * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * LD +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16(aqv[2 * dp], a, bp[0], bp[1]);
+        mma_bf16(aqv[2 * dp + 1], a, bp[2], bp[3]);
+      }
+    }
+    __syncthreads();  // the window tile is complete; the ring is read
+    if (STAGES == 1 && s + 1 < steps) {
+      load_step(s + 1, 0);
+      cp_async_commit();
+    }
+
+    // dPw += dSwᵀ Qv: warp w takes window rows 32w .. 32w+31 (A = dSwᵀ:
+    // ldmatrix.trans of the tile; Qv's rows are the k index), in chunks of
+    // 32 columns of D, skipping the k-steps whose rows of dSw are zero in
+    // those window rows (warp 0 needs query rows >= 32, warp 3 < 32)
+    {
+      const int kk_lo = warp == 0 ? 2 : 0;
+      const int kk_hi = warp == 3 ? 2 : 4;
+      float* half = acc_s + ((kt + (warp >> 1)) & 1) * BQ * LDA;
+#pragma unroll
+      for (int ch = 0; ch < D / 32; ++ch) {
+        float pa[2][4][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pa[mt][n][e] = 0.f;
+        for (int kk = kk_lo; kk < kk_hi; ++kk) {
+          unsigned a[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            ldmatrix_x4_trans(a[mt], dsw_s + (kk * 16 + (lane & 7) +
+                                              (lane >> 4) * 8) * LDW +
+                                         warp * 32 + mt * 16 +
+                                         ((lane >> 3) & 1) * 8);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            unsigned bq[4];
+            ldmatrix_x4_trans(bq, qv_s + (kk * 16 + (lane & 7) +
+                                          ((lane >> 3) & 1) * 8) * LD +
+                                      ch * 32 + np * 16 + (lane >> 4) * 8);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_bf16(pa[mt][2 * np], a[mt], bq[0], bq[1]);
+              mma_bf16(pa[mt][2 * np + 1], a[mt], bq[2], bq[3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int wr = (warp & 1) * 32 + mt * 16 + g;  // row of the half
+            const int c = ch * 32 + n * 8 + 2 * t4;
+            float2* p0 = reinterpret_cast<float2*>(half + wr * LDA + c);
+            float2* p1 = reinterpret_cast<float2*>(half + (wr + 8) * LDA + c);
+            float2 x0 = *p0, x1 = *p1;
+            x0.x += pa[mt][n][0];
+            x0.y += pa[mt][n][1];
+            x1.x += pa[mt][n][2];
+            x1.y += pa[mt][n][3];
+            *p0 = x0;
+            *p1 = x1;
+          }
+      }
+    }
+    __syncthreads();  // window rows 0..63 of the accumulator are complete
+
+    // they reach no later tile: slab rows 64 kt .. 64 kt + 63
+    const bool first = b == b0;
+    flush(kt & 1, kt * BK, BK, first);
+    if (kt == n_tiles - 1) {
+      flush((kt + 1) & 1, (kt + 1) * BK, BQ - 1, first);
+      const size_t seq = static_cast<size_t>(b * H + h) * Tn * D;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = i0 + ra + 8 * hr;
+        if (i >= Tn) continue;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          const size_t gi = seq + static_cast<size_t>(i) * D + n * 8 + 2 * t4;
+          *reinterpret_cast<float2*>(dqu + gi) =
+              make_float2(aqu[n][2 * hr], aqu[n][2 * hr + 1]);
+          *reinterpret_cast<float2*>(dqv + gi) =
+              make_float2(aqv[n][2 * hr], aqv[n][2 * hr + 1]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) aqu[n][e] = aqv[n][e] = 0.f;
+    }
+  }
+}
+
+template <int D>
+struct TcDkv {
+  static constexpr int LD = D + 8;
+  static constexpr int STAGE = 2 * BQ * LDT + 2 * BQ * LD;  // P, dS, dO, q
+  static constexpr size_t bytes = sizeof(bf16) * 2 * STAGE;
+};
+
+// Pass 2: block per (key tile, b·h); warp w owns key rows 16w .. 16w+15.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS)
+    relpos_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
+                             const float* __restrict__ pos_u,
+                             const bf16* __restrict__ dout,
+                             const bf16* __restrict__ pbuf,
+                             const bf16* __restrict__ dsbuf,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             int H, int Tn) {
+  using L = TcDkv<D>;
+  constexpr int LD = L::LD;
+  constexpr int CPR = D / 8;
+  constexpr int ND = D / 8;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [stage]: P [BQ][LDT], dS [BQ][LDT], dO [BQ][LD], q [BQ][LD]
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n_tiles = gridDim.x;
+  const int Tp = n_tiles * BK;
+  const int bh = blockIdx.y;
+  const int h = bh % H;
+  const int j0 = blockIdx.x * BK;
+  const size_t seq = static_cast<size_t>(bh) * Tn * D;
+  const size_t plane = static_cast<size_t>(bh) * Tp * Tp;
+
+  auto load = [&](int qt, int st) {
+    bf16* ps = sm + st * L::STAGE;
+    bf16* dss = ps + BQ * LDT;
+    bf16* dos = dss + BQ * LDT;
+    bf16* qs = dos + BQ * LD;
+    const int i0 = qt * BQ;
+    for (int e = tid; e < BQ * (BK / 8); e += TC_THREADS) {
+      const int r = e / (BK / 8), c = e % (BK / 8);
+      const size_t gi = plane + static_cast<size_t>(i0 + r) * Tp + j0 + c * 8;
+      cp_async16(ps + r * LDT + c * 8, pbuf + gi, 16);
+      cp_async16(dss + r * LDT + c * 8, dsbuf + gi, 16);
+    }
+    for (int e = tid; e < BQ * CPR; e += TC_THREADS) {
+      const int r = e / CPR, c = e % CPR;
+      const int i = i0 + r;
+      const bool ok = i < Tn;
+      const size_t gi = seq + static_cast<size_t>(ok ? i : 0) * D + c * 8;
+      cp_async16(dos + r * LD + c * 8, dout + gi, ok ? 16 : 0);
+      cp_async16(qs + r * LD + c * 8, q + gi, ok ? 16 : 0);
+    }
+  };
+  load(0, 0);
+  cp_async_commit();
+
+  float adk[ND][4], adv[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    const int st = qt & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile qt landed; tile qt-1's readers are done
+    if (qt + 1 < n_tiles) {
+      load(qt + 1, st ^ 1);
+      cp_async_commit();
+    }
+    const bf16* ps = sm + st * L::STAGE;
+    const bf16* dss = ps + BQ * LDT;
+    const bf16* dos = dss + BQ * LDT;
+    bf16* qs = const_cast<bf16*>(dos) + BQ * LD;
+    // Qu = bf16(q + bf16(u)) in place (rows past T hold bf16(u); their P
+    // and dS are 0)
+    for (int e = tid; e < BQ * CPR; e += TC_THREADS) {
+      const int r = e / CPR, c = e % CPR;
+      uint4* pq = reinterpret_cast<uint4*>(qs + r * LD + c * 8);
+      uint4 x = *pq;
+      bf16* xe = reinterpret_cast<bf16*>(&x);
+#pragma unroll
+      for (int e8 = 0; e8 < 8; ++e8)
+        xe[e8] = __float2bfloat16(__bfloat162float(xe[e8]) +
+                                  round_to<bf16>(pos_u[h * D + c * 8 + e8]));
+      *pq = x;
+    }
+    __syncthreads();
+    // dv += Pᵀ dO, dk += dSᵀ Qu: A = Pᵀ (ldmatrix.trans of the stored
+    // rows i), B's rows are the k index i (ldmatrix.trans)
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const int aoff = (kk * 16 + (lane & 7) + (lane >> 4) * 8) * LDT +
+                       warp * 16 + ((lane >> 3) & 1) * 8;
+      unsigned ap[4], ad[4];
+      ldmatrix_x4_trans(ap, ps + aoff);
+      ldmatrix_x4_trans(ad, dss + aoff);
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        const int boff = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                         dp * 16 + (lane >> 4) * 8;
+        unsigned bo[4], bq[4];
+        ldmatrix_x4_trans(bo, dos + boff);
+        ldmatrix_x4_trans(bq, qs + boff);
+        mma_bf16(adv[2 * dp], ap, bo[0], bo[1]);
+        mma_bf16(adv[2 * dp + 1], ap, bo[2], bo[3]);
+        mma_bf16(adk[2 * dp], ad, bq[0], bq[1]);
+        mma_bf16(adk[2 * dp + 1], ad, bq[2], bq[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int j = j0 + warp * 16 + g + 8 * hr;
+    if (j >= Tn) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const size_t gi = seq + static_cast<size_t>(j) * D + n * 8 + 2 * t4;
+      *reinterpret_cast<float2*>(dk + gi) =
+          make_float2(adk[n][2 * hr], adk[n][2 * hr + 1]);
+      *reinterpret_cast<float2*>(dv + gi) =
+          make_float2(adv[n][2 * hr], adv[n][2 * hr + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_bwd_tc(const void* q, const void* k, const void* v, const void* p,
+                  const float* pos_u, const float* pos_v, const float* kbias,
+                  const void* dout, const float2* stats, const float* delta,
+                  float* dqu, float* dqv, float* slabs, float* dk, float* dv,
+                  void* pbuf, void* dsbuf, float* dp, int B, int H, int Tn,
+                  int per_group, float scale, cudaStream_t stream) {
+  const int nq = (Tn + BQ - 1) / BQ;
+  const int groups = (B + per_group - 1) / per_group;
+  auto k1 = relpos_bwd_dq_tc_kernel<D>;
+  const size_t smem1 = TcDq<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      k1, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem1));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k1<<<dim3(nq, H * groups), TC_THREADS, smem1, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(p), pos_u, pos_v,
+      kbias, static_cast<const bf16*>(dout), stats, delta, dqu, dqv, slabs,
+      static_cast<bf16*>(pbuf), static_cast<bf16*>(dsbuf), B, H, Tn,
+      per_group, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto k2 = relpos_bwd_dkv_tc_kernel<D>;
+  const size_t smem2 = TcDkv<D>::bytes;
+  err = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem2));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k2<<<dim3(nq, B * H), TC_THREADS, smem2, stream>>>(
+      static_cast<const bf16*>(q), pos_u, static_cast<const bf16*>(dout),
+      static_cast<const bf16*>(pbuf), static_cast<const bf16*>(dsbuf), dk, dv,
+      H, Tn);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_fold(slabs, dp, groups, H, Tn, D, stream);
 }
 
 }  // namespace
@@ -710,32 +1427,46 @@ extern "C" int espnet_relpos_attention_slab_rows(int T) {
 }
 
 // Backward of espnet_relpos_attention_fwd (same D and scale). dout: (B, H,
-// T, D) in q's dtype;
-// stats from the forward; delta: (B, H, T) float32 = rowsum(dout * out).
-// Writes dqu, dqv, dk, dv: (B, H, T, D) float32 and slabs: (B, H,
-// ceil(T/64), slab_rows(T), D) float32, the dp contributions of each query
-// block, where slab row 0 of query block n is p row T-1-(64n+63).
+// T, D) in q's dtype; stats from the forward; delta: (B, H, T) float32 =
+// rowsum(dout * out). Writes dqu, dqv, dk, dv: (B, H, T, D) float32 and dp:
+// (H, 2T-1, D) float32. slabs is float32 scratch of (ceil(B / per_group),
+// H, ceil(T/64), slab_rows(T), D): each slab sums the dp contributions of
+// one query block over per_group batch elements, and slab row 0 of query
+// block n is p row T-1-(64n+63). float32 runs on the CUDA cores and takes
+// per_group 1 and null pbuf and dsbuf; bf16 runs on tensor cores, needs
+// every bf16 input 16-byte aligned, and takes pbuf and dsbuf, bf16 scratch
+// of (B, H, Tp, Tp) with Tp = 64 ceil(T/64) (the probabilities and dS).
 extern "C" int espnet_relpos_attention_bwd(
     const void* q, const void* k, const void* v, const void* p,
     const float* pos_u, const float* pos_v, const float* kbias,
     const void* dout, const void* stats, const float* delta, float* dqu,
-    float* dqv, float* slabs, float* dk, float* dv, int B, int H, int T,
-    int D, float scale, int dtype, void* stream) {
+    float* dqv, float* slabs, float* dk, float* dv, void* pbuf, void* dsbuf,
+    float* dp, int B, int H, int T, int D, int per_group, float scale,
+    int dtype, void* stream) {
   using namespace espnet_port;
-  if (B < 1 || H < 1 || T < 1) return kUnsupported;
+  if (B < 1 || H < 1 || T < 1 || per_group < 1) return kUnsupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* st = static_cast<const float2*>(stats);
-#define ESPNET_RELPOS_BWD(TT, DD)                                           \
-  return launch_bwd<TT, DD>(q, k, v, p, pos_u, pos_v, kbias, dout, st,      \
-                            delta, dqu, dqv, slabs, dk, dv, B, H, T, scale, \
-                            s)
-  if (dtype == kFloat32 && D == 32) ESPNET_RELPOS_BWD(float, 32);
-  if (dtype == kFloat32 && D == 64) ESPNET_RELPOS_BWD(float, 64);
-  if (dtype == kFloat32 && D == 128) ESPNET_RELPOS_BWD(float, 128);
-  if (dtype == kBFloat16 && D == 32) ESPNET_RELPOS_BWD(__nv_bfloat16, 32);
-  if (dtype == kBFloat16 && D == 64) ESPNET_RELPOS_BWD(__nv_bfloat16, 64);
-  if (dtype == kBFloat16 && D == 128) ESPNET_RELPOS_BWD(__nv_bfloat16, 128);
+  if (dtype == kFloat32 && per_group == 1) {
+#define ESPNET_RELPOS_BWD(DD)                                               \
+  return launch_bwd<float, DD>(q, k, v, p, pos_u, pos_v, kbias, dout, st,   \
+                               delta, dqu, dqv, slabs, dk, dv, dp, B, H, T, \
+                               scale, s)
+    if (D == 32) ESPNET_RELPOS_BWD(32);
+    if (D == 64) ESPNET_RELPOS_BWD(64);
+    if (D == 128) ESPNET_RELPOS_BWD(128);
 #undef ESPNET_RELPOS_BWD
+  }
+  if (dtype == kBFloat16 && pbuf != nullptr && dsbuf != nullptr) {
+#define ESPNET_RELPOS_BWD_TC(DD)                                           \
+  return launch_bwd_tc<DD>(q, k, v, p, pos_u, pos_v, kbias, dout, st,      \
+                           delta, dqu, dqv, slabs, dk, dv, pbuf, dsbuf, dp, \
+                           B, H, T, per_group, scale, s)
+    if (D == 32) ESPNET_RELPOS_BWD_TC(32);
+    if (D == 64) ESPNET_RELPOS_BWD_TC(64);
+    if (D == 128) ESPNET_RELPOS_BWD_TC(128);
+#undef ESPNET_RELPOS_BWD_TC
+  }
   return kUnsupported;
 }
 

@@ -38,7 +38,7 @@ _F = ctypes.c_float
 # C entry points and their signatures (see the extern "C" blocks in csrc/)
 _SIGNATURES = {
     "espnet_relpos_attention_fwd": (_P,) * 9 + (_I,) * 4 + (_F, _I, _P),
-    "espnet_relpos_attention_bwd": (_P,) * 15 + (_I,) * 4 + (_F, _I, _P),
+    "espnet_relpos_attention_bwd": (_P,) * 18 + (_I,) * 5 + (_F, _I, _P),
     "espnet_relpos_attention_slab_rows": (_I,),
     "espnet_prenorm_ffn_fwd": ((_P,) * 8 + (_I,) * 3 + (_F, _I, _I, _F)
                                + (_I,) * 3 + (_P,)),

@@ -74,6 +74,8 @@ def _check_cuda_args(x2, w1, b1, w2, b2):
 
 
 def _kernel_fwd(x2, w1, b1, w2, b2, activation, q, seed):
+    if x2.dtype == torch.bfloat16:  # tensor cores: 16-byte copies
+        x2, w1, w2 = (aligned16(t) for t in (x2, w1, w2))
     y = torch.empty_like(x2)
     q, dscale, s0, _ = drop_args(q, None if seed is None else (seed,))
     code = kernel_library().espnet_ffn_fwd(

@@ -87,6 +87,8 @@ def _check_cuda_args(x2, ln_scale, ln_bias, w1, b1, w2, b2):
 
 def _kernel_fwd(x2, ln_scale, ln_bias, w1, b1, w2, b2, activation,
                 residual_scale, q, seeds):
+    if x2.dtype == torch.bfloat16:  # tensor cores: 16-byte copies
+        x2, w1, w2 = (aligned16(t) for t in (x2, w1, w2))
     y = torch.empty_like(x2)
     q, dscale, s0, s1 = drop_args(q, seeds)
     code = kernel_library().espnet_prenorm_ffn_fwd(

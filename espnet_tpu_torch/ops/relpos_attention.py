@@ -9,16 +9,21 @@ and its oracle `relpos_attention_reference`), forward and backward:
 `relpos_attention_plain` (whose gradient is torch autograd's), a CUDA tensor
 to the kernels in `csrc/relpos_attention.cu` (which never build the
 (B, H, T, 2T-1) tensor) through an autograd Function: the forward kernel
-also writes each query row's softmax max and sum, and the backward kernel
-pair (`relpos_attention_bwd`) gives dq, dk, dv and dp; du and dv-bias are
-sums of the q gradients' two parts, taken here as the JAX package does.
+also writes each query row's softmax max and sum, and the backward kernels
+(`relpos_attention_bwd`: two passes and the fold of the dp slabs on the
+card) give dq, dk, dv and dp; du and dv-bias are sums of the q gradients'
+two parts, taken here as the JAX package does. `bwd_layout` sizes the
+backward's scratch; `slab_p_row` and `fold_slabs` are the fold's index
+arithmetic, which the fold kernel repeats.
 Anything else raises. `kernel_takes` is the shape gate callers apply
 first: the JAX module's (`dk % 8 == 0`, espnet_tpu/models/attention.py).
 The kernels are built for head dims 32, 64 and 128; a smaller head dim
 the gate passes is zero-padded to the next of them (the scores, and so
 the result, do not change; the scale stays 1/sqrt of the real head dim),
-and one past 128 raises on the card. Both compute in float32 whatever the
-input dtype and return q's dtype. The key bias is clamped at
+and one past 128 raises on the card. Both compute in float32 and return
+q's dtype; in bf16 the kernels round q+u, q+v and, in the backward, the
+probabilities and dS to bf16 before their products, as the Pallas kernels
+do. The key bias is clamped at
 NEG = finfo(f32).min/2, as the Pallas kernel pads with NEG: a query whose
 keys are all masked averages v uniformly instead of giving NaN.
 """
@@ -26,19 +31,67 @@ keys are all masked averages v uniformly instead of giving NaN.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from espnet_tpu_torch.ops.cuda_build import check_launch, kernel_library
+from espnet_tpu_torch.ops.ffn_common import aligned16
 
 NEG = float(np.finfo(np.float32).min) / 2
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (32, 64, 128)  # the instantiations in csrc/
-_BLOCK = 64  # query rows of one dp slab (BQ in the kernel)
+_BLOCK = 64  # query rows of a block and keys of a tile (BQ, BK)
+# blocks of the tensor-core pass 1 to aim at: about four waves of one block
+# per SM on 132 SMs; a block sums the dp rows of per_group batch elements
+_DQ_BLOCKS = 512
+
+
+class BwdLayout(NamedTuple):
+    blocks: int        # query blocks of 64 rows, = key tiles
+    slab_rows: int     # rows of one dp slab: 64 blocks + 63
+    padded: int        # Tp = 64 blocks: the side of the P and dS planes
+    per_group: int     # batch elements one slab sums
+    groups: int        # slabs per (head, query block)
+    tensor_cores: bool  # bf16: pass 1 stores P and dS as (B, H, Tp, Tp)
+
+
+def bwd_layout(b: int, h: int, t: int, dtype: torch.dtype) -> BwdLayout:
+    """The backward's grid and scratch for (B, H, T) in `dtype`. float32
+    (CUDA cores) keeps one dp slab per batch element; bf16 (tensor cores)
+    lets a pass-1 block walk per_group elements while the grid keeps about
+    `_DQ_BLOCKS` blocks."""
+    nq = -(-t // _BLOCK)
+    tc = dtype == torch.bfloat16
+    per = max(1, min(b, b * h * nq // _DQ_BLOCKS)) if tc else 1
+    return BwdLayout(nq, _BLOCK * nq + _BLOCK - 1, _BLOCK * nq, per,
+                     -(-b // per), tc)
+
+
+def slab_p_row(t: int, n: int) -> int:
+    """The p row of slab row 0 of query block n: window row w of key tile
+    kt of that block is p row T-1-(64n+63) + 64kt + w, and the tile's
+    window rows 64.. carry into the next tile as its rows 0.., so slab row
+    64kt + w is p row slab_p_row(t, n) + 64kt + w (rows outside [0, 2T-1)
+    hold zeros)."""
+    return t - 1 - (_BLOCK * n + _BLOCK - 1)
+
+
+def fold_slabs(slabs: torch.Tensor, t: int) -> torch.Tensor:
+    """dp (H, 2T-1, D) from slabs (groups, H, blocks, slab rows, D): the sum
+    over the groups, overlap-added at each block's `slab_p_row`. The plain
+    version of the fold kernel (`relpos_dp_fold_kernel`)."""
+    _, h, nq, rows, d = slabs.shape
+    per_block = slabs.sum(dim=0)
+    dp = torch.zeros(h, 2 * t - 1, d, dtype=slabs.dtype, device=slabs.device)
+    for n in range(nq):
+        off = slab_p_row(t, n)
+        lo, hi = max(0, -off), min(rows, 2 * t - 1 - off)
+        dp[:, off + lo:off + hi] += per_block[:, n, lo:hi]
+    return dp
 
 
 def kernel_takes(head_dim: int) -> bool:
@@ -134,38 +187,49 @@ def _kernel_fwd(q, k, v, p, u, vb, kb, scale: float, with_stats: bool):
     return out, stats
 
 
-def relpos_attention_bwd(q, k, v, p, u, vb, kb, out, stats, dout,
-                         scale: float):
-    """Gradients (dq, dk, dv, dp, du, dvb) of the kernel's forward, from the
-    CUDA backward kernel pair; dq, dk, dv, dp in q's dtype, du and dvb
-    float32. `relpos_attention_bwd.launches` counts calls."""
+def _kernel_bwd(q, k, v, p, u, vb, kb, out, stats, dout, scale: float):
+    """The backward kernels' float32 (dqu, dqv, dk, dv, dp) for the
+    forward's saved tensors (head dim padded to a kernel's); dout in q's
+    dtype. Counts one `relpos_attention_bwd.launches`."""
     b, h, t, d = q.shape
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"relpos_attention_bwd: head dim {d} not in "
                          f"{KERNEL_HEAD_DIMS}")
-    dout = dout.to(q.dtype).contiguous()
     delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
-    lib = kernel_library()
-    nq = -(-t // _BLOCK)
-    rows = lib.espnet_relpos_attention_slab_rows(t)
+    lay = bwd_layout(b, h, t, q.dtype)
     f32 = dict(dtype=torch.float32, device=q.device)
     dqu, dqv, dk, dv = (torch.empty(b, h, t, d, **f32) for _ in range(4))
-    slabs = torch.empty(b, h, nq, rows, d, **f32)
-    code = lib.espnet_relpos_attention_bwd(
+    slabs = torch.empty(lay.groups, h, lay.blocks, lay.slab_rows, d, **f32)
+    dp = torch.empty(h, 2 * t - 1, d, **f32)
+    pbuf = dsbuf = None
+    if lay.tensor_cores:
+        q, k, v, p, dout = (aligned16(x) for x in (q, k, v, p, dout))
+        pbuf = torch.empty(b, h, lay.padded, lay.padded, dtype=q.dtype,
+                           device=q.device)
+        dsbuf = torch.empty_like(pbuf)
+    code = kernel_library().espnet_relpos_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
         u.data_ptr(), vb.data_ptr(), kb.data_ptr(), dout.data_ptr(),
         stats.data_ptr(), delta.data_ptr(), dqu.data_ptr(), dqv.data_ptr(),
-        slabs.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d, scale,
-        DTYPE_CODES[q.dtype], _stream(q))
+        slabs.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if pbuf is None else pbuf.data_ptr(),
+        None if dsbuf is None else dsbuf.data_ptr(), dp.data_ptr(), b, h, t,
+        d, lay.per_group, scale, DTYPE_CODES[q.dtype], _stream(q))
     check_launch("relpos_attention_bwd", code)
     relpos_attention_bwd.launches += 1
-    # overlap-add: slab row 0 of query block n is p row T-1-(64n+63)
-    per_block = slabs.sum(dim=0)  # (H, nq, rows, D)
-    dp = torch.zeros(h, 2 * t - 1, d, **f32)
-    for n in range(nq):
-        off = t - 1 - (_BLOCK * n + _BLOCK - 1)
-        lo, hi = max(0, -off), min(rows, 2 * t - 1 - off)
-        dp[:, off + lo:off + hi] += per_block[:, n, lo:hi]
+    return dqu, dqv, dk, dv, dp
+
+
+def relpos_attention_bwd(q, k, v, p, u, vb, kb, out, stats, dout,
+                         scale: float):
+    """Gradients (dq, dk, dv, dp, du, dvb) of the kernel's forward, from the
+    CUDA backward kernels (float32 on the CUDA cores, bf16 on tensor cores
+    with two transient (B, H, Tp, Tp) bf16 planes); dq, dk, dv, dp in q's
+    dtype, du and dvb float32. `relpos_attention_bwd.launches` counts
+    calls."""
+    dout = dout.to(q.dtype).contiguous()
+    dqu, dqv, dk, dv, dp = _kernel_bwd(q, k, v, p, u, vb, kb, out, stats,
+                                       dout, scale)
     dt = q.dtype
     return ((dqu + dqv).to(dt), dk.to(dt), dv.to(dt), dp.to(p.dtype),
             dqu.sum(dim=(0, 2)), dqv.sum(dim=(0, 2)))

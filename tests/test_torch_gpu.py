@@ -70,19 +70,85 @@ def test_relpos_kernel_matches_plain(cuda, dtype, t):
                                rtol=TOL[dtype])
 
 
+# the bf16 forwards run on tensor cores: every width, the serve's rows
+# (1496), one row, rows past a 64-row block and the training rows, with and
+# without dropout, both activations
+FWD_TC_CASES = [(torch.bfloat16, d, m, drop, act)
+                for d in (128, 256, 384, 512) for m in (1, 1496, 4097, 30016)
+                for drop in (0.0, 0.1) for act in ("swish", "relu")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("activation,scale", [("swish", 0.5), ("relu", 1.0)])
-def test_prenorm_ffn_kernel_matches_plain(cuda, dtype, activation, scale):
-    args = _ffn_args(cuda, dtype)
-    kw = dict(activation=activation, residual_scale=scale)
+@pytest.mark.parametrize("dtype,d,m,drop,activation", [
+    (torch.float32, 256, 333, 0.0, "swish"),
+    (torch.float32, 256, 333, 0.0, "relu"),
+    (torch.bfloat16, 256, 333, 0.0, "swish"),
+    (torch.bfloat16, 256, 333, 0.0, "relu")] + FWD_TC_CASES)
+def test_prenorm_ffn_kernel_matches_plain(cuda, dtype, d, m, drop,
+                                          activation):
+    args = _ffn_args(cuda, dtype, m=m, d=d)
+    scale = 0.5 if activation == "swish" else 1.0
+    kw = dict(activation=activation, residual_scale=scale, drop_rate=drop,
+              seeds=(2024, -3))
     before = tffn.prenorm_ffn.launches
-    got = tffn.prenorm_ffn(*args, **kw)
+    with torch.no_grad():
+        got = tffn.prenorm_ffn(*args, **kw)
     torch.cuda.synchronize()
     assert tffn.prenorm_ffn.launches == before + 1
     want = tffn.prenorm_ffn_plain(*args, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,m,drop,activation", FWD_TC_CASES)
+def test_fused_ffn_forward_matches_plain(cuda, dtype, d, m, drop,
+                                         activation):
+    x, _, _, w1, b1, w2, b2 = _ffn_args(cuda, dtype, m=m, d=d)
+    kw = dict(activation=activation, drop_rate=drop, seed=-991)
+    before = tfused.fused_ffn.launches
+    with torch.no_grad():
+        got = tfused.fused_ffn(x, w1, b1, w2, b2, **kw)
+    torch.cuda.synchronize()
+    assert tfused.fused_ffn.launches == before + 1
+    want = tfused.fused_ffn_plain(x, w1, b1, w2, b2, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
+def test_ffn_forward_hash_masks_match_plain(cuda, d):
+    """With W2 the identity (F = D), b2 = 0 and swish, each output shows
+    whether its hidden unit was kept: fused_ffn's y is 0 exactly where the
+    mask drops, the pre-norm FFN's y equals x exactly where either mask
+    drops. The bf16 tensor-core forwards keep the plain `keep_mask`'s
+    elements, on every element whose undropped value is clear of 0."""
+    m, q_rate = 4097, 0.1
+    x, lns, lnb, w1, b1, _, _ = _ffn_args(cuda, torch.bfloat16, m=m, d=d, f=d)
+    eye = torch.eye(d, device=cuda, dtype=torch.bfloat16)
+    zero = torch.zeros(d, device=cuda)
+    q = ffn_common.quantize_rate(q_rate)
+    with torch.no_grad():
+        y = tfused.fused_ffn(x, w1, b1, eye, zero, activation="swish",
+                             drop_rate=q_rate, seed=77)
+        a = tfused.fused_ffn_plain(x, w1, b1, eye, zero, activation="swish")
+    keep = ffn_common.keep_mask(m, d, 77, q, cuda)
+    clear = a.float().abs() > 0
+    assert torch.equal((y != 0)[clear], keep[clear])
+    with torch.no_grad():
+        y = tffn.prenorm_ffn(x, lns, lnb, w1, b1, eye, zero,
+                             activation="swish", drop_rate=q_rate,
+                             seeds=(5, 6))
+        a = tffn.prenorm_ffn_plain(x, lns, lnb, w1, b1, eye, zero,
+                                   activation="swish") - x
+    keep = (ffn_common.keep_mask(m, d, 5, q, cuda)
+            & ffn_common.keep_mask(m, d, 6, q, cuda))
+    # clear of x's rounding: |a| kept and scaled twice exceeds x's ulp
+    clear = a.float().abs() > 2.0 ** -6 * x.float().abs()
+    assert torch.equal((y != x)[clear], keep[clear])
 
 
 @pytest.mark.gpu
@@ -135,9 +201,15 @@ def _grads(fn, args, idx, gout):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,d", [(200, 64), (1, 64), (64, 64), (65, 64),
                                  (65, 32), (65, 128), (200, 128), (64, 48),
-                                 (65, 96)])
+                                 (65, 96),
+                                 # one key tile, its edges and the training
+                                 # length, at every kernel head dim
+                                 (1, 32), (64, 32), (469, 32), (1, 128),
+                                 (64, 128), (469, 64), (469, 128)])
 def test_relpos_backward_kernels_match_plain(cuda, dtype, t, d):
-    """Head dims 48 and 96 run zero-padded to the kernels' 64 and 128."""
+    """Head dims 48 and 96 run zero-padded to the kernels' 64 and 128. In
+    bf16 the backward runs on tensor cores (the P and dS planes, the dp
+    slabs summed over groups of batch elements)."""
     lengths = (t, max(1, t // 3), 0)
     args = _relpos_args(cuda, dtype, t=t, d=d, lengths=lengths)
     gout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
@@ -155,6 +227,61 @@ def test_relpos_backward_kernels_match_plain(cuda, dtype, t, d):
     # masked keys of a partly masked utterance get exactly zero dk and dv
     assert (got[1][1, :, lengths[1]:] == 0).all()
     assert (got[2][1, :, lengths[1]:] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [64, 469])
+def test_relpos_bf16_backward_rows_sum_to_one(cuda, t):
+    """The bf16 forward rounds q+u and q+v as the backward does, so its row
+    statistics (m, l) belong to the scores the backward recomputes:
+    sum_j exp(s_ij - m_i) / l_i over those scores (float32, from the
+    rounded Qu and Qv) is 1 within 1e-3 on every row. The backward sees
+    the same: with dout[i] the one-hot e_(i mod D), dv summed over keys is
+    the sum over the rows i = d (mod D) of sum_j bf16(P_ij), 1 for each
+    row within P's bf16 rounding (2^-8 of the row's sum: the Pallas
+    kernels round P before P^T dO). Every row is a valid query; a fully
+    masked utterance's rows are uniform. At T = 64 = D each column is one
+    row."""
+    d = 64
+    args = _relpos_args(cuda, torch.bfloat16, t=t, d=d,
+                        lengths=(t, max(1, t // 3), 0))
+    q, k, v, p, u, vb, bias = args
+    b, h = q.shape[:2]
+    kb = trel.key_bias(bias, b, t, cuda).contiguous()
+    scale = 1.0 / d ** 0.5
+    xs = (q, k, v, p, u.float().contiguous(), vb.float().contiguous())
+    out, stats = trel._kernel_fwd(*xs, kb, scale, with_stats=True)
+    torch.cuda.synchronize()
+    # the scores from the rounded Qu and Qv, as the backward forms them
+    bf = torch.bfloat16
+    qu = (q.float() + u.to(bf).float()[None, :, None]).to(bf).float()
+    qv = (q.float() + vb.to(bf).float()[None, :, None]).to(bf).float()
+    ar = torch.arange(t, device=cuda)
+    idx = ((t - 1) - ar[:, None] + ar[None, :]).expand(b, h, t, t)
+    bd = torch.einsum("bhqd,hkd->bhqk", qv, p.float()).gather(-1, idx)
+    s = (qu @ k.float().transpose(-1, -2) + bd) * scale + kb[:, None, None]
+    m, l_ = stats[..., 0], stats[..., 1]
+    rowsum = torch.exp(s - m[..., None]).sum(dim=-1) / l_
+    assert float((rowsum - 1).abs().max()) <= 1e-3
+    rows = torch.arange(t, device=cuda)
+    dout = torch.zeros(b, h, t, d, device=cuda, dtype=bf)
+    dout[:, :, rows, rows % d] = 1
+    _, _, _, dv, _ = trel._kernel_bwd(*xs, kb, out, stats, dout, scale)
+    torch.cuda.synchronize()
+    per_col = dv.double().sum(dim=2)  # (B, H, D): sum of P over rows = d
+    count = torch.bincount(rows % d, minlength=d).double()
+    dev = (per_col - count).abs() / count
+    assert float(dev.max()) <= 2.0 ** -8 + 1e-4, float(dev.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 469])
+def test_relpos_bwd_layout_matches_the_kernels(cuda, t):
+    """The Python layout of the backward's slabs and the kernels' agree."""
+    from espnet_tpu_torch.ops.cuda_build import kernel_library
+
+    lay = trel.bwd_layout(3, 4, t, torch.bfloat16)
+    assert lay.slab_rows == kernel_library().espnet_relpos_attention_slab_rows(t)
 
 
 def _both_dtypes_then_bf16(cases, bf16_cases):
