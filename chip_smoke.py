@@ -15,8 +15,10 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    events beside the plain version, the bound (the larger of operations
    over peak and bytes over 3.35 TB/s) and, where one PyTorch call computes
    the same function, that call (in bf16 the flash forward, the rel-pos
-   backward and the FFN forwards and backward pairs run on tensor cores,
-   float32 on the CUDA cores, so the float32 checks hold the parity mode):
+   backward, the FFN forwards and backward pairs and the whole conv
+   module's forward and backward kernels run on tensor cores, float32 on
+   the CUDA cores, so the float32 checks hold the parity mode; each line
+   names the design that ran):
    the forward kernels at the serve
    phase's shapes and the bench's decode geometry (B=8, T=469 / M=3000),
    then all fifteen kernel entry points at the training shapes (rel-pos
@@ -205,10 +207,24 @@ def bound(flops, nbytes, peak_flops):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+# the kernels whose bf16 design runs on tensor cores (mma.sync); every
+# other kernel, and every float32 one, runs on the CUDA cores
+TENSOR_CORE_BF16 = {"relpos_attention_bwd", "prenorm_ffn", "prenorm_ffn_bwd",
+                    "fused_ffn", "fused_ffn_bwd", "flash_attention",
+                    "conv_module", "conv_module_bwd"}
+
+
+def design(name, dtype_name):
+    """Which cores the kernel `name` ran on in `dtype_name`."""
+    tc = dtype_name == "bfloat16" and name in TENSOR_CORE_BF16
+    return "tensor cores" if tc else "CUDA cores"
+
+
 def report(name, label, dtype_name, how, ok, ms, plain_ms, bound_ms,
            bound_by, max_err, library_ms=None):
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
-    log("kernels", f"{name} {label} {dtype_name}: {how}; kernel {ms:.4f} ms, "
+    log("kernels", f"{name} {label} {dtype_name} "
+        f"[{design(name, dtype_name)}]: {how}; kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by})"
         f"{'' if ok else '  <-- OUT OF TOLERANCE'}")
     if not ok:

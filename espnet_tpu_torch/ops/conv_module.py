@@ -29,22 +29,90 @@ JAX package this route has no shape gate: the kernels take every d_model up
 to 512 and every odd kernel size up to 31; past that they raise.
 `conv_module.launches` and `conv_module_bwd.launches` count calls. The
 parameter gradients come back in the parameters' dtypes.
+
+The kernels' grid is Python (`bwd_layout`): a block owns `tile_rows`
+frames of one utterance (32 in float32, on the CUDA cores; 64 at D <= 256
+and 32 above in bf16, on the tensor cores), recomputes the head for
+`head_rows` rows around them, and leaves per-tile partial sums that are
+added here in a fixed order. In bf16 the kernels take the weights and
+write their scratch padded to DP = D rounded up to 128 (`pad_weights`), so
+the weight gradients run on the tensor-core A^T B kernel over the row
+groups of `ffn_common.wgrad_split`. On the card the wrapper checks that the
+C library's tile rows agree with `bwd_layout`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from espnet_tpu_torch.ops.cuda_build import check_launch, kernel_library
-from espnet_tpu_torch.ops.ffn_common import (DTYPE_CODES, check_args,
-                                             drop_args, keep_mask, layer_norm,
-                                             quantize_rate, stream,
-                                             wgrad_groups)
+from espnet_tpu_torch.ops.ffn_common import (DTYPE_CODES, aligned16,
+                                             check_args, drop_args, keep_mask,
+                                             layer_norm, quantize_rate, stream,
+                                             wgrad_groups, wgrad_split)
 
 MAX_MODEL_DIM = 512  # the kernels' widest d_model (csrc/conv_module.cu)
 MAX_KERNEL_SIZE = 31  # their longest depthwise kernel (the halo's rows)
+FP32_TILE_ROWS = 32  # frames a float32 block owns (csrc `TT`)
+TC_TILE_ROWS = {128: 64, 256: 64, 384: 32, 512: 32}  # bf16, by DP (`TcConv`)
+
+
+class ConvLayout(NamedTuple):
+    tile_rows: int     # frames a block owns
+    tiles: int         # blocks, B * ceil(T / tile_rows): rows of the partials
+    halo: int          # p = (k - 1) // 2 frames on each side of a tile
+    head_rows: int     # rows of the head a forward block recomputes
+    dp: int            # D rounded up to 128: the kernels' width
+    width: int         # columns of the scratch: DP (bf16) or D (float32)
+    g1: int            # row groups of dW1's partial sums ...
+    r1: int            # ... of r1 frames each (the last one cut at B * T)
+    g2: int            # and of dW2's
+    r2: int
+
+
+def padded_dim(d: int) -> int:
+    """DP: d rounded up to the kernels' multiple of 128."""
+    return -(-d // 128) * 128
+
+
+def bwd_layout(b: int, t: int, d: int, k: int,
+               dtype: torch.dtype) -> ConvLayout:
+    """The kernels' grid and scratch for B utterances of T frames at width
+    d and kernel size k. float32: 32-frame tiles whose head runs in 32-row
+    sub-tiles, buffers D wide, the CUDA-core weight gradient's groups.
+    bf16: `TC_TILE_ROWS[DP]`-frame tiles whose head covers TT + 2p rows
+    rounded up to 16, buffers DP wide, `wgrad_split`'s groups."""
+    dp = padded_dim(d)
+    m, p = b * t, (k - 1) // 2
+    if dtype == torch.bfloat16:
+        tt = TC_TILE_ROWS[dp]
+        g1, r1 = wgrad_split(m, dp, 2 * dp)
+        g2, r2 = wgrad_split(m, dp, dp)
+        return ConvLayout(tt, b * -(-t // tt), p, -(-(tt + 2 * p) // 16) * 16,
+                          dp, dp, g1, r1, g2, r2)
+    tt = FP32_TILE_ROWS
+    g1, g2 = wgrad_groups(m, d, 2 * d), wgrad_groups(m, d, d)
+    return ConvLayout(tt, b * -(-t // tt), p, -(-(tt + 2 * p) // tt) * tt,
+                      dp, d, g1, -(-m // g1), g2, -(-m // g2))
+
+
+def pad_weights(w1, w2):
+    """w1 (D, 2D) and w2 (D, D) as the bf16 kernels take them: w1 (DP,
+    2DP) with the g half from column DP, w2 (DP, DP), zeros past D; the
+    tensors themselves (16-byte aligned) when D = DP."""
+    d = w2.shape[0]
+    dp = padded_dim(d)
+    if d == dp:
+        return aligned16(w1), aligned16(w2)
+    w1p = w1.new_zeros(dp, 2 * dp)
+    w1p[:d, :d] = w1[:, :d]
+    w1p[:d, dp:dp + d] = w1[:, d:]
+    w2p = w2.new_zeros(dp, dp)
+    w2p[:d, :d] = w2
+    return w1p, w2p
 
 
 def conv_module_plain(x, pad_mask, ln1_scale, ln1_bias, w1, b1, dw, db,
@@ -96,8 +164,25 @@ def check_kernel_shapes(x, kernel_size: int) -> None:
                          f"{MAX_KERNEL_SIZE}, not D={d}, k={kernel_size}")
 
 
-def _tiles(bsz, t):
-    return bsz * -(-t // kernel_library().espnet_conv_module_tile_rows())
+@functools.lru_cache(maxsize=None)
+def _check_tile_rows(d: int, dtype: torch.dtype) -> None:
+    """Raise unless the C library's tile rows at (d, dtype) are
+    `bwd_layout`'s."""
+    want = bwd_layout(1, 1, d, 1, dtype).tile_rows
+    got = kernel_library().espnet_conv_module_tile_rows(d, DTYPE_CODES[dtype])
+    if got != want:
+        raise RuntimeError(f"conv_module: the kernels own {got} frames a "
+                           f"block at D={d} {dtype}, bwd_layout {want}")
+
+
+def _kernel_weights(x, params):
+    """The forward's parameters with w1 and w2 as the kernels take them."""
+    _check_tile_rows(x.shape[-1], x.dtype)
+    if x.dtype != torch.bfloat16:
+        return params
+    ln1s, ln1b, w1, b1, dw, db, ln2s, ln2b, w2, b2 = params
+    w1p, w2p = pad_weights(w1, w2)
+    return ln1s, ln1b, w1p, b1, dw, db, ln2s, ln2b, w2p, b2
 
 
 def _kernel_fwd(x, mask, params, q, seed):
@@ -106,7 +191,8 @@ def _kernel_fwd(x, mask, params, q, seed):
     y = torch.empty_like(x)
     q, dscale, s0, _ = drop_args(q, None if seed is None else (seed,))
     code = kernel_library().espnet_conv_module_fwd(
-        x.data_ptr(), mask.data_ptr(), *(p.data_ptr() for p in params),
+        x.data_ptr(), mask.data_ptr(),
+        *(p.data_ptr() for p in _kernel_weights(x, params)),
         y.data_ptr(), bsz, t, d, k, q, dscale, s0, DTYPE_CODES[x.dtype],
         stream(x))
     check_launch("conv_module", code)
@@ -123,13 +209,14 @@ def conv_module_bwd(x, mask, params, gy, q, seed):
     if x.device.type != "cuda":
         raise ValueError(f"conv_module_bwd: unsupported device {x.device}")
     bsz, t, d = x.shape
-    ln1s, ln1b, w1, b1, dw, db, ln2s, ln2b, w2, _ = params
+    ln1s, ln1b, w1, b1, dw, db, ln2s, ln2b, w2, _ = _kernel_weights(x,
+                                                                    params)
     k = dw.shape[0]
     m = bsz * t
     gy = gy.to(x.dtype).contiguous()
     dev = x.device
-    n_tiles = _tiles(bsz, t)
-    g1, g2 = wgrad_groups(m, d, 2 * d), wgrad_groups(m, d, d)
+    lay = bwd_layout(bsz, t, d, k, x.dtype)
+    w = lay.width
 
     def f32(*shape):
         return torch.empty(*shape, dtype=torch.float32, device=dev)
@@ -138,13 +225,13 @@ def conv_module_bwd(x, mask, params, gy, q, seed):
         return torch.empty(*shape, dtype=x.dtype, device=dev)
 
     dx = torch.empty_like(x)
-    u_buf, dc_buf = f32(m, d), f32(m, d)
-    s_buf, dz_buf, xn_buf, dh_buf = same(m, d), same(m, d), same(m, d), \
-        same(m, 2 * d)
-    part_a = f32(n_tiles, 4, d)  # dLN2 scale, dLN2 bias, ddb, db2
-    part_b = f32(n_tiles, 4, d)  # dLN1 scale, dLN1 bias, db1 (2D)
-    ddwp = f32(n_tiles, k, d)
-    dw1p, dw2p = f32(g1, d, 2 * d), f32(g2, d, d)
+    u_buf, dc_buf = f32(m, w), f32(m, w)
+    s_buf, dz_buf, xn_buf, dh_buf = same(m, w), same(m, w), same(m, w), \
+        same(m, 2 * w)
+    part_a = f32(lay.tiles, 4, d)  # dLN2 scale, dLN2 bias, ddb, db2
+    part_b = f32(lay.tiles, 4, d)  # dLN1 scale, dLN1 bias, db1 (2D)
+    ddwp = f32(lay.tiles, k, d)
+    dw1p, dw2p = f32(lay.g1, w, 2 * w), f32(lay.g2, w, w)
     q, dscale, s0, _ = drop_args(q, None if seed is None else (seed,))
     code = kernel_library().espnet_conv_module_bwd(
         x.data_ptr(), mask.data_ptr(),
@@ -153,13 +240,18 @@ def conv_module_bwd(x, mask, params, gy, q, seed):
         gy.data_ptr(), dx.data_ptr(),
         *(b.data_ptr() for b in (u_buf, dc_buf, s_buf, dz_buf, xn_buf,
                                  dh_buf, part_a, part_b, ddwp, dw1p, dw2p)),
-        bsz, t, d, k, g1, g2, q, dscale, s0, DTYPE_CODES[x.dtype], stream(x))
+        bsz, t, d, k, lay.g1, lay.r1, lay.g2, lay.r2, q, dscale, s0,
+        DTYPE_CODES[x.dtype], stream(x))
     check_launch("conv_module_bwd", code)
     conv_module_bwd.launches += 1
     a, b = part_a.sum(dim=0), part_b.sum(dim=0)
-    return (dx, b[0], b[1], dw1p.sum(dim=0).to(w1.dtype),
-            b[2:].reshape(2 * d), ddwp.sum(dim=0).to(dw.dtype), a[2], a[0],
-            a[1], dw2p.sum(dim=0).to(w2.dtype), a[3])
+    dw1, dw2 = dw1p.sum(dim=0), dw2p.sum(dim=0)
+    if w != d:  # the padded columns of the bf16 design
+        dw1 = torch.cat([dw1[:d, :d], dw1[:d, w:w + d]], dim=1)
+        dw2 = dw2[:d, :d]
+    return (dx, b[0], b[1], dw1.to(params[2].dtype), b[2:].reshape(2 * d),
+            ddwp.sum(dim=0).to(dw.dtype), a[2], a[0], a[1],
+            dw2.to(params[8].dtype), a[3])
 
 
 class _ConvModule(torch.autograd.Function):

@@ -57,8 +57,8 @@ _SIGNATURES = {
     "espnet_conv_tail_bwd": (_P,) * 10 + (_I,) * 4 + (_F, _I, _I, _P),
     "espnet_conv_glu_rows_per_block": (),
     "espnet_conv_module_fwd": (_P,) * 13 + (_I,) * 5 + (_F, _I, _I, _P),
-    "espnet_conv_module_bwd": (_P,) * 24 + (_I,) * 7 + (_F, _I, _I, _P),
-    "espnet_conv_module_tile_rows": (),
+    "espnet_conv_module_bwd": (_P,) * 24 + (_I,) * 9 + (_F, _I, _I, _P),
+    "espnet_conv_module_tile_rows": (_I, _I),
 }
 
 

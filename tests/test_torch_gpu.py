@@ -609,16 +609,25 @@ def _module_args(device, dtype, lengths, t, d, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,k,t,lengths,drop", [
-    (256, 31, 75, (75, 40, 1), 0.1), (144, 31, 70, (70, 3, 33), 0.1),
-    (128, 7, 33, (33, 32, 1), 0.0), (512, 31, 64, (64, 17), 0.1),
-    (384, 15, 5, (5, 1), 0.1), (64, 1, 40, (40, 39), 0.1)])
+@pytest.mark.parametrize("dtype,d,k,t,lengths,drop", _both_dtypes_then_bf16(
+    [(256, 31, 75, (75, 40, 1), 0.1), (144, 31, 70, (70, 3, 33), 0.1),
+     (128, 7, 33, (33, 32, 1), 0.0), (512, 31, 64, (64, 17), 0.1),
+     (384, 15, 5, (5, 1), 0.1), (64, 1, 40, (40, 39), 0.1)],
+    # the tensor-core tiles' edges: 64 frames at D <= 256 (T = 63, 64, 65,
+    # 129 and the training length), 32 above (T = 31, 32, 33), padded
+    # widths 64 and 144, k 1 to 31
+    [(256, 31, 63, (63, 1), 0.1), (256, 31, 64, (64, 33, 1), 0.1),
+     (256, 31, 65, (65, 64, 2), 0.1), (256, 31, 469, (469, 300, 64, 1), 0.1),
+     (64, 31, 65, (65, 1), 0.1), (144, 31, 63, (63, 62), 0.0),
+     (144, 15, 129, (129, 65, 1), 0.1), (384, 31, 31, (31, 1), 0.1),
+     (384, 7, 33, (33, 32), 0.1), (512, 31, 32, (32, 31, 1), 0.1),
+     (512, 3, 33, (33, 1), 0.0), (128, 1, 64, (64, 63), 0.1)]))
 def test_conv_module_kernels_match_plain(cuda, dtype, d, k, t, lengths,
                                          drop):
     """The whole-module route, forward and backward: ragged utterances (1
     frame and T among them), d 144 and 64 (no JAX gate on this route), k 1
-    to 31, tiles of 32 frames with T not a multiple of 32."""
+    to 31, tiles of 32 frames (float32) or 64 and 32 (bf16) with T not a
+    multiple of them."""
     x, mask, params = _module_args(cuda, dtype, lengths, t, d, k)
     kw = dict(seed=97, drop_rate=drop, kernel_size=k)
     args = (x, mask, *params)
@@ -639,6 +648,46 @@ def test_conv_module_kernels_match_plain(cuda, dtype, d, k, t, lengths,
     names = "x ln1s ln1b w1 b1 dw db ln2s ln2b w2 b2".split()
     for name, g, w in zip(names, got, want):
         _assert_grad_close(name, g, w, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [256, 144])
+def test_conv_module_hash_mask_matches_plain(cuda, d):
+    """With W2 the identity and b2 = 0, y - x is drop(s): y equals x exactly
+    where the utterance-tiled mask drops, and differs where it keeps, on
+    every element whose undropped value is clear of x's rounding. The bf16
+    tensor-core forward applies the hash on its fragments."""
+    lengths, t, k, q_rate = (469, 300, 64, 1), 469, 31, 0.1
+    x, mask, params = _module_args(cuda, torch.bfloat16, lengths, t, d, k)
+    params[8] = torch.eye(d, device=cuda, dtype=torch.bfloat16)
+    params[9] = torch.zeros(d, device=cuda)
+    with torch.no_grad():
+        y = tcm.conv_module(x, mask, *params, seed=-77, drop_rate=q_rate,
+                            kernel_size=k)
+        a = tcm.conv_module_plain(x, mask, *params, kernel_size=k) - x
+    q = ffn_common.quantize_rate(q_rate)
+    keep = ffn_common.keep_mask(len(lengths) * t, d, -77, q, cuda,
+                                tile_rows=t).reshape(x.shape)
+    clear = a.float().abs() > 2.0 ** -6 * x.float().abs()
+    assert clear.float().mean() > 0.9
+    assert torch.equal((y != x)[clear], keep[clear])
+    assert torch.equal(y[~keep], x[~keep])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_module_layout_matches_the_kernels(cuda, dtype):
+    """The C library's frames per block and `bwd_layout`'s agree at every
+    width the kernels take (DP 128-512, D padded to them)."""
+    from espnet_tpu_torch.ops.cuda_build import kernel_library
+
+    lib = kernel_library()
+    for d in (64, 128, 144, 256, 384, 512):
+        lay = tcm.bwd_layout(4, 469, d, 31, dtype)
+        rows = lib.espnet_conv_module_tile_rows(
+            d, ffn_common.DTYPE_CODES[dtype])
+        assert rows == lay.tile_rows, (d, rows)
+        assert lay.tiles == 4 * -(-469 // rows)
 
 
 @pytest.mark.gpu
