@@ -15,9 +15,9 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    events beside the plain version, the bound (the larger of operations
    over peak and bytes over 3.35 TB/s) and, where one PyTorch call computes
    the same function, that call (in bf16 the flash forward, the rel-pos
-   backward, the FFN forwards and backward pairs and the whole conv
-   module's forward and backward kernels run on tensor cores, float32 on
-   the CUDA cores, so the float32 checks hold the parity mode; each line
+   forward and backward, the FFN forwards and backward pairs and the whole
+   conv module's forward and backward kernels run on tensor cores, float32
+   on the CUDA cores, so the float32 checks hold the parity mode; each line
    names the design that ran):
    the forward kernels at the serve
    phase's shapes and the bench's decode geometry (B=8, T=469 / M=3000),
@@ -27,7 +27,9 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    `fused_ffn` forward and backward at the E-Branchformer's M=64*469,
    F=1024, and recorded beside it at the decoder's M=64*41, F=2048; flash
    attention forward at the transformer's B=64, H=4, T=469, D=64 with
-   torch.nn.functional.scaled_dot_product_attention as a yardstick; the CTC
+   torch.nn.functional.scaled_dot_product_attention as a yardstick, and in
+   bf16 its backward, a PyTorch recompute through `reference_attention`
+   (no kernel), against autograd through that function; the CTC
    lattice pair at B=64, T=469, S=81, with torch.nn.functional.ctc_loss as
    a second oracle and yardstick; the conv sub-block's head and tail (split
    route) at M=64*469, D=256 with dropout 0.1 and the whole-module kernel
@@ -209,13 +211,18 @@ def bound(flops, nbytes, peak_flops):
 
 # the kernels whose bf16 design runs on tensor cores (mma.sync); every
 # other kernel, and every float32 one, runs on the CUDA cores
-TENSOR_CORE_BF16 = {"relpos_attention_bwd", "prenorm_ffn", "prenorm_ffn_bwd",
-                    "fused_ffn", "fused_ffn_bwd", "flash_attention",
-                    "conv_module", "conv_module_bwd"}
+TENSOR_CORE_BF16 = {"relpos_attention", "relpos_attention_bwd",
+                    "prenorm_ffn", "prenorm_ffn_bwd", "fused_ffn",
+                    "fused_ffn_bwd", "flash_attention", "conv_module",
+                    "conv_module_bwd"}
+# checked and timed like a kernel, but PyTorch operators, not a kernel
+RECOMPUTE = {"flash_attention_bwd"}
 
 
 def design(name, dtype_name):
     """Which cores the kernel `name` ran on in `dtype_name`."""
+    if name in RECOMPUTE:
+        return "PyTorch recompute, no kernel"
     tc = dtype_name == "bfloat16" and name in TENSOR_CORE_BF16
     return "tensor cores" if tc else "CUDA cores"
 
@@ -550,7 +557,8 @@ def phase_train_kernels(torch, np):
     from espnet_tpu_torch.ops import ctc_lattice as tlat
     from espnet_tpu_torch.ops.ffn import fused_ffn, fused_ffn_plain
     from espnet_tpu_torch.ops.flash_attention import (flash_attention,
-                                                      flash_attention_plain)
+                                                      flash_attention_plain,
+                                                      reference_attention)
     from espnet_tpu_torch.ops.prenorm_ffn import (prenorm_ffn,
                                                   prenorm_ffn_plain)
     from espnet_tpu_torch.ops.relpos_attention import (
@@ -629,6 +637,14 @@ def phase_train_kernels(torch, np):
         log("kernels", f"flash_attention {label} {dn}: library "
             f"(scaled_dot_product_attention, boolean key mask) "
             f"{fa['library_ms']:.4f} ms")
+        if dtype == torch.bfloat16:
+            # its backward: the recompute through reference_attention (the
+            # forward's two products and the backward's four, valid keys)
+            gout = torch.randn(b, h, t, d, generator=torch.Generator()
+                               .manual_seed(12)).to("cuda", dtype)
+            check_grads(torch, "flash_attention_bwd", dn, label,
+                        flash_attention, reference_attention, args, 3, gout,
+                        3 * flops, 7 * b * h * t * d * es + b * t * 4)
         if dtype == torch.bfloat16:
             main.update({"relpos_attention": r, "relpos_attention_bwd": rb,
                          "prenorm_ffn": rf, "prenorm_ffn_bwd": rfb,

@@ -16,16 +16,17 @@
 // memory.
 //
 // Rounding points are the Pallas kernels': in bf16, q+u and q+v are rounded
-// to bf16 (u and v first, as `u.astype(q.dtype)` does), and in the backward
-// so are the probabilities P and dS before their products; products sum in
-// float32.
+// to bf16 (u and v first, as `u.astype(q.dtype)` does), in the forward the
+// unnormalised probabilities before P·V (their row sum l is taken before
+// the rounding), and in the backward the probabilities P and dS before
+// their products; products sum in float32.
 //
-// Forward (both dtypes) and the float32 backward run on the CUDA cores in
-// float32 (float32 is the port's parity mode; tensor-core float32 would be
-// TF32). The float32 backward recomputes ac, bd and dO·V in both passes
-// (22·B·H·T²·D).
+// The float32 forward and backward run on the CUDA cores in float32
+// (float32 is the port's parity mode; tensor-core float32 would be TF32).
+// The float32 backward recomputes ac, bd and dO·V in both passes
+// (22·B·H·T²·D). The bf16 forward and backward run on tensor cores (below).
 //
-// What the design does about it:
+// What the CUDA-core design does about it:
 // * The (B, H, T, 2T-1) position-score tensor is never built. A block owns
 //   one (b, h) and BQ query rows; for each BK-wide key tile it stages the
 //   BQ+BK-1 contiguous rows of p that the tile can touch (row T-1-(i-j)) in
@@ -50,10 +51,23 @@
 //   every slab row is written once. A fold kernel sums the slabs over the
 //   batch and overlap-adds them into dp (deterministic, no atomics).
 //
-// The bf16 backward runs on tensor cores (`mma.sync` m16n8k16 with
-// `ldmatrix` fragments and a `cp.async` ring, tensor_core.cuh; mma.sync
-// rather than wgmma because the skewed bd read, the softmax and the dS
-// window sit between the products at fragment granularity):
+// The bf16 forward and backward run on tensor cores (`mma.sync` m16n8k16
+// with `ldmatrix` fragments and a `cp.async` ring, tensor_core.cuh;
+// mma.sync rather than wgmma because the skewed bd read, the softmax and
+// the dS window sit between the products at fragment granularity):
+// * Forward, block per (q block, b·h), 4 warps of 16 query rows. It rounds
+//   Qu = q+u and Qv = q+v into shared memory once (their A fragments stay
+//   in registers up to D = 64) and, per 64-key tile (K, V, the tile's key
+//   bias and the 128-row p window through a two-stage ring), runs ac =
+//   Qu·Kᵀ and the warp's 80-row bd band of Qv·Pwᵀ on mma; the band goes
+//   through a float32 tile so that row r reads window row 63-r+c, as in
+//   backward pass 1. The online softmax runs in float32 on the C fragments
+//   (row max by quad shuffles); l sums the unrounded exp, and P is rounded
+//   to bf16 once, its C fragments reused as the A fragments of P·V (V by
+//   ldmatrix.trans), as the Pallas kernel rounds pmat before that product.
+//   The epilogue writes out = acc / max(l, 1e-30) in bf16 and (m, l) per
+//   row for the backward. Products: 6.5·B·H·Tp²·D (the band is 80/64 of
+//   the square). Shared memory 115,200 bytes at D = 64: two blocks an SM.
 // * Pass 1, block per (q block, head, group of batch elements), 4 warps of
 //   16 query rows. It rounds Qu = q+u and Qv = q+v into shared memory and,
 //   per 64-key tile (K, V and the 128-row p window through a two-stage
@@ -95,16 +109,16 @@ constexpr size_t relpos_smem_bytes() {
   return sizeof(float) * ((2 * BQ + 2 * BK + PW) * (D + 1) + BK);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-    relpos_attention_fwd_kernel(const T* __restrict__ q,
-                                const T* __restrict__ k,
-                                const T* __restrict__ v,
-                                const T* __restrict__ p,
+    relpos_attention_fwd_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                const float* __restrict__ p,
                                 const float* __restrict__ pos_u,
                                 const float* __restrict__ pos_v,
                                 const float* __restrict__ kbias,
-                                T* __restrict__ out,
+                                float* __restrict__ out,
                                 float2* __restrict__ stats, int H, int Tn,
                                 float scale) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
@@ -129,20 +143,18 @@ __global__ void __launch_bounds__(THREADS)
   const int ty = tid >> 4;
 
   const size_t seq = static_cast<size_t>(bh) * Tn * D;
-  const T* qg = q + seq;
-  const T* kg = k + seq;
-  const T* vg = v + seq;
-  const T* pg = p + static_cast<size_t>(h) * (2 * Tn - 1) * D;
+  const float* qg = q + seq;
+  const float* kg = k + seq;
+  const float* vg = v + seq;
+  const float* pg = p + static_cast<size_t>(h) * (2 * Tn - 1) * D;
   const float* kbg = kbias + static_cast<size_t>(b) * Tn;
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D, d = e % D;
     const int i = i0 + r;
-    const float x = i < Tn ? to_f32(qg[static_cast<size_t>(i) * D + d]) : 0.f;
-    // rounded to T as the Pallas kernel's q + u.astype(q.dtype), so the
-    // statistics belong to the scores the bf16 backward recomputes
-    qu_s[r * LD + d] = round_to<T>(x + round_to<T>(pos_u[h * D + d]));
-    qv_s[r * LD + d] = round_to<T>(x + round_to<T>(pos_v[h * D + d]));
+    const float x = i < Tn ? qg[static_cast<size_t>(i) * D + d] : 0.f;
+    qu_s[r * LD + d] = x + pos_u[h * D + d];
+    qv_s[r * LD + d] = x + pos_v[h * D + d];
   }
 
   float m[4], l[4], acc[4][DJ];
@@ -163,8 +175,8 @@ __global__ void __launch_bounds__(THREADS)
       const int j = j0 + c;
       const bool ok = j < Tn;
       const size_t g = static_cast<size_t>(j) * D + d;
-      k_s[c * LD + d] = ok ? to_f32(kg[g]) : 0.f;
-      v_s[c * LD + d] = ok ? to_f32(vg[g]) : 0.f;
+      k_s[c * LD + d] = ok ? kg[g] : 0.f;
+      v_s[c * LD + d] = ok ? vg[g] : 0.f;
     }
     // window row w holds p row (T-1) - (i0+BQ-1) + j0 + w
     const int prow0 = Tn - 1 - (i0 + BQ - 1) + j0;
@@ -172,7 +184,7 @@ __global__ void __launch_bounds__(THREADS)
       const int w = e / D, d = e % D;
       const int pr = prow0 + w;
       pw_s[w * LD + d] = (pr >= 0 && pr < 2 * Tn - 1)
-                             ? to_f32(pg[static_cast<size_t>(pr) * D + d])
+                             ? pg[static_cast<size_t>(pr) * D + d]
                              : 0.f;
     }
     for (int c = tid; c < BK; c += THREADS) {
@@ -254,7 +266,7 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  T* og = out + seq;
+  float* og = out + seq;
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii) {
     const int i = i0 + ty + 16 * ii;
@@ -263,18 +275,18 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj)
       og[static_cast<size_t>(i) * D + tx + 16 * jj] =
-          from_f32<T>(acc[ii][jj] * inv);
+          acc[ii][jj] * inv;
     if (stats != nullptr && tx == 0)
       stats[static_cast<size_t>(bh) * Tn + i] = make_float2(m[ii], l[ii]);
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* p,
            const float* pos_u, const float* pos_v, const float* kbias,
            void* out, float2* stats, int B, int H, int Tn, float scale,
            cudaStream_t stream) {
-  auto kernel = relpos_attention_fwd_kernel<T, D>;
+  auto kernel = relpos_attention_fwd_kernel<D>;
   const size_t smem = relpos_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -282,9 +294,9 @@ int launch(const void* q, const void* k, const void* v, const void* p,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Tn + BQ - 1) / BQ, B * H);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(p), pos_u, pos_v, kbias,
-      static_cast<T*>(out), stats, H, Tn, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(p), pos_u, pos_v,
+      kbias, static_cast<float*>(out), stats, H, Tn, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1350,6 +1362,321 @@ __global__ void __launch_bounds__(TC_THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward on tensor cores (see the note at the top)
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct TcFwd {
+  static constexpr int LD = D + 8;  // bf16 stride: Qu, Qv, k, v, p rows
+  static constexpr int RING = (2 * BK + PWR) * LD;  // one stage: k, v, p
+  static constexpr size_t bytes = sizeof(bf16) * (2 * BQ * LD + 2 * RING) +
+                                  sizeof(float) * (2 * BK + 4 * 16 * LDB);
+  static_assert(bytes <= 232448, "a block may have 227 KB");
+};
+
+// Block per (query block, b·h); warp w owns query rows 16w .. 16w+15.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS)
+    relpos_attention_fwd_tc_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const bf16* __restrict__ p,
+        const float* __restrict__ pos_u, const float* __restrict__ pos_v,
+        const float* __restrict__ kbias, bf16* __restrict__ out,
+        float2* __restrict__ stats, int H, int Tn, float scale) {
+  static_assert(BQ == 64 && BK == 64, "the bd band assumes 64 x 64 tiles");
+  static_assert(D % 32 == 0, "D must be a multiple of 32");
+  using L = TcFwd<D>;
+  constexpr int LD = L::LD;
+  constexpr int CPR = D / 8;    // 16-byte chunks per row
+  constexpr int KD = D / 16;    // k-steps over D
+  constexpr int ND = D / 8;     // n-tiles of the output
+  constexpr int NS = BK / 8;    // n-tiles of a score tile
+  constexpr int NB = BAND / 8;  // n-tiles of a warp's bd band
+  // Qu and Qv fragments stay in registers across the key loop up to D = 64
+  // (2 KD x 4 registers); at D = 128 they are loaded again for each tile
+  constexpr bool QREG = D <= 64;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qu_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qv_s = qu_s + BQ * LD;
+  bf16* ring = qv_s + BQ * LD;  // [stage]: k [BK][LD], v [BK][LD], p [PWR][LD]
+  float* kb_s = reinterpret_cast<float*>(ring + 2 * L::RING);  // [stage][BK]
+  float* bd_s = kb_s + 2 * BK;                                 // [4][16][LDB]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.y;
+  const int h = bh % H;
+  const int b = bh / H;
+  const int i0 = blockIdx.x * BQ;
+  const size_t seq = static_cast<size_t>(bh) * Tn * D;
+  const bf16* pg = p + static_cast<size_t>(h) * (2 * Tn - 1) * D;
+  const float* kbg = kbias + static_cast<size_t>(b) * Tn;
+  const int wb0 = 48 - 16 * warp;  // the warp's first window row (its band)
+
+  auto load_tile = [&](int kt, int st) {
+    const int j0 = kt * BK;
+    bf16* ks = ring + st * L::RING;
+    bf16* vs = ks + BK * LD;
+    bf16* ps = vs + BK * LD;
+    for (int e = tid; e < BK * CPR; e += TC_THREADS) {
+      const int r = e / CPR, c = e % CPR;
+      const int j = j0 + r;
+      const bool ok = j < Tn;
+      const size_t gi = seq + static_cast<size_t>(ok ? j : 0) * D + c * 8;
+      cp_async16(ks + r * LD + c * 8, k + gi, ok ? 16 : 0);
+      cp_async16(vs + r * LD + c * 8, v + gi, ok ? 16 : 0);
+    }
+    // window row w holds p row T-1-(i0+BQ-1)+j0+w, zeros outside [0, 2T-1)
+    const int prow0 = Tn - 1 - (i0 + BQ - 1) + j0;
+    for (int e = tid; e < PWR * CPR; e += TC_THREADS) {
+      const int w = e / CPR, c = e % CPR;
+      const int pr = prow0 + w;
+      const bool ok = pr >= 0 && pr < 2 * Tn - 1;
+      cp_async16(ps + w * LD + c * 8,
+                 pg + static_cast<size_t>(ok ? pr : 0) * D + c * 8,
+                 ok ? 16 : 0);
+    }
+    if (tid < BK) {
+      const int j = j0 + tid;
+      const bool ok = j < Tn;
+      cp_async4(kb_s + st * BK + tid, kbg + (ok ? j : 0), ok ? 4 : 0);
+    }
+  };
+  load_tile(0, 0);
+  cp_async_commit();
+
+  // Qu = bf16(q + bf16(u)) and Qv likewise, as the Pallas kernel's
+  // q + u.astype(q.dtype); rows past T are zeros (never stored)
+  for (int e = tid; e < BQ * CPR; e += TC_THREADS) {
+    const int r = e / CPR, c = e % CPR;
+    const int i = i0 + r;
+    uint4 qx = make_uint4(0u, 0u, 0u, 0u);
+    if (i < Tn)
+      qx = *reinterpret_cast<const uint4*>(q + seq +
+                                           static_cast<size_t>(i) * D + c * 8);
+    const bf16* qe = reinterpret_cast<const bf16*>(&qx);
+    uint4 ux, vx;
+    bf16* ue = reinterpret_cast<bf16*>(&ux);
+    bf16* ve = reinterpret_cast<bf16*>(&vx);
+#pragma unroll
+    for (int e8 = 0; e8 < 8; ++e8) {
+      const int d = h * D + c * 8 + e8;
+      const float x = __bfloat162float(qe[e8]);
+      ue[e8] = __float2bfloat16(x + round_to<bf16>(pos_u[d]));
+      ve[e8] = __float2bfloat16(x + round_to<bf16>(pos_v[d]));
+    }
+    *reinterpret_cast<uint4*>(qu_s + r * LD + c * 8) = ux;
+    *reinterpret_cast<uint4*>(qv_s + r * LD + c * 8) = vx;
+  }
+
+  const int aoff = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+  float* bw = bd_s + warp * 16 * LDB;
+  unsigned quf[QREG ? KD : 1][4], qvf[QREG ? KD : 1][4];
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {NEG, NEG};  // running max of rows g and g + 8
+  float l[2] = {0.f, 0.f};  // this lane's part of the running row sums
+
+  const int n_tiles = (Tn + BK - 1) / BK;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int st = kt & 1;
+    const int j0 = kt * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt landed (and Qu, Qv); tile kt-1 is read
+    if (kt + 1 < n_tiles) {
+      load_tile(kt + 1, st ^ 1);
+      cp_async_commit();
+    }
+    if constexpr (QREG) {
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          ldmatrix_x4(quf[kk], qu_s + aoff + kk * 16);
+          ldmatrix_x4(qvf[kk], qv_s + aoff + kk * 16);
+        }
+      }
+    }
+    const bf16* ks = ring + st * L::RING;
+    const bf16* vs = ks + BK * LD;
+    const bf16* ps = vs + BK * LD;
+    const float* kb = kb_s + st * BK;
+
+    // ac = Qu Kᵀ: K's rows are the n index, its columns the k index
+    float sc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned a[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = quf[kk][e];
+      } else {
+        ldmatrix_x4(a, qu_s + aoff + kk * 16);
+      }
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        unsigned bk[4];
+        ldmatrix_x4(bk, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[2 * np], a, bk[0], bk[1]);
+        mma_bf16(sc[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+    // bd: the warp's band of Qv Pwᵀ (window rows wb0 .. wb0+79) through
+    // its float32 tile; row r (rr = r - 16 warp) reads band column
+    // 63-r+c - wb0 = 15-rr+c
+    {
+      float bd[NB][4];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bd[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        unsigned a[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qvf[kk][e];
+        } else {
+          ldmatrix_x4(a, qv_s + aoff + kk * 16);
+        }
+#pragma unroll
+        for (int np = 0; np < NB / 2; ++np) {
+          unsigned bp[4];
+          ldmatrix_x4(bp, ps + (wb0 + np * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                   LD + kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(bd[2 * np], a, bp[0], bp[1]);
+          mma_bf16(bd[2 * np + 1], a, bp[2], bp[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        *reinterpret_cast<float2*>(bw + g * LDB + n * 8 + 2 * t4) =
+            make_float2(bd[n][0], bd[n][1]);
+        *reinterpret_cast<float2*>(bw + (g + 8) * LDB + n * 8 + 2 * t4) =
+            make_float2(bd[n][2], bd[n][3]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = g + 8 * (e >> 1);
+          sc[n][e] += bw[rr * LDB + 15 - rr + n * 8 + 2 * t4 + (e & 1)];
+        }
+    }
+
+    // online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3) over the
+    // keys below T, in float32
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + 2 * t4 + (e & 1);
+        sc[n][e] = sc[n][e] * scale + fmaxf(kb[c], NEG);
+        if (j0 + c < Tn) mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f((m[r] - m_new) * LOG2E);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+    // l sums the unrounded exp; P·V takes them rounded to bf16, as the
+    // Pallas kernel's pmat.astype(v.dtype)
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + 2 * t4 + (e & 1);
+        const float pe =
+            j0 + c < Tn ? exp2f((sc[n][e] - m[e >> 1]) * LOG2E) : 0.f;
+        sc[n][e] = pe;
+        l[e >> 1] += pe;
+      }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+    // O += P V: P's C fragments of n-tiles 2kk, 2kk+1 are the A fragment of
+    // k-step kk; V's rows are the k index (ldmatrix.trans)
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const unsigned pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        unsigned bv[4];
+        ldmatrix_x4_trans(bv, vs + (kk * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * LD +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+  bf16* og = out + seq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int i = i0 + warp * 16 + g + 8 * r;
+    if (i >= Tn) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(og + static_cast<size_t>(i) * D +
+                                         n * 8 + 2 * t4) =
+          __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    if (stats != nullptr && t4 == 0)
+      stats[static_cast<size_t>(bh) * Tn + i] = make_float2(m[r], l[r]);
+  }
+}
+
+template <int D>
+int launch_fwd_tc(const void* q, const void* k, const void* v, const void* p,
+                  const float* pos_u, const float* pos_v, const float* kbias,
+                  void* out, float2* stats, int B, int H, int Tn, float scale,
+                  cudaStream_t stream) {
+  auto kernel = relpos_attention_fwd_tc_kernel<D>;
+  const size_t smem = TcFwd<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // all of the SM's 228 KB as shared memory: two blocks an SM at D = 64
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((Tn + BQ - 1) / BQ, B * H), TC_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(p), pos_u, pos_v,
+      kbias, static_cast<bf16*>(out), stats, H, Tn, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_bwd_tc(const void* q, const void* k, const void* v, const void* p,
                   const float* pos_u, const float* pos_v, const float* kbias,
@@ -1394,7 +1721,8 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* p,
 // pos_u, pos_v: (H, D) float32; kbias: (B, T) float32. stats: (B, H, T)
 // float2 (row max, row sum) for the backward, or null. D in {32, 64, 128};
 // scale multiplies the scores (1/sqrt of the head dim before any zero
-// padding to D).
+// padding to D). float32 runs on the CUDA cores; bf16 runs on tensor cores
+// and needs q, k, v and p 16-byte aligned.
 extern "C" int espnet_relpos_attention_fwd(const void* q, const void* k,
                                            const void* v, const void* p,
                                            const float* pos_u,
@@ -1407,16 +1735,20 @@ extern "C" int espnet_relpos_attention_fwd(const void* q, const void* k,
   if (B < 1 || H < 1 || T < 1) return kUnsupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float2* st = static_cast<float2*>(stats);
-#define ESPNET_RELPOS_FWD(TT, DD)                                        \
-  return launch<TT, DD>(q, k, v, p, pos_u, pos_v, kbias, out, st, B, H, T, \
-                        scale, s)
-  if (dtype == kFloat32 && D == 32) ESPNET_RELPOS_FWD(float, 32);
-  if (dtype == kFloat32 && D == 64) ESPNET_RELPOS_FWD(float, 64);
-  if (dtype == kFloat32 && D == 128) ESPNET_RELPOS_FWD(float, 128);
-  if (dtype == kBFloat16 && D == 32) ESPNET_RELPOS_FWD(__nv_bfloat16, 32);
-  if (dtype == kBFloat16 && D == 64) ESPNET_RELPOS_FWD(__nv_bfloat16, 64);
-  if (dtype == kBFloat16 && D == 128) ESPNET_RELPOS_FWD(__nv_bfloat16, 128);
+#define ESPNET_RELPOS_FWD(DD)                                              \
+  return launch<DD>(q, k, v, p, pos_u, pos_v, kbias, out, st, B, H, T, scale, \
+                    s)
+  if (dtype == kFloat32 && D == 32) ESPNET_RELPOS_FWD(32);
+  if (dtype == kFloat32 && D == 64) ESPNET_RELPOS_FWD(64);
+  if (dtype == kFloat32 && D == 128) ESPNET_RELPOS_FWD(128);
 #undef ESPNET_RELPOS_FWD
+#define ESPNET_RELPOS_FWD_TC(DD)                                         \
+  return launch_fwd_tc<DD>(q, k, v, p, pos_u, pos_v, kbias, out, st, B, H, \
+                           T, scale, s)
+  if (dtype == kBFloat16 && D == 32) ESPNET_RELPOS_FWD_TC(32);
+  if (dtype == kBFloat16 && D == 64) ESPNET_RELPOS_FWD_TC(64);
+  if (dtype == kBFloat16 && D == 128) ESPNET_RELPOS_FWD_TC(128);
+#undef ESPNET_RELPOS_FWD_TC
   return kUnsupported;
 }
 

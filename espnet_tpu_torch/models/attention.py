@@ -8,14 +8,14 @@ padding tuning), on the CPU its plain version. `MultiHeadAttention` sends
 full self-attention (no cache, Tq == Tk, a key-padding bias) through
 `ops.flash_attention.flash_attention` at every length likewise (the JAX
 package's `T >= 512` gate is a TPU tuning); other calls take the plain
-`scaled_dot_attention`. Both ask the JAX modules' shape gate first
-(`relpos_attention.kernel_takes`, a head dim that is a multiple of 8): a
-head dim it refuses goes to the plain version, as in the JAX package.
+`ops.flash_attention.reference_attention`. Both ask the JAX modules' shape
+gate first (`relpos_attention.kernel_takes`, a head dim that is a multiple
+of 8): a head dim it refuses goes to the plain version, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -24,15 +24,6 @@ from torch import nn
 from espnet_tpu_torch.models.layers import Dense
 from espnet_tpu_torch.ops import flash_attention as _flash
 from espnet_tpu_torch.ops import relpos_attention as _relpos
-
-
-def scaled_dot_attention(q, k, v, bias: Optional[torch.Tensor]):
-    """q, k, v: (B, H, T, Dk); bias broadcastable to (B, H, Tq, Tk)."""
-    scores = (q @ k.transpose(-1, -2)).float() / math.sqrt(q.shape[-1])
-    if bias is not None:
-        scores = scores + bias.float()
-    weights = torch.softmax(scores, dim=-1)
-    return weights.to(v.dtype) @ v
 
 
 class MultiHeadAttention(nn.Module):
@@ -84,7 +75,7 @@ class MultiHeadAttention(nn.Module):
                     else _flash.flash_attention_plain)
             x = attn(q.contiguous(), k.contiguous(), v.contiguous(), bias)
         else:
-            x = scaled_dot_attention(q, k, v, bias)
+            x = _flash.reference_attention(q, k, v, bias)
         b, h, t, dk = x.shape
         out = self.out_proj(x.transpose(1, 2).reshape(b, t, h * dk))
         if cache is not None:

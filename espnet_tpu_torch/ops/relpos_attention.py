@@ -20,10 +20,12 @@ first: the JAX module's (`dk % 8 == 0`, espnet_tpu/models/attention.py).
 The kernels are built for head dims 32, 64 and 128; a smaller head dim
 the gate passes is zero-padded to the next of them (the scores, and so
 the result, do not change; the scale stays 1/sqrt of the real head dim),
-and one past 128 raises on the card. Both compute in float32 and return
-q's dtype; in bf16 the kernels round q+u, q+v and, in the backward, the
-probabilities and dS to bf16 before their products, as the Pallas kernels
-do. The key bias is clamped at
+and one past 128 raises on the card. float32 runs on the CUDA cores, bf16
+on tensor cores (forward and backward); both sum in float32 and return q's
+dtype. In bf16 the kernels round q+u, q+v, in the forward the unnormalised
+probabilities before P·V and in the backward the probabilities and dS to
+bf16 before their products, as the Pallas kernels do; the plain version
+computes in float32 throughout. The key bias is clamped at
 NEG = finfo(f32).min/2, as the Pallas kernel pads with NEG: a query whose
 keys are all masked averages v uniformly instead of giving NaN.
 """
@@ -174,6 +176,8 @@ def _stream(x):
 
 def _kernel_fwd(q, k, v, p, u, vb, kb, scale: float, with_stats: bool):
     b, h, t, d = q.shape
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel's 16-byte copies
+        q, k, v, p = (aligned16(x) for x in (q, k, v, p))
     out = torch.empty_like(q)
     stats = (torch.empty(b, h, t, 2, dtype=torch.float32, device=q.device)
              if with_stats else None)

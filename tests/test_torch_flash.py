@@ -28,6 +28,13 @@ from espnet_tpu_torch.ops import relpos_attention as trel
 FWD_ATOL = 2e-5
 # gradients: relative L2 per tensor
 GRAD_REL_L2 = 1e-4
+# bf16 gradients against the Pallas VJP on the same bf16 inputs: both
+# differentiate `_reference_attention` in its rounding (a bf16 score
+# product, bf16 weights), so what is left is the order of the CPU's float32
+# sums inside each bf16 product and the rounding it feeds (2e-5 to 3e-5 at
+# this test's shape); a float32 recompute differentiates another function,
+# 5e-3 away
+BF16_GRAD_REL_L2 = 1e-3
 
 
 def _inputs(b, h, t, d, lengths, seed):
@@ -66,6 +73,54 @@ def test_flash_plain_matches_pallas_forward_and_gradients(t, lengths):
     for name, leaf, pg in zip("qkv", leaves, pal_grads):
         err = _rel_l2(leaf.grad.numpy(), np.asarray(pg))
         assert err <= GRAD_REL_L2, (name, err)
+
+
+@pytest.mark.parametrize("route", ["flash_attention", "flash_attention_plain"])
+def test_bf16_gradients_are_the_pallas_vjp(route):
+    """bf16 q, k, v and a float32 cotangent: dq, dk, dv of the CPU route
+    (`flash_attention`) and of the comparator route (`flash_attention_plain`,
+    which `MultiHeadAttention.use_kernel = False` takes) against `jax.grad`
+    of the Pallas `flash_attention` in interpret mode, whose custom VJP
+    differentiates `_reference_attention` in bf16. The forward stays float32
+    inside, as `_flash_kernel` is."""
+    q, k, v, bias = _inputs(2, 2, 520, 16, [520, 300], 520)
+    bf = jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(a).astype(bf) for a in (q, k, v))
+    ct = np.random.RandomState(11).randn(*q.shape).astype(np.float32)
+    pal_grads = jax.grad(
+        lambda q, k, v: jnp.sum(flash_attention(q, k, v, jnp.asarray(bias),
+                                                interpret=True)
+                                * jnp.asarray(ct)),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16).requires_grad_(True) for a in (jq, jk, jv)]
+    out = getattr(tflash, route)(*leaves, torch.from_numpy(bias))
+    assert out.dtype == torch.bfloat16
+    (out.float() * torch.from_numpy(ct)).sum().backward()
+    for name, leaf, pg in zip("qkv", leaves, pal_grads):
+        assert leaf.grad.dtype == torch.bfloat16
+        err = _rel_l2(leaf.grad.float().numpy(),
+                      np.asarray(pg.astype(jnp.float32)))
+        assert err <= BF16_GRAD_REL_L2, (name, err)
+
+
+def test_reference_attention_is_the_jax_reference_in_bf16():
+    """`reference_attention` keeps the input dtype as `_reference_attention`
+    does: a bf16 score product, a float32 softmax, bf16 weights."""
+    q, k, v, bias = _inputs(2, 2, 40, 16, [40, 23], 3)
+    bf = jnp.bfloat16
+    jargs = [jnp.asarray(a).astype(bf) for a in (q, k, v)]
+    want = np.asarray(_reference_attention(*jargs, jnp.asarray(bias))
+                      .astype(jnp.float32))
+    targs = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16) for a in jargs]
+    got = tflash.reference_attention(*targs, torch.from_numpy(bias))
+    assert got.dtype == torch.bfloat16
+    # one bf16 ulp of the output (|out| < 4: 2^-6) where the two round a
+    # value near a bf16 boundary differently
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2 ** -6,
+                               rtol=0)
+    assert _rel_l2(got.float().numpy(), want) <= 1e-3
 
 
 def test_all_masked_query_averages_v_as_the_reference():

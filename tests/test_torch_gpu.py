@@ -70,6 +70,34 @@ def test_relpos_kernel_matches_plain(cuda, dtype, t):
                                rtol=TOL[dtype])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 64, 128, 96])
+@pytest.mark.parametrize("t", [63, 64, 200, 374, 469])
+def test_relpos_bf16_forward_on_tensor_cores_matches_plain(cuda, t, d):
+    """The bf16 forward runs on tensor cores (`relpos_attention_fwd_tc_
+    kernel`) at every kernel head dim (96 zero-padded to 128), query blocks
+    that end past T and the serve (374) and training (469) lengths; one
+    utterance has every key masked (the uniform average of v). The plain
+    version computes in float32 throughout: the kernel's bf16 Qu, Qv and
+    P differ from it by bf16 rounding, within the bf16 tolerance."""
+    lengths = (t, max(1, t // 3), 0)
+    args = _relpos_args(cuda, torch.bfloat16, t=t, d=d, lengths=lengths)
+    before = trel.relpos_attention.launches
+    with torch.no_grad():
+        got = trel.relpos_attention(*args)
+    torch.cuda.synchronize()
+    assert trel.relpos_attention.launches == before + 1
+    want = trel.relpos_attention_plain(*args)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+    # the fully masked utterance: every row the mean of v over the T keys
+    mean_v = args[2][2].float().mean(dim=1, keepdim=True).expand(-1, t, -1)
+    torch.testing.assert_close(got[2].float(), mean_v, atol=2e-2, rtol=1e-2)
+
+
 # the bf16 forwards run on tensor cores: every width, the serve's rows
 # (1496), one row, rows past a 64-row block and the training rows, with and
 # without dropout, both activations
@@ -456,6 +484,27 @@ def test_flash_kernel_and_its_gradient_match_plain(cuda, dtype, t, d):
                                atol=TOL[dtype], rtol=TOL[dtype])
     for name, g, w in zip("qkv", got, want):
         _assert_grad_close(name, g, w, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,d", [(200, 64), (469, 64), (65, 32), (63, 128),
+                                 (200, 96)])
+def test_flash_bf16_gradient_is_the_reference_vjp(cuda, t, d):
+    """In bf16 the kernel route's backward recomputes through
+    `reference_attention` (a bf16 score product, bf16 weights), as the JAX
+    custom VJP does: its dq, dk, dv against autograd through
+    `reference_attention` itself, on the same inputs and cotangent."""
+    args = _flash_args(cuda, torch.bfloat16, t=t, d=d,
+                       lengths=(t, max(1, t // 3), 0))
+    gout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
+        t + d)).to(cuda, torch.bfloat16)
+    _, got = _grads(tflash.flash_attention, args, range(3), gout)
+    _, want = _grads(lambda q, k, v, bias: tflash.reference_attention(
+        q, k, v, bias.clamp(min=trel.NEG)), args, range(3), gout)
+    torch.cuda.synchronize()
+    for name, g, w in zip("qkv", got, want):
+        assert torch.isfinite(g.float()).all(), name
+        _assert_grad_close(name, g, w, torch.bfloat16)
 
 
 @pytest.mark.gpu
