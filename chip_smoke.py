@@ -14,11 +14,12 @@ the elapsed seconds, and raising on failure (exit code other than 0):
 3. kernels: each kernel against its plain PyTorch version, timed with CUDA
    events beside the plain version, the bound (the larger of operations
    over peak and bytes over 3.35 TB/s) and, where one PyTorch call computes
-   the same function, that call (in bf16 the flash forward, the rel-pos
-   forward and backward, the FFN forwards and backward pairs and the whole
-   conv module's forward and backward kernels run on tensor cores, float32
-   on the CUDA cores, so the float32 checks hold the parity mode; each line
-   names the design that ran):
+   the same function, that call; each line also gives the kernel call's
+   device time from torch.profiler (its kernels' sum), which the events
+   exceed where the Python wrapper, not the card, sets the pace (in bf16
+   every kernel but the CTC pair runs on tensor cores, float32 on the
+   CUDA cores, so the float32 checks hold the parity mode; each line names
+   the design that ran):
    the forward kernels at the serve
    phase's shapes and the bench's decode geometry (B=8, T=469 / M=3000),
    then all fifteen kernel entry points at the training shapes (rel-pos
@@ -155,6 +156,20 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 10):
+    """Device time of one call of fn: the sum over the kernels it launches
+    (torch.profiler), or None where the profiler records none."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages())
+    return total / 1e3 / iters if total > 0 else None
+
+
 def compare(torch, name, dtype_name, got, want):
     atol, rtol = TOLERANCE[dtype_name]
     got, want = got.float(), want.float()
@@ -213,8 +228,9 @@ def bound(flops, nbytes, peak_flops):
 # other kernel, and every float32 one, runs on the CUDA cores
 TENSOR_CORE_BF16 = {"relpos_attention", "relpos_attention_bwd",
                     "prenorm_ffn", "prenorm_ffn_bwd", "fused_ffn",
-                    "fused_ffn_bwd", "flash_attention", "conv_module",
-                    "conv_module_bwd"}
+                    "fused_ffn_bwd", "flash_attention", "prenorm_glu",
+                    "prenorm_glu_bwd", "postnorm_proj", "postnorm_proj_bwd",
+                    "conv_module", "conv_module_bwd"}
 # checked and timed like a kernel, but PyTorch operators, not a kernel
 RECOMPUTE = {"flash_attention_bwd"}
 
@@ -228,10 +244,11 @@ def design(name, dtype_name):
 
 
 def report(name, label, dtype_name, how, ok, ms, plain_ms, bound_ms,
-           bound_by, max_err, library_ms=None):
+           bound_by, max_err, library_ms=None, dev_ms=None):
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    dev = "" if dev_ms is None else f" (device {dev_ms:.4f} ms)"
     log("kernels", f"{name} {label} {dtype_name} "
-        f"[{design(name, dtype_name)}]: {how}; kernel {ms:.4f} ms, "
+        f"[{design(name, dtype_name)}]: {how}; kernel {ms:.4f} ms{dev}, "
         f"plain {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by})"
         f"{'' if ok else '  <-- OUT OF TOLERANCE'}")
     if not ok:
@@ -251,9 +268,10 @@ def check_kernel(torch, name, kernel, plain, args, flops, nbytes, dtype_name,
     max_err, ok, how = compare(torch, name, dtype_name, got, want)
     ms = time_ms(torch, lambda: kernel(*args, **kwargs), iters)
     plain_ms = time_ms(torch, lambda: plain(*args, **kwargs), iters)
+    dev = device_ms(torch, lambda: kernel(*args, **kwargs))
     bound_ms, bound_by = bound(flops, nbytes, PEAK_FLOPS[dtype_name])
     return report(name, label, dtype_name, how, ok, ms, plain_ms, bound_ms,
-                  bound_by, max_err)
+                  bound_by, max_err, dev_ms=dev)
 
 
 def check_grads(torch, name, dtype_name, label, kernel, plain, args, n_diff,
@@ -286,9 +304,10 @@ def check_grads(torch, name, dtype_name, label, kernel, plain, args, n_diff,
            f"{max_err:.3e}")
     ms = time_ms(torch, lambda: grads(out_k, in_k), iters)
     plain_ms = time_ms(torch, lambda: grads(out_p, in_p), iters)
+    dev = device_ms(torch, lambda: grads(out_k, in_k))
     bound_ms, bound_by = bound(flops, nbytes, PEAK_FLOPS[dtype_name])
     return report(name, label, dtype_name, how, worst <= limit, ms, plain_ms,
-                  bound_ms, bound_by, max_err)
+                  bound_ms, bound_by, max_err, dev_ms=dev)
 
 
 def flash_case(torch, b, t, dtype, lengths, seed, h=4, d=64):

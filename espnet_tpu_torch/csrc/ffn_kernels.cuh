@@ -12,8 +12,9 @@
 //
 // Its device pieces -- `ln_row` / `layer_norm_rows`, `tile_product`, the
 // hash (`tile_stream`, `keep_counter`), `ln_bwd_row`, `store_block_sums`
-// -- and the weight-gradient kernel `atb_kernel` also build the conformer
-// conv kernels (conv_glu.cu, conv_module.cu).
+// -- and the weight-gradient kernels, `atb_kernel` on the CUDA cores for
+// float32 and `atb_tc_kernel` on the tensor cores for bf16, also build the
+// conformer conv kernels (conv_glu.cu, conv_module.cu).
 //
 // Dropout is the Pallas kernels' counter hash (`_keep_mask`), bit for bit:
 // element (row g, column c) of a tensor of width C belongs to the logical
@@ -1585,6 +1586,20 @@ int set_smem(Kernel kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
+// out (groups, K, N) float32: the sums of A^T B over groups of
+// rows_per_group rows, on tensor cores (`atb_tc_kernel`; A, B bf16, 16-byte
+// aligned; K, N multiples of TC_TILE).
+inline int launch_atb_tc(const bf16* a, const bf16* b, float* out, int M,
+                         int K, int N, int groups, int rows_per_group,
+                         cudaStream_t stream) {
+  auto kernel = atb_tc_kernel<bf16>;
+  constexpr size_t smem = atb_tc_smem_bytes();
+  if (int err = set_smem(kernel, smem)) return err;
+  kernel<<<dim3(N / TC_TILE, K / TC_TILE, groups), THREADS, smem, stream>>>(
+      a, b, out, M, K, N, rows_per_group);
+  return static_cast<int>(cudaGetLastError());
+}
+
 struct Drop {
   int q;
   float scale;
@@ -1680,18 +1695,14 @@ int launch_bwd_tc(const void* x, const float* ln_scale, const float* ln_bias,
       static_cast<bf16*>(a_buf), static_cast<bf16*>(dh_buf), partial, db1p, M,
       F, res_scale, act, dr.q, dr.scale, dr.seed0, dr.seed1);
   if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  auto k2 = atb_tc_kernel<bf16>;
-  const size_t smem2 = atb_tc_smem_bytes();
-  if (int err = set_smem(k2, smem2)) return err;
   const bf16* xa = static_cast<const bf16*>(LN ? xn_buf : x);
   const bf16* dzb = static_cast<const bf16*>(LN ? dz_buf : gy);
   // dW1 = LN(x)^T dh: (D, F); dW2 = a^T dz: (F, D)
-  k2<<<dim3(F / TC_TILE, D / TC_TILE, groups), THREADS, smem2, stream>>>(
-      xa, static_cast<const bf16*>(dh_buf), dw1p, M, D, F, rows_per_group);
-  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  k2<<<dim3(D / TC_TILE, F / TC_TILE, groups), THREADS, smem2, stream>>>(
-      static_cast<const bf16*>(a_buf), dzb, dw2p, M, F, D, rows_per_group);
-  return static_cast<int>(cudaGetLastError());
+  if (int err = launch_atb_tc(xa, static_cast<const bf16*>(dh_buf), dw1p, M,
+                              D, F, groups, rows_per_group, stream))
+    return err;
+  return launch_atb_tc(static_cast<const bf16*>(a_buf), dzb, dw2p, M, F, D,
+                       groups, rows_per_group, stream);
 }
 
 bool options_ok(int M, int F, int act, int q) {

@@ -24,20 +24,82 @@ the tail passes dy straight through to x_res. Callers apply the shape gate
 `ffn_common.kernel_takes(D, D)` first (the JAX gate `_ffn_tileable(x, d, d,
 256)` less its row count): D a multiple of 128, which the kernels take up to
 512.
+
+Two designs, picked by dtype in the C library. float32, the parity mode,
+runs float32 FMAs on the CUDA cores. bf16 runs its products on tensor cores
+(mma.sync with float32 sums; the rounding points above are the operands'):
+a row kernel per forward, and per backward a row kernel followed by the
+tensor-core A^T B kernel for the weight gradient. bf16 inputs pass through
+`aligned16`, as the kernels copy 16-byte chunks. The backward's grid is
+Python (`bwd_layout`): row blocks of 32 rows (float32) or
+`TC_ROWS_PER_BLOCK[D]` (bf16), whose per-block partial sums are added
+here, and the weight gradient's row groups (`wgrad_groups`;
+`wgrad_split` in bf16). On the card the wrapper checks that the C
+library's rows per block agree with `rows_per_block`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from espnet_tpu_torch.ops.cuda_build import check_launch, kernel_library
-from espnet_tpu_torch.ops.ffn_common import (DTYPE_CODES, check_args,
-                                             check_kernel_dims, drop_args,
-                                             keep_mask, layer_norm,
+from espnet_tpu_torch.ops.ffn_common import (DTYPE_CODES, FP32_ROWS_PER_BLOCK,
+                                             TC_ROWS_PER_BLOCK, aligned16,
+                                             check_args, check_kernel_dims,
+                                             drop_args, keep_mask, layer_norm,
                                              quantize_rate, stream,
-                                             wgrad_groups)
+                                             wgrad_groups, wgrad_split)
+
+
+class GluLayout(NamedTuple):
+    row_blocks: int      # blocks of the row kernel: rows of `partial`
+    groups: int          # row groups of the weight gradient's partial sums
+    rows_per_group: int  # group g sums rows [g, g + 1) * rows_per_group
+
+
+def rows_per_block(d: int, dtype: torch.dtype) -> int:
+    """Rows a block of the backward's row kernel owns at width d: 32 in
+    float32 (csrc `BM`), `TC_ROWS_PER_BLOCK[d]` in bf16 (csrc `TcGlu`)."""
+    if dtype == torch.bfloat16:
+        return TC_ROWS_PER_BLOCK[d]
+    return FP32_ROWS_PER_BLOCK
+
+
+def bwd_layout(m: int, d: int, n: int, dtype: torch.dtype) -> GluLayout:
+    """The backward's grid for m rows of width d whose weight gradient has
+    n columns (2d for the head's W1, d for the tail's W2): the row blocks
+    of `rows_per_block`, and the row groups of the A^T B kernel
+    (`wgrad_split` on the tensor cores in bf16, `wgrad_groups` in
+    float32)."""
+    blocks = -(-m // rows_per_block(d, dtype))
+    if dtype == torch.bfloat16:
+        return GluLayout(blocks, *wgrad_split(m, d, n))
+    groups = wgrad_groups(m, d, n)
+    return GluLayout(blocks, groups, -(-m // groups))
+
+
+@functools.lru_cache(maxsize=None)
+def _check_rows_per_block(d: int, dtype: torch.dtype) -> None:
+    """Raise unless the C library's rows per block at (d, dtype) are
+    `rows_per_block`'s: partials sized for another block height would sum
+    rows that no block wrote."""
+    want = rows_per_block(d, dtype)
+    got = kernel_library().espnet_conv_glu_rows_per_block(d,
+                                                          DTYPE_CODES[dtype])
+    if got != want:
+        raise RuntimeError(f"conv_glu: the kernels own {got} rows a block "
+                           f"at D={d} {dtype}, rows_per_block {want}")
+
+
+def _aligned(*ts):
+    """bf16 tensors at 16-byte aligned addresses (the tensor-core kernels
+    copy 16-byte chunks); float32 ones as they are."""
+    if ts[0].dtype != torch.bfloat16:
+        return ts
+    return tuple(aligned16(t) for t in ts)
 
 
 def prenorm_glu_plain(x, ln_scale, ln_bias, w1, b1):
@@ -81,6 +143,7 @@ def _f32(n, device, *shape):
 
 def _head_fwd(x2, ln_scale, ln_bias, w1, b1):
     m, d = x2.shape
+    x2, w1 = _aligned(x2, w1)
     g = torch.empty_like(x2)
     code = kernel_library().espnet_conv_glu_fwd(
         x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
@@ -98,21 +161,21 @@ def prenorm_glu_bwd(x2, ln_scale, ln_bias, w1, b1, dg):
     if x2.device.type != "cuda":
         raise ValueError(f"prenorm_glu_bwd: unsupported device {x2.device}")
     m, d = x2.shape
-    dg = dg.to(x2.dtype).contiguous()
-    lib = kernel_library()
-    n_blocks = -(-m // lib.espnet_conv_glu_rows_per_block())
-    groups = wgrad_groups(m, d, 2 * d)
+    x2, w1, dg = _aligned(x2, w1, dg.to(x2.dtype).contiguous())
+    _check_rows_per_block(d, x2.dtype)
+    lay = bwd_layout(m, d, 2 * d, x2.dtype)
     dev = x2.device
     dx = torch.empty_like(x2)
     xn_buf = torch.empty_like(x2)
     dh_buf = torch.empty(m, 2 * d, dtype=x2.dtype, device=dev)
-    partial = _f32(n_blocks, dev, 4, d)  # dLN scale, dLN bias, db1 (2D)
-    dw1p = _f32(groups, dev, d, 2 * d)
-    code = lib.espnet_conv_glu_bwd(
+    partial = _f32(lay.row_blocks, dev, 4, d)  # dLN scale, bias, db1 (2D)
+    dw1p = _f32(lay.groups, dev, d, 2 * d)
+    code = kernel_library().espnet_conv_glu_bwd(
         x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), dg.data_ptr(), dx.data_ptr(),
         xn_buf.data_ptr(), dh_buf.data_ptr(), partial.data_ptr(),
-        dw1p.data_ptr(), m, d, groups, DTYPE_CODES[x2.dtype], stream(x2))
+        dw1p.data_ptr(), m, d, lay.groups, lay.rows_per_group,
+        DTYPE_CODES[x2.dtype], stream(x2))
     check_launch("prenorm_glu_bwd", code)
     prenorm_glu_bwd.launches += 1
     sums = partial.sum(dim=0)
@@ -155,6 +218,7 @@ def prenorm_glu(x, ln_scale, ln_bias, w1, b1):
 
 def _tail_fwd(g2, xr2, ln_scale, ln_bias, w2, b2, q, seed):
     m, d = g2.shape
+    g2, xr2, w2 = _aligned(g2, xr2, w2)
     y = torch.empty_like(g2)
     q, dscale, s0, _ = drop_args(q, None if seed is None else (seed,))
     code = kernel_library().espnet_conv_tail_fwd(
@@ -174,22 +238,22 @@ def postnorm_proj_bwd(g2, ln_scale, ln_bias, w2, dy, q, seed):
         raise ValueError(f"postnorm_proj_bwd: unsupported device "
                          f"{g2.device}")
     m, d = g2.shape
-    dy = dy.to(g2.dtype).contiguous()
-    lib = kernel_library()
-    n_blocks = -(-m // lib.espnet_conv_glu_rows_per_block())
-    groups = wgrad_groups(m, d, d)
+    g2, w2, dy = _aligned(g2, w2, dy.to(g2.dtype).contiguous())
+    _check_rows_per_block(d, g2.dtype)
+    lay = bwd_layout(m, d, d, g2.dtype)
     dev = g2.device
     dg = torch.empty_like(g2)
     a_buf = torch.empty_like(g2)
     dz_buf = torch.empty_like(g2)
-    partial = _f32(n_blocks, dev, 3, d)  # dLN scale, dLN bias, db2
-    dw2p = _f32(groups, dev, d, d)
+    partial = _f32(lay.row_blocks, dev, 3, d)  # dLN scale, dLN bias, db2
+    dw2p = _f32(lay.groups, dev, d, d)
     q, dscale, s0, _ = drop_args(q, None if seed is None else (seed,))
-    code = lib.espnet_conv_tail_bwd(
+    code = kernel_library().espnet_conv_tail_bwd(
         g2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
         w2.data_ptr(), dy.data_ptr(), dg.data_ptr(), a_buf.data_ptr(),
-        dz_buf.data_ptr(), partial.data_ptr(), dw2p.data_ptr(), m, d, groups,
-        q, dscale, s0, DTYPE_CODES[g2.dtype], stream(g2))
+        dz_buf.data_ptr(), partial.data_ptr(), dw2p.data_ptr(), m, d,
+        lay.groups, lay.rows_per_group, q, dscale, s0,
+        DTYPE_CODES[g2.dtype], stream(g2))
     check_launch("postnorm_proj_bwd", code)
     postnorm_proj_bwd.launches += 1
     sums = partial.sum(dim=0)

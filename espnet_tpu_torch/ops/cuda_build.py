@@ -52,10 +52,10 @@ _SIGNATURES = {
     "espnet_ctc_gamma": (_P,) * 6 + (_I,) * 3 + (_P,),
     "espnet_ctc_max_states": (),
     "espnet_conv_glu_fwd": (_P,) * 6 + (_I,) * 3 + (_P,),
-    "espnet_conv_glu_bwd": (_P,) * 11 + (_I,) * 4 + (_P,),
+    "espnet_conv_glu_bwd": (_P,) * 11 + (_I,) * 5 + (_P,),
     "espnet_conv_tail_fwd": (_P,) * 7 + (_I,) * 3 + (_F, _I, _I, _P),
-    "espnet_conv_tail_bwd": (_P,) * 10 + (_I,) * 4 + (_F, _I, _I, _P),
-    "espnet_conv_glu_rows_per_block": (),
+    "espnet_conv_tail_bwd": (_P,) * 10 + (_I,) * 5 + (_F, _I, _I, _P),
+    "espnet_conv_glu_rows_per_block": (_I, _I),
     "espnet_conv_module_fwd": (_P,) * 13 + (_I,) * 5 + (_F, _I, _I, _P),
     "espnet_conv_module_bwd": (_P,) * 24 + (_I,) * 9 + (_F, _I, _I, _P),
     "espnet_conv_module_tile_rows": (_I, _I),

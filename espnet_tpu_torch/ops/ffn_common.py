@@ -3,8 +3,9 @@ come from one templated source (`csrc/ffn_kernels.cuh`), so they take the
 same shapes, the same dropout arguments and the same backward grid, and
 their dropout is one counter hash. The conv ops (`ops.conv_glu`,
 `ops.conv_module`) build their kernels from the same header's pieces and
-share the hash, the LayerNorm, the argument checks and the grid of its
-weight-gradient kernel (`wgrad_groups`).
+share the hash, the LayerNorm, the argument checks, the bf16 row blocks
+(`TC_ROWS_PER_BLOCK`) and the grids of its weight-gradient kernels
+(`wgrad_groups` in float32, `wgrad_split` on the tensor cores).
 
 `kernel_takes` is the shape gate: the JAX package's (`_ffn_tileable`,
 espnet_tpu/models/transformer.py), d_model and d_ff multiples of 128,

@@ -606,10 +606,16 @@ def _glu_args(device, dtype, m, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,d,drop", [(333, 256, 0.0), (300, 256, 0.1),
                                       (300, 128, 0.1), (97, 384, 0.1),
-                                      (300, 512, 0.1)])
+                                      (300, 512, 0.1),
+                                      # the bf16 row blocks' edges: 64 rows
+                                      # at D <= 256, 32 above
+                                      (1, 256, 0.1), (65, 128, 0.1),
+                                      (641, 256, 0.1), (1, 512, 0.0),
+                                      (65, 384, 0.1), (641, 512, 0.1)])
 def test_conv_head_and_tail_kernels_match_plain(cuda, dtype, m, d, drop):
     """The split route's head (`prenorm_glu`) and tail (`postnorm_proj`,
-    hash dropout over 256-row tiles), forward and backward."""
+    hash dropout over 256-row tiles), forward and backward; M = 1, 65 and
+    64·10 + 1 cut the bf16 row blocks."""
     x, xr, lns, lnb, w1, b1, w2, b2 = _glu_args(cuda, dtype, m, d)
     gout = torch.randn(m, d, generator=torch.Generator().manual_seed(m)
                        ).to(cuda, dtype)
@@ -637,6 +643,49 @@ def test_conv_head_and_tail_kernels_match_plain(cuda, dtype, m, d, drop):
         _assert_grad_close("head " + name, g, w, dtype)
     for name, g, w in zip("g x_res lns lnb w2 b2".split(), got_tg, want_tg):
         _assert_grad_close("tail " + name, g, w, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [256, 512])
+def test_conv_tail_dropout_is_the_keep_mask_across_blocks(cuda, d):
+    """bf16, M = 600 rows (blocks of 64 or 32 rows, 256-row hash tiles):
+    with x_res = 0 and b2 = 0, y is 0 exactly where `keep_mask` drops and
+    nonzero where it keeps; with dy = 1 the backward's regenerated mask
+    gives db2 = the kept count of each column times the keep scale."""
+    m, seed, rate = 600, -4242, 0.1
+    _, _, lns, lnb, _, _, w2, _ = _glu_args(cuda, torch.bfloat16, m, d)
+    g = torch.randn(m, d, generator=torch.Generator().manual_seed(3)
+                    ).to(cuda, torch.bfloat16).requires_grad_(True)
+    b2 = torch.zeros(d, device=cuda, requires_grad=True)
+    xr = torch.zeros(m, d, device=cuda, dtype=torch.bfloat16)
+    y = tglu.postnorm_proj(g, xr, lns, lnb, w2, b2, seed=seed,
+                           drop_rate=rate)
+    y.backward(torch.ones_like(y))
+    q = ffn_common.quantize_rate(rate)
+    keep = ffn_common.keep_mask(m, d, seed, q, cuda)
+    assert 0.05 < 1 - keep.float().mean() < 0.15
+    assert torch.equal(y != 0, keep)
+    # float32 sums of up to 600 equal terms in another order; one kept
+    # element more or less moves a column's sum by 1/540
+    torch.testing.assert_close(
+        b2.grad, keep.float().sum(dim=0) * (256.0 / (256 - q)), atol=0,
+        rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_glu_layout_matches_the_kernels(cuda, dtype):
+    """The C library's rows per block of the head's and tail's backward row
+    kernels are `rows_per_block`'s at every D the kernels take."""
+    from espnet_tpu_torch.ops.cuda_build import kernel_library
+
+    lib = kernel_library()
+    for d in ffn_common.KERNEL_MODEL_DIMS:
+        rows = lib.espnet_conv_glu_rows_per_block(
+            d, ffn_common.DTYPE_CODES[dtype])
+        assert rows == tglu.rows_per_block(d, dtype), (d, rows)
+        assert tglu.bwd_layout(4097, d, d, dtype).row_blocks == -(-4097
+                                                                 // rows)
 
 
 def _module_args(device, dtype, lengths, t, d, k):
