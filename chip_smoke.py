@@ -31,8 +31,11 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    torch.nn.functional.scaled_dot_product_attention as a yardstick, and in
    bf16 its backward, a PyTorch recompute through `reference_attention`
    (no kernel), against autograd through that function; the CTC
-   lattice pair at B=64, T=469, S=81, with torch.nn.functional.ctc_loss as
-   a second oracle and yardstick; the conv sub-block's head and tail (split
+   lattice pair at B=64, T=469, S=81 (the warp-per-utterance kernels),
+   with torch.nn.functional.ctc_loss as a second oracle and yardstick, and
+   at S=4096 (the block-per-utterance kernels), then the device time of the
+   whole CTC loss (`ctc_loss_from_logits`, bf16 logits, V=5000) forward
+   and backward beside the pair's; the conv sub-block's head and tail (split
    route) at M=64*469, D=256 with dropout 0.1 and the whole-module kernel
    at B=64, T=469, D=256, k=31 over ragged utterances of 1 to 469 frames,
    and at D=144, each forward and backward, beside the plain route's
@@ -235,20 +238,26 @@ TENSOR_CORE_BF16 = {"relpos_attention", "relpos_attention_bwd",
 RECOMPUTE = {"flash_attention_bwd"}
 
 
-def design(name, dtype_name):
-    """Which cores the kernel `name` ran on in `dtype_name`."""
+def design(name, dtype_name, states=None):
+    """Which cores the kernel `name` ran on in `dtype_name` (the CTC pair:
+    and which of its designs, by the lattice's `states`)."""
     if name in RECOMPUTE:
         return "PyTorch recompute, no kernel"
+    if states is not None:
+        from espnet_tpu_torch.ops.ctc_lattice import design as ctc_design
+
+        return f"CUDA cores, {ctc_design(states)}"
     tc = dtype_name == "bfloat16" and name in TENSOR_CORE_BF16
     return "tensor cores" if tc else "CUDA cores"
 
 
 def report(name, label, dtype_name, how, ok, ms, plain_ms, bound_ms,
-           bound_by, max_err, library_ms=None, dev_ms=None):
+           bound_by, max_err, library_ms=None, dev_ms=None, states=None):
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
     dev = "" if dev_ms is None else f" (device {dev_ms:.4f} ms)"
     log("kernels", f"{name} {label} {dtype_name} "
-        f"[{design(name, dtype_name)}]: {how}; kernel {ms:.4f} ms{dev}, "
+        f"[{design(name, dtype_name, states)}]: {how}; "
+        f"kernel {ms:.4f} ms{dev}, "
         f"plain {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by})"
         f"{'' if ok else '  <-- OUT OF TOLERANCE'}")
     if not ok:
@@ -256,7 +265,7 @@ def report(name, label, dtype_name, how, ok, ms, plain_ms, bound_ms,
                              f"its plain version: {how}")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "dev_ms": dev_ms}
 
 
 def check_kernel(torch, name, kernel, plain, args, flops, nbytes, dtype_name,
@@ -551,19 +560,74 @@ def check_conv_shapes_raise(torch):
             raise AssertionError(f"{name} ran; the kernels do not take it")
 
 
-def ctc_case(torch, np, b, t, u, v, seed):
+def ctc_case(torch, np, b, t, u, v, seed, s=None):
     """Logits (B, T, V) float32, labels (B, U) and lengths on the card, with
-    the lattice inputs the loss builds from them."""
+    the lattice inputs the loss builds from them; `s` cuts the lattice to
+    its first s states (labels no longer than (s - 1) / 2)."""
     from espnet_tpu_torch.ops import ctc as tctc
 
     rng = np.random.RandomState(seed)
     logits = torch.from_numpy(rng.randn(b, t, v).astype(np.float32)).cuda()
     labels = torch.from_numpy(rng.randint(1, v - 1, (b, u))).cuda()
     in_lens = torch.tensor([t - (i % 7) * 9 for i in range(b)]).cuda()
-    lab_lens = torch.tensor([u - (i % 5) for i in range(b)]).cuda()
-    ext = tctc.extended_labels(labels)
+    top = u if s is None else min(u, (s - 1) // 2)
+    lab_lens = torch.tensor([top - (i % 5) for i in range(b)]).cuda()
+    ext = tctc.extended_labels(labels)[:, :s]
     emit = tctc._emissions(logits, ext, torch.logsumexp(logits, -1))
     return logits, labels, in_lens, lab_lens, emit, tctc.transition_mask(ext)
+
+
+def check_ctc_pair(torch, emit, skip, in_lens, lab_lens, label,
+                   library_ms=(None, None), plain_iters=3):
+    """ctc_alphas and ctc_gamma against their plain versions on one lattice
+    (float32, CTC_TOLERANCE), each timed with CUDA events and by its device
+    time. Returns the two kernels' results by name."""
+    from espnet_tpu_torch.ops import ctc_lattice as tlat
+
+    t, b, s = emit.shape
+    live = float(in_lens.clamp(0, t).sum()) * s  # frames past a length freeze
+    atol, rtol = CTC_TOLERANCE
+
+    def ctc_compare(got, want):
+        err = (got - want).abs()
+        max_err = float(err[torch.isfinite(err)].max())
+        ok = bool(torch.isfinite(got).all()) and float(
+            (err - rtol * want.abs()).max()) <= atol
+        return max_err, ok, (f"max |err| {max_err:.3e} (atol {atol}, rtol "
+                             f"{rtol})")
+
+    alphas, last = tlat.ctc_alphas(emit, skip, in_lens)
+    pa, pl = tlat.ctc_alphas_plain(emit, skip, in_lens)
+    gamma = tlat.ctc_gamma(emit, skip, in_lens, lab_lens, alphas)
+    pg = tlat.ctc_gamma_plain(emit, skip, in_lens, lab_lens, pa)
+    torch.cuda.synchronize()
+    out = {}
+    a_err, a_ok, a_how = ctc_compare(alphas, pa)
+    a_err2, a_ok2, _ = ctc_compare(last, pl)
+    call = lambda: tlat.ctc_alphas(emit, skip, in_lens)  # noqa: E731
+    # bytes: emit read, alphas written, the skip mask, lengths, last
+    bound_ms, bound_by = bound(CTC_OPS_PER_STATE * live, 2 * t * b * s * 4
+                               + b * s + b * 8 + b * s * 4,
+                               PEAK_FLOPS["float32"])
+    out["ctc_alphas"] = report(
+        "ctc_alphas", label, "float32", a_how, a_ok and a_ok2,
+        time_ms(torch, call, 10), time_ms(torch, lambda: tlat.ctc_alphas_plain(
+            emit, skip, in_lens), plain_iters),
+        bound_ms, bound_by, max(a_err, a_err2), library_ms[0],
+        dev_ms=device_ms(torch, call), states=s)
+    g_err, g_ok, g_how = ctc_compare(gamma, pg)
+    call = lambda: tlat.ctc_gamma(emit, skip, in_lens, lab_lens,  # noqa: E731
+                                  alphas)
+    # bytes: emit and alphas read, gamma written, the mask, both lengths
+    bound_ms, bound_by = bound(CTC_OPS_PER_STATE * live, 3 * t * b * s * 4
+                               + b * s + b * 16, PEAK_FLOPS["float32"])
+    out["ctc_gamma"] = report(
+        "ctc_gamma", label, "float32", g_how, g_ok, time_ms(torch, call, 10),
+        time_ms(torch, lambda: tlat.ctc_gamma_plain(
+            emit, skip, in_lens, lab_lens, alphas), plain_iters),
+        bound_ms, bound_by, g_err, library_ms[1],
+        dev_ms=device_ms(torch, call), states=s)
+    return out
 
 
 def phase_train_kernels(torch, np):
@@ -681,27 +745,13 @@ def phase_train_kernels(torch, np):
                 f"backward {step_ms:.4f} ms")
     check_conv_shapes_raise(torch)
 
-    # the CTC lattice pair, float32, S = 2*40+1
+    # the CTC lattice pair, float32, S = 2*40+1 (the warp-per-utterance
+    # route), with torch's own CTC as a yardstick
     u, v = TRAIN_LABELS, 5000
     logits, labels, in_lens, lab_lens, emit, skip = ctc_case(
         torch, np, b, t, u, v, 6)
     s = 2 * u + 1
     label = f"train B={b} T={t} S={s}"
-    live = float(in_lens.sum()) * s  # frames past a length are frozen
-    atol, rtol = CTC_TOLERANCE
-
-    def ctc_compare(name, got, want):
-        err = (got - want).abs()
-        max_err = float(err[torch.isfinite(err)].max())
-        ok = bool(torch.isfinite(got).all()) and float(
-            (err - rtol * want.abs()).max()) <= atol
-        return max_err, ok, f"max |err| {max_err:.3e} (atol {atol}, rtol {rtol})"
-
-    alphas, last = tlat.ctc_alphas(emit, skip, in_lens)
-    pa, pl = tlat.ctc_alphas_plain(emit, skip, in_lens)
-    gamma = tlat.ctc_gamma(emit, skip, in_lens, lab_lens, alphas)
-    pg = tlat.ctc_gamma_plain(emit, skip, in_lens, lab_lens, pa)
-    torch.cuda.synchronize()
     lp = torch.log_softmax(logits, -1).transpose(0, 1).detach() \
         .requires_grad_(True)
     lib_loss = F.ctc_loss(lp, labels, in_lens, lab_lens, blank=0,
@@ -711,27 +761,37 @@ def phase_train_kernels(torch, np):
         zero_infinity=True), 10)
     lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
         lib_loss, lp, retain_graph=True), 10)
-    ab, gb = s * b, s * b  # bytes of the (B, S) skip mask and terminal set
-    a_err, a_ok, a_how = ctc_compare("ctc_alphas", alphas, pa)
-    a_err2, a_ok2, _ = ctc_compare("ctc_alphas", last, pl)
-    ms = time_ms(torch, lambda: tlat.ctc_alphas(emit, skip, in_lens), 10)
-    plain_ms = time_ms(torch, lambda: tlat.ctc_alphas_plain(
-        emit, skip, in_lens), 3)
-    bound_ms, bound_by = bound(CTC_OPS_PER_STATE * live, 2 * t * b * s * 4
-                               + ab + b * 8 + b * s * 4, PEAK_FLOPS["float32"])
-    main["ctc_alphas"] = report(
-        "ctc_alphas", label, "float32", a_how, a_ok and a_ok2, ms, plain_ms,
-        bound_ms, bound_by, max(a_err, a_err2), lib_fwd_ms)
-    g_err, g_ok, g_how = ctc_compare("ctc_gamma", gamma, pg)
-    ms = time_ms(torch, lambda: tlat.ctc_gamma(emit, skip, in_lens, lab_lens,
-                                               alphas), 10)
-    plain_ms = time_ms(torch, lambda: tlat.ctc_gamma_plain(
-        emit, skip, in_lens, lab_lens, alphas), 3)
-    bound_ms, bound_by = bound(CTC_OPS_PER_STATE * live, 3 * t * b * s * 4
-                               + gb + b * 16, PEAK_FLOPS["float32"])
-    main["ctc_gamma"] = report(
-        "ctc_gamma", label, "float32", g_how, g_ok, ms, plain_ms, bound_ms,
-        bound_by, g_err, lib_bwd_ms)
+    pair = check_ctc_pair(torch, emit, skip, in_lens, lab_lens, label,
+                          (lib_fwd_ms, lib_bwd_ms))
+    main.update(pair)
+    # the block-per-utterance route at the kernels' largest S
+    big = tlat.max_states()
+    _, _, b_in, b_lab, b_emit, b_skip = ctc_case(torch, np, b, t, big // 2,
+                                                 v, 16, s=big)
+    check_ctc_pair(torch, b_emit, b_skip, b_in, b_lab,
+                   f"train B={b} T={t} S={big}")
+    del b_emit, b_skip
+
+    # the whole CTC loss around the pair at the bench shape, bf16 logits:
+    # the V-wide log-sum-exp, gather, softmax and scatter around the lattice
+    xb = logits.bfloat16().requires_grad_(True)
+
+    def loss_fwd():
+        return tctc.ctc_loss(xb, labels, in_lens, lab_lens, reduction="sum")
+
+    def loss_fwd_bwd():
+        torch.autograd.grad(loss_fwd(), xb)
+
+    with torch.no_grad():
+        fwd_dev = device_ms(torch, loss_fwd)
+    step_dev = device_ms(torch, loss_fwd_bwd)
+    step_ms = time_ms(torch, loss_fwd_bwd, 10)
+    lattice_dev = sum(pair[k]["dev_ms"] or 0.0 for k in pair)
+    log("kernels", f"ctc_loss_from_logits {label} V={v} bfloat16 logits: "
+        f"forward and backward {step_ms:.4f} ms (device {step_dev:.4f} ms; "
+        f"forward alone {fwd_dev:.4f} ms), of which the lattice pair "
+        f"{lattice_dev:.4f} ms of device time")
+    del xb
 
     # torch's own CTC as a second oracle for the loss and its gradient
     x = logits.clone().requires_grad_(True)

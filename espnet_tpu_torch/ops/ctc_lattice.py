@@ -13,11 +13,29 @@ loop over frames, with the Pallas kernels' conventions:
   and is NEG_INF past the length; gamma = alpha + beta - emit.
 
 `ctc_alphas` and `ctc_gamma` are the entry points: a CPU tensor takes the
-plain version, a CUDA tensor the kernel in `csrc/ctc_lattice.cu` (one block
-per utterance, the S-wide state in shared memory); anything else raises.
+plain version, a CUDA tensor a kernel in `csrc/ctc_lattice.cu`; anything
+else raises. Two kernel designs, chosen by S in the C library (`design`
+asks it):
+
+* S <= `strip_max_states()` (256, U <= 127): one warp per utterance, lane l
+  holding the strip of PER = ceil(S / 32) states from l * PER in registers;
+  neighbours across a strip's edge come by warp shuffle (NEG_INF at the
+  edge lane); each lane stages its strip of the emissions (and, for gamma,
+  of the alphas) through a ring of frame slots in shared memory, slot
+  t mod R holding frame t (R = `CTC_RING` of the source): each step refills
+  the slot that the frame before it left with the frame R - 1 ahead and
+  reads the next frame's slot a step ahead of its use; the serial loop
+  stops at the utterance's length and the frames past it are written
+  without recursion. Its log-add-exp runs in base 2 on the card's fast
+  `ex2.approx` / `lg2.approx`, with the maximum's term taken as 1 (within
+  chip_smoke.py's CTC_TOLERANCE of the plain version);
+* larger S, up to `max_states()` (4096): one block per utterance, the
+  S-wide state in shared memory.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -96,9 +114,24 @@ def ctc_gamma_plain(emit, skip_mask, input_lengths, label_lengths, alphas):
     return gamma
 
 
+@functools.lru_cache(maxsize=None)
 def max_states() -> int:
-    """Largest S = 2U+1 the kernels take."""
+    """Largest S = 2U+1 the kernels take (the C library is asked once)."""
     return int(kernel_library().espnet_ctc_max_states())
+
+
+@functools.lru_cache(maxsize=None)
+def strip_max_states() -> int:
+    """Largest S that the warp-per-utterance kernels take; the C library,
+    which routes each launch by it, is asked once."""
+    return int(kernel_library().espnet_ctc_strip_max_states())
+
+
+def design(s: int) -> str:
+    """The kernel design that the C library runs for S states."""
+    if s <= strip_max_states():
+        return "warp per utterance"
+    return "block per utterance"
 
 
 def _check_cuda_args(name, emit, skip_mask, *lengths):
@@ -124,6 +157,15 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _as_mask(skip_mask):
+    """The (B, S) skip mask as the kernels read it: one byte a state, bool
+    or uint8 as given (`.to` and `.contiguous` return their input when it
+    already has the dtype and layout, so the lengths need no such care)."""
+    if skip_mask.dtype in (torch.bool, torch.uint8):
+        return skip_mask.contiguous()
+    return skip_mask.to(torch.uint8).contiguous()
+
+
 def ctc_alphas(emit, skip_mask, input_lengths):
     """CTC alpha recursion: the CUDA kernel on the card, the plain version on
     the CPU. Returns (alphas (T, B, S), alpha_last (B, S)) float32.
@@ -137,7 +179,7 @@ def ctc_alphas(emit, skip_mask, input_lengths):
         raise ValueError(f"ctc_alphas: unsupported device {emit.device}")
     _check_cuda_args("ctc_alphas", emit, skip_mask, input_lengths)
     t, b, s = emit.shape
-    skip = skip_mask.to(torch.uint8).contiguous()
+    skip = _as_mask(skip_mask)
     lens = input_lengths.to(torch.int64).contiguous()
     alphas = torch.empty_like(emit)
     last = torch.empty(b, s, dtype=torch.float32, device=emit.device)
@@ -166,7 +208,7 @@ def ctc_gamma(emit, skip_mask, input_lengths, label_lengths, alphas):
     if alphas.shape != emit.shape or alphas.dtype != torch.float32:
         raise ValueError("ctc_gamma: alphas must be float32 of emit's shape")
     t, b, s = emit.shape
-    skip = skip_mask.to(torch.uint8).contiguous()
+    skip = _as_mask(skip_mask)
     lens = input_lengths.to(torch.int64).contiguous()
     ulens = label_lengths.to(torch.int64).contiguous()
     alphas = alphas.contiguous()

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "espnet_ctc_alphas": (_P,) * 5 + (_I,) * 3 + (_P,),
     "espnet_ctc_gamma": (_P,) * 6 + (_I,) * 3 + (_P,),
     "espnet_ctc_max_states": (),
+    "espnet_ctc_strip_max_states": (),
     "espnet_conv_glu_fwd": (_P,) * 6 + (_I,) * 3 + (_P,),
     "espnet_conv_glu_bwd": (_P,) * 11 + (_I,) * 5 + (_P,),
     "espnet_conv_tail_fwd": (_P,) * 7 + (_I,) * 3 + (_F, _I, _I, _P),

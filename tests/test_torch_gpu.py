@@ -353,21 +353,30 @@ def test_prenorm_ffn_dropout_and_backward_match_plain(cuda, dtype, m, drop,
         _assert_grad_close(name, g, w, dtype)
 
 
-def _ctc_case(device, b=5, t=50, u=7, v=11, seed=0):
+def _ctc_case(device, b=5, t=50, u=7, v=11, seed=0, s=None, in_lens=None,
+              lab_lens=None):
+    """Seeded logits, labels (a repeat in utterance 1), lengths and the
+    lattice inputs; `s` cuts the lattice to its first s states, with labels
+    of s // 2 symbols (an even s drops the final blank) and the given
+    lengths."""
     from espnet_tpu_torch.ops import ctc as tctc
 
+    if s is not None:
+        b, u = len(in_lens), s // 2
     g = torch.Generator().manual_seed(seed)
     logits = torch.randn(b, t, v, generator=g)
     labels = torch.randint(1, v, (b, u), generator=g)
-    labels[1, 1] = labels[1, 0]  # a repeat
-    in_lens = torch.tensor([t, t - 3, 2, t, 9][:b])  # utt 2: infeasible
-    lab_lens = torch.tensor([u, u - 2, u, 0, 3][:b])  # utt 3: U = 0
-    ext = tctc.extended_labels(labels)
+    if u > 1:
+        labels[1, 1] = labels[1, 0]  # a repeat
+    if in_lens is None:
+        in_lens = [t, t - 3, 2, t, 9][:b]  # utt 2: infeasible
+        lab_lens = [u, u - 2, u, 0, 3][:b]  # utt 3: U = 0
+    ext = tctc.extended_labels(labels)[:, :s]
     lse = torch.logsumexp(logits, -1)
     emit = tctc._emissions(logits, ext, lse)
     skip = tctc.transition_mask(ext)
-    return [x.to(device) for x in (logits, labels, in_lens, lab_lens, emit,
-                                   skip)]
+    return [x.to(device) for x in (logits, labels, torch.tensor(in_lens),
+                                   torch.tensor(lab_lens), emit, skip)]
 
 
 @pytest.mark.gpu
@@ -382,6 +391,53 @@ def test_ctc_lattice_kernels_match_plain(cuda):
     torch.cuda.synchronize()
     for got, want in ((alphas, pa), (last, pl), (gamma, pg)):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+# S on both sides of the warp route's largest (256) and the block route's
+# 4095 (U = 2047); T = 1; ragged lengths with 0 and 1 frames; U = 0. The
+# tolerance is chip_smoke.py's CTC_TOLERANCE: |alpha| reaches ~1e3 at T = 469
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,t,in_lens,lab_lens", [
+    (1, 40, [40, 17, 0, 1], [0, 0, 0, 0]),
+    (15, 40, [40, 33, 0, 1], [7, 4, 0, 1]),
+    (81, 469, [469, 400, 0, 1, 37, 468], [40, 35, 0, 0, 12, 39]),
+    (81, 1, [1, 0, 1], [3, 0, 1]),
+    (256, 300, [300, 257, 0, 1], [127, 100, 0, 2]),
+    (257, 300, [300, 257, 0, 1], [128, 100, 0, 2]),
+    (4095, 60, [60, 31, 0, 1], [2047, 20, 0, 0])])
+def test_ctc_lattice_routes_match_plain(cuda, s, t, in_lens, lab_lens):
+    from espnet_tpu_torch.ops import ctc_lattice as tlat
+
+    _, _, in_lens, lab_lens, emit, skip = _ctc_case(
+        cuda, t=t, seed=s + t, s=s, in_lens=in_lens, lab_lens=lab_lens)
+    before = (tlat.ctc_alphas.launches, tlat.ctc_gamma.launches)
+    alphas, last = tlat.ctc_alphas(emit, skip, in_lens)
+    gamma = tlat.ctc_gamma(emit, skip, in_lens, lab_lens, alphas)
+    pa, pl = tlat.ctc_alphas_plain(emit, skip, in_lens)
+    pg = tlat.ctc_gamma_plain(emit, skip, in_lens, lab_lens, pa)
+    torch.cuda.synchronize()
+    assert (tlat.ctc_alphas.launches, tlat.ctc_gamma.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert tlat.design(s) == ("warp per utterance" if s <= 256
+                              else "block per utterance")
+    for got, want in ((alphas, pa), (last, pl), (gamma, pg)):
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_ctc_lattice_takes_a_uint8_mask_and_int32_lengths(cuda):
+    from espnet_tpu_torch.ops import ctc_lattice as tlat
+
+    _, _, in_lens, lab_lens, emit, skip = _ctc_case(
+        cuda, t=50, seed=3, s=81, in_lens=[50, 20, 0], lab_lens=[40, 9, 0])
+    want = tlat.ctc_alphas(emit, skip, in_lens)
+    got = tlat.ctc_alphas(emit, skip.to(torch.uint8), in_lens.int())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="exceed"):
+        tlat.ctc_alphas(torch.zeros(2, 1, 4097, device=cuda),
+                        torch.zeros(1, 4097, dtype=torch.bool, device=cuda),
+                        torch.tensor([2], device=cuda))
 
 
 @pytest.mark.gpu
