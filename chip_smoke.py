@@ -64,11 +64,29 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    to the attention kernels' 128; the FFN kernels at D=384) and 512 (head
    dim 128) serve and take a train step, each kernel running exactly where
    its shape gate lets it (plain versions elsewhere);
-6. a `{"kernels": [...]}` JSON line (training shapes, bfloat16; launches
+6. cli: the repo's LibriSpeech-100 conformer recipe
+   (egs/librispeech_100/conf/train_asr_conformer.yaml: 12 x 256, 4 heads,
+   FFN 1024, kernel 31, a 6 x 2048 decoder, global MVN, bf16, adamw,
+   accum_grad 4, SpecAug) through `espnet_tpu_torch.bin.asr_train` with its
+   asr_args as recipe.py splits them, changed only in the token type
+   (char), the epochs (2), the batch (16 utterances in place of batch_bins)
+   and the log interval (1), on a synthetic corpus of 64 + 16 utterances of
+   8-15 s: collect-stats (timed), 2 epochs, then a resume that must run
+   epoch 3 alone, an epoch 4 traced by the trainer's `--run.profile_steps
+   2` (device busy share and top kernels), then
+   `espnet_tpu_torch.bin.asr_inference` on the
+   validation set with the recipe's decode_args and 40 label steps at most;
+   every step finite and not skipped, the experiment files, the n-best
+   average against the float64 mean of the epoch files, and the exact
+   launches of the rel-pos, pre-norm FFN and CTC kernels in training,
+   validation and decoding; it prints the collect-stats time, each epoch's
+   wall time, step_time, peak device memory and the decode RTF beside the
+   card's name and power limit;
+7. a `{"kernels": [...]}` JSON line (training shapes, bfloat16; launches
    from the 3 timed train steps of the configuration whose path holds the
    kernel: the conformer's, the transformer's for flash attention, the
    E-Branchformer's for `fused_ffn`, the two conv routes' for theirs);
-7. last line: {"ok": true, "device": {...}}.
+8. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -130,7 +148,7 @@ def phase_device(torch):
     # float32 products in full float32, so the float32 checks mean it
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return name
+    return name, smi
 
 
 def phase_build():
@@ -1186,13 +1204,347 @@ def run_config(torch, np, name, cfg, per_encode, per_step, parity=True,
     return launches
 
 
+# the cli phase: the repo's LibriSpeech-100 conformer recipe through the two
+# command-line entry points, with these changes to its asr_args
+CLI_CONF = "egs/librispeech_100/conf/train_asr_conformer.yaml"
+CLI_CHANGES = {
+    # no LibriSpeech and no `tokenizers` on the card: the corpus's characters
+    "--data.token_type": "char",
+    "--run.max_epoch": "2",
+    "--data.batch_size": "16",  # in place of --data.batch_bins
+    "--run.log_interval": "1",
+}
+CLI_DROPPED = ("--data.batch_bins",)
+CLI_TRAIN_UTTS, CLI_VALID_UTTS = 64, 16
+CLI_WORDS = (20, 37)  # 8-15 s of the synthetic corpus, LibriSpeech's lengths
+CLI_SECONDS = 15.0  # the longest utterance
+CLI_DECODE_STEPS = 40
+CLI_KERNELS = ("relpos_attention", "relpos_attention_bwd", "prenorm_ffn",
+               "prenorm_ffn_bwd", "ctc_alphas", "ctc_gamma")
+
+
+def cli_argv(conf_args: str):
+    """The conf's asr_args split as recipe.py splits them, with
+    CLI_CHANGES applied (each printed)."""
+    import shlex
+
+    argv = shlex.split(conf_args)
+    out, i = [], 0
+    while i < len(argv):
+        if argv[i] in CLI_DROPPED or argv[i] in CLI_CHANGES:
+            log("cli", f"drop {argv[i]} {argv[i + 1]}")
+            i += 2
+            continue
+        out += argv[i:i + 2]
+        i += 2
+    for flag, value in CLI_CHANGES.items():
+        log("cli", f"set {flag} {value}")
+        out += [flag, value]
+    return out
+
+
+def cli_batches(ds, data, batch_size):
+    """The batches the task and the inference CLI build for `ds`."""
+    from espnet_tpu_torch.data.sampler import build_batches
+
+    return build_batches({"speech": ds.speech_lengths(),
+                          "text": ds.text_lengths()},
+                         batch_size=batch_size,
+                         length_quantum=data.length_quantum,
+                         text_quantum=data.text_quantum)
+
+
+def cli_expected(train, valid, accum, layers):
+    """Exact launches of one epoch of training and validation over these
+    batches: per micro-batch of a train step (the largest divisor of the
+    batch size not above accum_grad, as make_train_step splits it) each
+    layer runs the rel-pos attention and two pre-norm FFNs forward and
+    backward, and the CTC loss the lattice pair once; per validation batch
+    the forwards and the alphas. Returns (launches, micro-batches)."""
+    micro = 0
+    for b in train:
+        n = max(1, min(accum, len(b.keys)))
+        while len(b.keys) % n:
+            n -= 1
+        micro += n
+    nv = len(valid)
+    want = {name: 0 for name in KERNELS}
+    want.update({
+        "relpos_attention": layers * (micro + nv),
+        "relpos_attention_bwd": layers * micro,
+        "prenorm_ffn": 2 * layers * (micro + nv),
+        "prenorm_ffn_bwd": 2 * layers * micro,
+        "ctc_alphas": micro + nv,
+        "ctc_gamma": micro,
+    })
+    return want, micro
+
+
+def check_launches(what, counts, want):
+    if counts != want:
+        raise AssertionError(f"cli: {what} launched {counts}, expected "
+                             f"{want}")
+
+
+def check_cli_ffn(torch, mcfg, utts):
+    """The pre-norm FFN forward and backward against their plain versions
+    at the recipe's widths (D=256, F=1024: no other phase runs F=1024) and
+    a micro-batch's rows (`utts` utterances of CLI_SECONDS), as the macaron
+    FFNs call them, in float32 and bfloat16."""
+    from espnet_tpu_torch.models.subsampling import subsampled_length
+    from espnet_tpu_torch.ops.prenorm_ffn import (prenorm_ffn,
+                                                  prenorm_ffn_plain)
+    from espnet_tpu_torch.ops.stft import stft_frames_lengths
+
+    frames = stft_frames_lengths(torch.tensor([int(CLI_SECONDS
+                                                   * SAMPLE_RATE)]),
+                                 mcfg.n_fft, mcfg.hop_length)
+    tp = int(subsampled_length(frames, mcfg.subsampling_factor)[0])
+    m, d, f = utts * tp, mcfg.d_model, mcfg.d_ff
+    kw = {"activation": "swish", "residual_scale": 0.5,
+          "drop_rate": mcfg.dropout_rate, "seeds": (20240601, -77)}
+    label = (f"cli M={utts}x{tp} D={d} F={f} swish s=0.5 dropout "
+             f"{mcfg.dropout_rate}")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        es = 4 if dtype == torch.float32 else 2
+        args, flops, nbytes = ffn_case(torch, m, dtype, 21, d=d, f=f)
+        with torch.no_grad():
+            check_kernel(torch, "prenorm_ffn", prenorm_ffn,
+                         prenorm_ffn_plain, args, flops, nbytes, dn, label,
+                         kw, iters=10)
+        gout = torch.randn(m, d, generator=torch.Generator().manual_seed(
+            22)).to("cuda", dtype)
+        check_grads(torch, "prenorm_ffn_bwd", dn, label,
+                    lambda *a: prenorm_ffn(*a, **kw),
+                    lambda *a: prenorm_ffn_plain(*a, **kw), args, 7, gout,
+                    10.0 * m * d * f, (3 * m * d + 4 * d * f) * es
+                    + (4 * d + 2 * f) * 4)
+
+
+def check_average(np, exp, epochs):
+    """The averaged params file against the float64 mean of the epoch
+    files, read back through the port's msgpack reader."""
+    from espnet_tpu_torch.train.msgpack_io import flatten, load_tree
+
+    ave = flatten(load_tree(exp / "valid.acc.ave.params.msgpack"))
+    eps = [flatten(load_tree(exp / f"ep{e}.params.msgpack")) for e in epochs]
+    for k, v in ave.items():
+        want = (sum(np.asarray(t[k], np.float64) for t in eps)
+                / len(eps)).astype(np.float32)
+        if v.dtype != np.float32 or not np.array_equal(v, want):
+            raise AssertionError(f"cli: averaged {k} is not the float64 "
+                                 f"mean of epochs {epochs}")
+    log("cli", f"valid.acc.ave.params.msgpack: {len(ave)} leaves, each the "
+        f"float64 mean of epochs {epochs}")
+
+
+def trace_breakdown(path, smi, top=6):
+    """Device busy share and the top kernels of a torch.profiler chrome
+    trace (the trainer's `--run.profile_steps` window); a trace without
+    device time fails. Returns the device busy ms."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    if not events:
+        raise AssertionError("cli: the profile trace has no events")
+    start = min(e["ts"] for e in events)
+    wall = max(e["ts"] + e["dur"] for e in events) - start
+    dev_events = sorted((e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")), key=lambda e: e["ts"])
+    busy, end, by_name = 0.0, -1.0, {}
+    for e in dev_events:
+        lo, hi = max(e["ts"], end), e["ts"] + e["dur"]
+        busy += max(0.0, hi - lo)
+        end = max(end, hi)
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    if not busy:
+        raise AssertionError("cli: the profile trace shows no device time")
+    log("cli", f"profiled window (under the profiler): wall "
+        f"{wall / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle share "
+        f"{1 - busy / wall:.3f} ({len(dev_events)} device events) [{smi}]")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {us / 1e3:9.3f} ms  {name[:90]}", flush=True)
+    return busy / 1e3
+
+
+def phase_cli(torch, np, smi):
+    """asr_train (2 epochs, a resume to epoch 3, a profiled epoch 4) and
+    asr_inference with the LibriSpeech-100 conformer's asr_args and
+    decode_args, checking the pre-norm FFN kernels at the recipe's F, the
+    files, the losses, the average and the exact kernel launches."""
+    import shlex
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from espnet_tpu_torch.bin import asr_inference, asr_train
+    from espnet_tpu_torch.data.synth import generate_corpus
+    from espnet_tpu_torch.tasks.abs_task import pop_device
+    from espnet_tpu_torch.tasks.asr import ASRTask
+    from espnet_tpu_torch.utils.config import load_yaml
+
+    conf = load_yaml(CLI_CONF)["recipe"]
+    ws = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        t = time.perf_counter()
+        lo, hi = CLI_WORDS
+        generate_corpus(ws / "train", n_utts=CLI_TRAIN_UTTS, min_words=lo,
+                        max_words=hi, seed=0)
+        generate_corpus(ws / "valid", n_utts=CLI_VALID_UTTS, min_words=lo,
+                        max_words=hi, seed=1)
+        log("cli", f"corpus of {CLI_TRAIN_UTTS} + {CLI_VALID_UTTS} "
+            f"utterances ({lo}-{hi} words) in "
+            f"{time.perf_counter() - t:.1f}s")
+        exp = ws / "exp"
+        argv = cli_argv(conf["asr_args"]) + [
+            "--data.train_dir", str(ws / "train"),
+            "--data.valid_dir", str(ws / "valid"),
+            "--run.output_dir", str(exp), "--device", "cuda"]
+        cfg = ASRTask.parse_config(pop_device(argv)[1])
+        run, data, mcfg = cfg["run"], cfg["data"], cfg["model"]
+        log("cli", f"model {mcfg.encoder_type} {mcfg.num_encoder_layers} x "
+            f"{mcfg.d_model}, {mcfg.num_heads} heads, FFN {mcfg.d_ff}, kernel "
+            f"{mcfg.conformer_kernel_size}, decoder {mcfg.num_decoder_layers} "
+            f"x {mcfg.decoder_d_ff}, {mcfg.normalize}, {mcfg.dtype}, "
+            f"SpecAug {mcfg.use_specaug}; optimizer {cfg['optim'].name}, "
+            f"accum_grad {run.accum_grad}, batch {data.batch_size}")
+        check_cli_ffn(torch, mcfg, data.batch_size // run.accum_grad)
+
+        # collect-stats alone, timed; the training run reuses the stats
+        t = time.perf_counter()
+        asr_train.main(argv + ["--run.stats_only", "true"])
+        torch.cuda.synchronize()
+        stats_s = time.perf_counter() - t
+        log("cli", f"collect-stats (with the token list and the datasets) "
+            f"{stats_s:.2f}s")
+
+        tokens = ASRTask.build_tokenizer(data, exp)
+        conv = ASRTask.build_token_list(data, exp, tokens)
+        ds_train = ASRTask.build_dataset(data, ws / "train", tokens, conv)
+        ds_valid = ASRTask.build_dataset(data, ws / "valid", tokens, conv,
+                                         train=False)
+        valid = len(cli_batches(ds_valid, data, data.batch_size))
+        per_epoch, micro = cli_expected(
+            cli_batches(ds_train, data, data.batch_size),
+            cli_batches(ds_valid, data, data.batch_size), run.accum_grad,
+            mcfg.num_encoder_layers)
+        torch.cuda.reset_peak_memory_stats()
+        wrappers = reset_counts()
+        t = time.perf_counter()
+        _, trainer, model, _, _ = asr_train.main(argv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        want = {k: 2 * v for k, v in per_epoch.items()}
+        log("cli", f"2 epochs in {train_s:.1f}s ({micro} micro-batches and "
+            f"{valid} validation batches an epoch); launches {counts}")
+        check_launches("2 epochs", counts, want)
+        steps = trainer.step_log
+        for epoch, st in steps:
+            if not (np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"])):
+                raise AssertionError(f"cli: a step of epoch {epoch} has a "
+                                     f"non-finite loss or gradient norm: {st}")
+            if st["skipped"] != 0.0:
+                raise AssertionError(f"cli: a step of epoch {epoch} was "
+                                     "skipped")
+        rep = trainer.reporter.epochs
+        for e in (1, 2):
+            acc = rep[e].get("valid", {}).get("acc")
+            if acc is None or not np.isfinite(acc):
+                raise AssertionError(f"cli: no validation accuracy for "
+                                     f"epoch {e}")
+            log("cli", f"epoch {e}: wall {trainer.epoch_seconds[e]:.2f}s, "
+                f"train loss {rep[e]['train']['loss']:.4f}, step_time "
+                f"{rep[e]['train']['step_time'] * 1e3:.1f} ms, valid acc "
+                f"{acc:.4f} [{smi}]")
+        for name in ("config.yaml", "tokens.txt", "stats/feats_stats.npz",
+                     "ep1.params.msgpack", "ep2.params.msgpack",
+                     "valid.acc.best.params.msgpack",
+                     "valid.acc.ave.params.msgpack", "checkpoint.pt"):
+            if not (exp / name).exists():
+                raise AssertionError(f"cli: {name} is missing")
+        check_average(np, exp, [1, 2])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log("cli", f"{len(steps)} steps, every loss finite, none skipped; "
+            f"peak device memory {peak:.2f} GiB [{smi}]")
+
+        # resume: exactly one more epoch
+        wrappers = reset_counts()
+        t = time.perf_counter()
+        _, trainer, _, _, _ = asr_train.main(argv + ["--run.max_epoch", "3"])
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        if sorted(trainer.epoch_seconds) != [3]:
+            raise AssertionError(f"cli: the resumed run ran epochs "
+                                 f"{sorted(trainer.epoch_seconds)}, not [3]")
+        check_launches("the resumed epoch", counts, per_epoch)
+        if not all(np.isfinite(st["loss"]) and st["skipped"] == 0.0
+                   for e, st in trainer.step_log):
+            raise AssertionError(f"cli: a resumed step failed")
+        check_average(np, exp, [1, 2, 3])
+        step3 = trainer.reporter.epochs[3]["train"]["step_time"] * 1e3
+        log("cli", f"resumed at epoch 3: wall "
+            f"{trainer.epoch_seconds[3]:.2f}s of {time.perf_counter() - t:.1f}s"
+            f", step_time {step3:.1f} ms; launches exact [{smi}]")
+
+        # one more epoch with the trainer's torch.profiler window: the
+        # device's busy share over steps 2-3 and its kernels by time
+        wrappers = reset_counts()
+        asr_train.main(argv + ["--run.max_epoch", "4",
+                               "--run.profile_steps", "2"])
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        check_launches("the profiled epoch 4", counts,
+                       per_epoch)
+        busy = trace_breakdown(exp / "profile" / "trace.json", smi) / 2
+        log("cli", f"device busy {busy:.1f} ms a profiled step against the "
+            f"unprofiled step_time {step3:.1f} ms of epoch 3: idle share "
+            f"{1 - busy / step3:.3f} without the profiler's host cost "
+            f"[{smi}]")
+
+        # decode the validation set with the conf's decode_args
+        dec = ws / "decode"
+        dargs = shlex.split(conf["decode_args"]) + [
+            "--max_steps", str(CLI_DECODE_STEPS)]
+        wrappers = reset_counts()
+        hyps = asr_inference.main(
+            ["--exp_dir", str(exp), "--data_dir", str(ws / "valid"),
+             "--output_dir", str(dec), "--device", "cuda"] + dargs)
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        n_dec = len(cli_batches(
+            ds_valid, data, int(dargs[dargs.index("--batch_size") + 1])))
+        want = {name: 0 for name in KERNELS}
+        want.update({"relpos_attention": mcfg.num_encoder_layers * n_dec,
+                     "prenorm_ffn": 2 * mcfg.num_encoder_layers * n_dec})
+        check_launches(f"decoding ({n_dec} batches)", counts,
+                       want)
+        keys = set(ds_valid.keys())
+        text = dec / "text"
+        written = {ln.split(" ", 1)[0] for ln in
+                   text.read_text().splitlines()} if text.exists() else set()
+        if set(hyps) != keys or written != keys:
+            raise AssertionError(f"cli: decoding wrote text for "
+                                 f"{len(written)} of {len(keys)} keys")
+        for name in ("rtf.txt", "score_cer.txt"):
+            if not (dec / name).exists():
+                raise AssertionError(f"cli: decode wrote no {name}")
+        rtf = (dec / "rtf.txt").read_text().strip()
+        cer = (dec / "score_cer.txt").read_text().strip()
+        log("cli", f"decoded {len(hyps)} utterances ({dargs}): {rtf}; "
+            f"launches exact ({n_dec} encode batches) [{smi}]")
+        log("cli", f"CER after 4 epochs (no gate): {cer}")
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
 
     from espnet_tpu_torch.configs import bench_config, encoder_options
 
-    name = phase_device(torch)
+    name, smi = phase_device(torch)
     phase_build()
     cfg = bench_config(torch.bfloat16)
     serve_b, serve_t = serve_shapes(cfg, requests(np)[1])
@@ -1204,6 +1556,7 @@ def main() -> int:
     for c, (overrides, *counts) in GATE_CONFIGS.items():
         run_config(torch, np, c, bench_config(torch.bfloat16, **overrides),
                    *counts, parity=False, train_batch_size=16, train_steps=1)
+    phase_cli(torch, np, smi)
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         r = results[kname]

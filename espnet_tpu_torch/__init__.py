@@ -2,8 +2,10 @@
 
 Module names mirror the JAX package (`espnet_tpu_torch/models/conformer.py`
 is the port of `espnet_tpu/models/conformer.py`). The port imports torch,
-numpy and the standard library only, never jax or espnet_tpu; its tests
-compare it with the JAX package on the CPU. Hand-written CUDA kernels live in
+numpy and the standard library (and scipy for some audio formats), never
+jax, espnet_tpu, PyYAML or msgpack; its tests compare it with the JAX
+package on the CPU. The command-line entry points are `bin/asr_train.py`
+and `bin/asr_inference.py`. Hand-written CUDA kernels live in
 `csrc/` and are built with nvcc on first use (`ops/cuda_build.py`).
 """
 

@@ -1,0 +1,194 @@
+"""ASR inference CLI: decode a data dir with a trained experiment (port of
+espnet_tpu/bin/asr_inference.py). Usage:
+
+    python -m espnet_tpu_torch.bin.asr_inference \
+        --exp_dir exp/asr --data_dir data/test --output_dir exp/asr/decode \
+        --beam_size 10 --ctc_weight 0.3 [--params path.msgpack] [--device cpu]
+
+The parser is the JAX CLI's, plus `--device` (default cuda: the card, raising
+without one). The experiment directory may come from either package. Writes
+`text`, `nbest.jsonl`, `rtf.txt` and, with a reference `text`,
+`score_wer.txt` and `score_cer.txt`. Not ported yet, and raising
+`NotImplementedError` when asked for (ROADMAP.md queue 1 item 7): `--search
+timesync`, `--lm_exp_dir`, `--word_lm_exp_dir`, `--ngram_file`, and a
+non-zero `--lm_weight` or `--ngram_weight`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import time
+from pathlib import Path
+
+import numpy as np
+
+logger = logging.getLogger("espnet_tpu")
+
+NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 7: LM and n-gram " \
+             "fusion, time-synchronous search)"
+
+
+def get_parser():
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--exp_dir", required=True)
+    p.add_argument("--data_dir", required=True)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--params", default=None,
+                   help="params msgpack (default: best/averaged in exp_dir)")
+    p.add_argument("--beam_size", type=int, default=10)
+    p.add_argument("--search", choices=["label_sync", "timesync"],
+                   default="label_sync",
+                   help="label_sync = joint CTC/attention batched beam "
+                        "search; timesync is not ported")
+    p.add_argument("--ctc_weight", type=float, default=0.3)
+    p.add_argument("--lm_weight", type=float, default=0.0)
+    p.add_argument("--lm_exp_dir", default=None)
+    p.add_argument("--word_lm_exp_dir", default=None)
+    p.add_argument("--subwordlm_weight", type=float, default=0.8)
+    p.add_argument("--oov_penalty", type=float, default=None)
+    p.add_argument("--ngram_file", default=None, help="ARPA LM for fusion")
+    p.add_argument("--ngram_weight", type=float, default=0.0)
+    p.add_argument("--penalty", type=float, default=0.0)
+    p.add_argument("--maxlenratio", type=float, default=0.0)
+    p.add_argument("--minlenratio", type=float, default=0.0)
+    p.add_argument("--max_steps", type=int, default=0,
+                   help="hard cap on decode steps (0 = encoder length)")
+    p.add_argument("--nbest", type=int, default=1)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the card; raises without one) or cpu")
+    return p
+
+
+def pick_params_file(exp_dir: Path) -> Path:
+    for pat in ("*.ave.params.msgpack", "valid.acc.best.params.msgpack",
+                "train.loss.best.params.msgpack", "ep*.params.msgpack"):
+        hits = sorted(exp_dir.glob(pat))
+        if hits:
+            return hits[-1]
+    raise FileNotFoundError(f"no params file in {exp_dir}")
+
+
+def _refuse_unported(args) -> None:
+    asked = []
+    if args.search == "timesync":
+        asked.append("--search timesync")
+    for flag in ("lm_exp_dir", "word_lm_exp_dir", "ngram_file"):
+        if getattr(args, flag):
+            asked.append(f"--{flag}")
+    for flag in ("lm_weight", "ngram_weight"):
+        if getattr(args, flag):
+            asked.append(f"--{flag} {getattr(args, flag)}")
+    if asked:
+        raise NotImplementedError(f"{', '.join(asked)} {NOT_PORTED}")
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    args = get_parser().parse_args(argv)
+    _refuse_unported(args)
+    from espnet_tpu_torch.convert import load_jax_params
+    from espnet_tpu_torch.data.dataset import EpochIterator
+    from espnet_tpu_torch.data.fileio import (read_2column_text,
+                                              write_2column_text)
+    from espnet_tpu_torch.data.sampler import build_batches
+    from espnet_tpu_torch.decode.asr_inference import Speech2Text
+    from espnet_tpu_torch.device import resolve_device
+    from espnet_tpu_torch.tasks.asr import ASRTask
+    from espnet_tpu_torch.train.collect_stats import load_stats, mvn_variables
+    from espnet_tpu_torch.train.msgpack_io import load_tree
+    from espnet_tpu_torch.utils.metrics import sclite_report
+
+    device = resolve_device(args.device)
+    exp = Path(args.exp_dir)
+    out = Path(args.output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    cfg = ASRTask.load_config(exp)
+    data = cfg["data"]
+    tokenizer = ASRTask.build_tokenizer(data, exp)
+    converter = ASRTask.build_token_list(data, exp, tokenizer)
+    model = ASRTask.build_model(cfg["model"], len(converter))
+
+    ds = ASRTask.build_dataset(data, args.data_dir, tokenizer, converter,
+                               train=False)
+    shapes = {"speech": ds.speech_lengths(), "text": ds.text_lengths()}
+    batches = build_batches(
+        shapes, batch_size=args.batch_size,
+        length_quantum=data.length_quantum, text_quantum=data.text_quantum,
+    )
+    it = EpochIterator(ds, batches, shuffle=False, prefetch=2)
+
+    params_file = Path(args.params) if args.params else pick_params_file(exp)
+    logger.info("loading params: %s", params_file)
+    variables = {"params": load_tree(params_file)}
+    if model.config.normalize == "global_mvn":
+        stats_path = exp / "stats" / "feats_stats.npz"
+        # without stats the JAX package decodes with its init's identity
+        # statistics; so does the port
+        variables["mvn"] = (
+            mvn_variables(load_stats(stats_path)) if stats_path.exists()
+            else {"mvn": {"mean": np.zeros(model.config.n_mels, np.float32),
+                          "inv_std": np.ones(model.config.n_mels,
+                                             np.float32)}})
+    load_jax_params(model, variables)
+
+    s2t = Speech2Text(
+        model, device=device, beam_size=args.beam_size,
+        ctc_weight=args.ctc_weight, penalty=args.penalty,
+        maxlenratio=args.maxlenratio, minlenratio=args.minlenratio,
+        max_steps=args.max_steps, tokenizer=tokenizer, converter=converter,
+    )
+
+    hyps_text = {}
+    nbest_rows = []
+    audio_seconds = 0.0
+    decode_seconds = 0.0
+    for batch in it.epoch(0):
+        keys = batch.pop("keys")
+        if data.input_type == "raw":
+            audio_seconds += float(np.sum(batch["speech_lengths"])) / data.fs
+        t0 = time.perf_counter()
+        results = s2t(batch["speech"], batch["speech_lengths"], keys=keys,
+                      nbest=args.nbest)
+        decode_seconds += time.perf_counter() - t0
+        for r in results:
+            hyps_text[r.key] = r.text
+            nbest_rows.append({
+                "key": r.key, "text": r.text, "score": r.score,
+                "nbest": [{"ids": ids, "score": s} for ids, s in r.nbest],
+            })
+        logger.info("decoded %d utts", len(hyps_text))
+    write_2column_text(out / "text", hyps_text)
+    if audio_seconds > 0:
+        rtf = decode_seconds / audio_seconds
+        (out / "rtf.txt").write_text(
+            f"decode_s {decode_seconds:.3f} audio_s {audio_seconds:.3f} "
+            f"RTF {rtf:.4f}\n"
+        )
+        logger.info("RTF %.4f (%.1fs decode / %.1fs audio)", rtf,
+                    decode_seconds, audio_seconds)
+    with open(out / "nbest.jsonl", "w") as f:
+        for row in nbest_rows:
+            f.write(json.dumps(row) + "\n")
+
+    ref_path = Path(args.data_dir) / "text"
+    if ref_path.exists():
+        refs = {k: v.split() for k, v in read_2column_text(ref_path).items()
+                if k in hyps_text}
+        hyp_words = {k: v.split() for k, v in hyps_text.items()}
+        report = sclite_report(refs, hyp_words)
+        (out / "score_wer.txt").write_text(report + "\n")
+        logger.info("WER %s", report)
+        refs_c = {k: list(" ".join(v)) for k, v in refs.items()}
+        hyps_c = {k: list(" ".join(v)) for k, v in hyp_words.items()}
+        (out / "score_cer.txt").write_text(
+            sclite_report(refs_c, hyps_c) + "\n"
+        )
+    return hyps_text
+
+
+if __name__ == "__main__":
+    main()

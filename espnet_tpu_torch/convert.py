@@ -27,9 +27,15 @@ raises, since identity statistics would silently change its input.
 Every layout change is a permutation, so the same mapping carries a JAX
 *gradient* tree (`jax.grad` of the params) onto the port's parameter names
 with `jax_params_to_state_dict`, to be compared with `param.grad` leaf by
-leaf; `torch_to_jax_tree` maps the
-port's tensors (parameters after an update, or their gradients) back into
-the nested layout of a given JAX tree.
+leaf; `torch_to_jax_tree` maps the port's tensors (parameters after an
+update, or their gradients) back into the nested layout of a given JAX tree.
+
+`state_dict_to_jax_params` is the inverse that needs no JAX tree to fill (the
+card's machine has none): each port leaf's JAX name and layout follow from
+its name, rank and owner (`weight` of rank 1 is a LayerNorm `scale`, of an
+`embed` module an `embedding`, else a `kernel` in the JAX layout). It gives
+the param tree that the JAX package saves as `ep<N>.params.msgpack`; the
+global-MVN buffers, which JAX keeps in its `mvn` collection, are left out.
 """
 
 from __future__ import annotations
@@ -133,6 +139,48 @@ def torch_to_jax_tree(tensors: Mapping[str, torch.Tensor],
         return out
 
     return build(like, "")
+
+
+MVN_BUFFERS = ("mvn.mean", "mvn.inv_std")
+
+
+def _jax_leaf(key: str, value: np.ndarray):
+    """(JAX leaf name, array in the JAX layout) of the port's leaf `key`."""
+    parts = key.split(".")
+    name = parts[-1]
+    if name in ("bias", "pos_bias_u", "pos_bias_v"):
+        return name, value
+    if name != "weight":
+        raise ValueError(f"unknown parameter leaf {key!r}")
+    if value.ndim == 1:
+        return "scale", value
+    if value.ndim == 2 and len(parts) > 1 and parts[-2] == "embed":
+        return "embedding", value
+    if value.ndim in (2, 3, 4):
+        return "kernel", _unleaf("kernel", value)
+    raise ValueError(f"{key}: weight of unexpected rank {value.ndim}")
+
+
+def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor]
+                             ) -> Dict[str, Dict]:
+    """The JAX param tree (nested dicts of float32 numpy arrays, in the
+    port's module order) of the port's `state_dict`: the inverse of
+    `jax_params_to_state_dict` on a param tree. The global-MVN buffers are
+    left out (the JAX `mvn` collection is not a param)."""
+    tree: Dict[str, Dict] = {}
+    for key, t in state_dict.items():
+        if key in MVN_BUFFERS:
+            continue
+        arr = (t.detach().cpu().float().numpy()
+               if isinstance(t, torch.Tensor) else np.asarray(t, np.float32))
+        leaf, arr = _jax_leaf(key, arr)
+        cur = tree
+        for p in key.split(".")[:-1]:
+            cur = cur.setdefault(p, {})
+        if leaf in cur:
+            raise ValueError(f"two port leaves map to {key}")
+        cur[leaf] = np.ascontiguousarray(arr, dtype=np.float32)
+    return tree
 
 
 def load_jax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:

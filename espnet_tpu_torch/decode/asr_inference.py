@@ -3,9 +3,11 @@ espnet_tpu/decode/asr_inference.py).
 
 Encodes a padded batch of raw waveforms with `ASRModel.encode`, then runs the
 joint CTC/attention batched beam search over all utterances at once and
-returns each utterance's n-best token ids and scores. Runs on the CUDA card
-unless the caller passes device="cpu"; it never falls back on its own. Not in
-this slice: language models, n-gram scorers, tokenizers and meshes.
+returns each utterance's n-best token ids and scores, and, given a tokenizer
+and a token converter, the best hypothesis's tokens and text. Runs on the
+CUDA card unless the caller passes device="cpu"; it never falls back on its
+own. Not ported yet: language models and n-gram scorers (ROADMAP.md queue 1
+item 7) and meshes.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from espnet_tpu_torch.models.asr import ASRModel
 class DecodeResult:
     key: str
     token_ids: List[int]
+    tokens: List[str]
+    text: str
     score: float
     nbest: List[Tuple[List[int], float]]
 
@@ -39,9 +43,11 @@ class Speech2Text:
                  ctc_weight: float = 0.3, penalty: float = 0.0,
                  maxlenratio: float = 0.0, minlenratio: float = 0.0,
                  max_steps: int = 0,
-                 extra_scorers: Optional[Sequence[Scorer]] = None):
+                 extra_scorers: Optional[Sequence[Scorer]] = None,
+                 tokenizer=None, converter=None):
         """`device`: "cuda" (the default; None means the same) or "cpu";
-        `model` is moved there.
+        `model` is moved there. `tokenizer` and `converter`
+        (`data/tokenizer.py`) turn the best token ids into tokens and text.
         `max_steps` > 0 caps the label length on top of the encoder length.
         `extra_scorers`: weighted full scorers added to the search."""
         self.device = resolve_device(device)
@@ -52,6 +58,8 @@ class Speech2Text:
             ctc_weight=ctc_weight, penalty=penalty, maxlenratio=maxlenratio,
             minlenratio=minlenratio, blank_id=cfg.blank_id)
         self.max_steps = max_steps
+        self.tokenizer = tokenizer
+        self.converter = converter
         self.extra_scorers = list(extra_scorers or ())
         self.sos = cfg.sos_id
         self.eos = cfg.eos_id
@@ -108,7 +116,9 @@ class Speech2Text:
             hyps = [(yseq[bi, wi, :ylen[bi, wi]].tolist(), float(score[bi, wi]))
                     for wi in range(yseq.shape[1])]
             ids, sc = hyps[0]
+            tokens = self.converter.ids2tokens(ids) if self.converter else []
+            text = self.tokenizer.tokens2text(tokens) if self.tokenizer else ""
             results.append(DecodeResult(
-                key=keys[bi] if keys else str(bi), token_ids=ids, score=sc,
-                nbest=hyps[:nbest]))
+                key=keys[bi] if keys else str(bi), token_ids=ids,
+                tokens=tokens, text=text, score=sc, nbest=hyps[:nbest]))
         return results

@@ -142,8 +142,9 @@ class ASRModel(nn.Module):
         super().__init__()
         if not 0.0 < config.ctc_weight < 1.0:
             raise NotImplementedError(
-                "this slice serves joint CTC/attention models "
-                "(0 < ctc_weight < 1)")
+                f"ctc_weight {config.ctc_weight} is not ported yet: the port "
+                "serves joint CTC/attention models, 0 < ctc_weight < 1 "
+                "(ROADMAP.md queue 1 item 2)")
         c = config
         if c.normalize not in NORMALIZE:
             raise ValueError(f"normalize {c.normalize!r} not in {NORMALIZE}")

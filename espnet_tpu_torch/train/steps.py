@@ -2,9 +2,10 @@
 
 `make_train_step(model, optimizer, device)` returns
 `train_step(state, batch, generator) -> (state, stats)`: forward, backward,
-then the flat Adam update (clip by global norm, NaN-skip, Adam). The model's
-parameters are views of `state.params`, one float32 vector that the update
-changes in place. `accum_steps > 1` splits the batch into equal micro-batches
+then the flat optimizer's update (clip by global norm, NaN-skip, then Adam,
+AdamW, SGD or Adadelta: `train/optim.py`). The model's parameters are views
+of `state.params`, one float32 vector that the update changes in place.
+`accum_steps > 1` splits the batch into equal micro-batches
 (the largest divisor of B not above accum_steps), runs forward and backward
 on each in turn, and averages their gradients and stats before one update,
 as the JAX package's micro-batch scan does. All randomness (dropout, SpecAug,
@@ -20,7 +21,7 @@ import torch
 from torch import nn
 
 from espnet_tpu_torch.device import resolve_device
-from espnet_tpu_torch.train.optim import (FlatAdam, flat_grads,
+from espnet_tpu_torch.train.optim import (FlatOptimizer, flat_grads,
                                           flatten_parameters_)
 
 BATCH_KEYS = ("speech", "speech_lengths", "text", "text_lengths")
@@ -33,7 +34,8 @@ class TrainState:
     opt_state: Dict[str, torch.Tensor]
 
     @classmethod
-    def create(cls, model: nn.Module, optimizer: FlatAdam) -> "TrainState":
+    def create(cls, model: nn.Module,
+               optimizer: FlatOptimizer) -> "TrainState":
         """Flatten `model`'s parameters in place (on their device) and
         initialise the optimizer state."""
         flat = flatten_parameters_(model)
@@ -45,13 +47,15 @@ def _to_device(batch, device) -> Dict[str, torch.Tensor]:
             for k in BATCH_KEYS}
 
 
-def make_train_step(model: nn.Module, optimizer: FlatAdam, device="cuda",
-                    accum_steps: int = 1) -> Callable:
+def make_train_step(model: nn.Module, optimizer: FlatOptimizer,
+                    device="cuda", accum_steps: int = 1) -> Callable:
     """Move `model` to `device` (the CUDA card unless "cpu" is asked for;
     raises without a card) and return its train step. Create the state with
     `TrainState.create(model, optimizer)` afterwards."""
-    if not isinstance(optimizer, FlatAdam):
-        raise TypeError("the port's train step takes a FlatAdam optimizer")
+    if not (callable(getattr(optimizer, "init", None))
+            and callable(getattr(optimizer, "apply_", None))):
+        raise TypeError("the port's train step takes a flat optimizer "
+                        "(init, apply_: train/optim.py FlatOptimizer)")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

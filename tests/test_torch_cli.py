@@ -1,0 +1,312 @@
+"""The slice as a whole: the port's `asr_train` and `asr_inference` against
+the JAX package's, on the CPU.
+
+A synthesised corpus (12 training and 4 validation utterances) and the
+reduced settings of tests/test_recipe.py (a conformer of d_model 32, one
+encoder and one decoder layer, 24 mels, global MVN, SpecAug off, dropout 0,
+`sgd` with a constant rate, 2 epochs, 2 micro-batches a step). Both
+packages' `ASRTask.main` start from the same JAX initial parameters
+(`--run.init_param`); `sgd` keeps the comparison linear in the gradients
+(Adam is held by tests/test_torch_optim.py). Then each package's
+`asr_inference` decodes both experiment directories.
+"""
+
+import json
+import shutil
+
+import jax
+import jax.numpy as jnp
+import flax.linen as fnn
+import numpy as np
+import pytest
+import torch
+
+from espnet_tpu.bin import asr_inference as jinference
+from espnet_tpu.data.dataset import EpochIterator as JEpochIterator
+from espnet_tpu.data.sampler import build_batches as jbuild_batches
+from espnet_tpu.data.synth import generate_corpus as jgenerate_corpus
+from espnet_tpu.data.tokenizer import TokenIDConverter
+from espnet_tpu.tasks.asr import ASRTask as JASRTask
+from espnet_tpu.train.checkpoint import save_pytree
+from espnet_tpu.utils.config import dataclass_to_dict as jdataclass_to_dict
+from espnet_tpu_torch.bin import asr_inference as tinference
+from espnet_tpu_torch.bin import asr_train as ttrain
+from espnet_tpu_torch.data.dataset import EpochIterator as TEpochIterator
+from espnet_tpu_torch.data.sampler import build_batches as tbuild_batches
+from espnet_tpu_torch.data.synth import generate_corpus
+from espnet_tpu_torch.tasks.asr import ASRTask as TASRTask
+from espnet_tpu_torch.train.msgpack_io import flatten, load_tree
+
+STAT_RTOL = 1e-4       # epoch means of loss and acc
+PARAM_REL_L2 = 1e-4    # averaged parameters, per leaf
+# encoder/embed/conv0/bias starts at 0 and holds only the steps' updates,
+# each a sum over every frame and channel of the first conv's output
+# gradient; float32 rounding of those sums, compounded over the six steps,
+# moves it by 1.53e-4 of its norm (the other leaves: 8.2e-5 at most)
+PARAM_REL_L2_CONV0_BIAS = 3e-4
+# a leaf whose reference update over the run is below this share of the
+# whole tree's has a gradient of 0 and holds rounding noise only (the key
+# projections' biases: softmax ignores a per-query constant); it is left out
+ZERO_GRAD_SHARE = 1e-6
+SCORE_TOL = 1e-3
+FEATS_RTOL = 1e-4
+
+ARGS = (
+    "--run.max_epoch 2 --run.log_interval 1 --run.accum_grad 2 "
+    "--data.batch_size 4 "
+    "--model.n_mels 24 --model.use_specaug false "
+    "--model.normalize global_mvn --model.encoder_type conformer "
+    "--model.d_model 32 --model.num_heads 2 --model.d_ff 64 "
+    "--model.num_encoder_layers 1 --model.num_decoder_layers 1 "
+    "--model.decoder_d_ff 64 --model.dropout_rate 0.0 "
+    "--model.conformer_kernel_size 7 "
+    "--optim.name sgd --optim.schedule constant --optim.lr 0.003"
+).split()
+DECODE = ["--beam_size", "2", "--max_steps", "24", "--nbest", "2",
+          "--batch_size", "4"]
+
+
+def _argv(ws, out, *extra):
+    return ARGS + ["--data.train_dir", str(ws / "train"),
+                   "--data.valid_dir", str(ws / "valid"),
+                   "--run.output_dir", str(ws / out), *extra]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    ws = tmp_path_factory.mktemp("cli")
+    generate_corpus(ws / "train", n_utts=12, seed=0)
+    generate_corpus(ws / "valid", n_utts=4, seed=1)
+    # the JAX initial parameters: the token list and the stats come first
+    JASRTask.main(_argv(ws, "jexp", "--run.stats_only", "true"))
+    cfg = JASRTask.load_config(ws / "jexp")
+    vocab = len(TokenIDConverter.from_file(ws / "jexp" / "tokens.txt"))
+    jm = JASRTask.build_model(cfg["model"], vocab)
+    init = fnn.meta.unbox(jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 16000)), jnp.array([16000]),
+        jnp.ones((1, 3), jnp.int32), jnp.array([3]), True))
+    save_pytree(ws / "init.msgpack", init["params"])
+    init_param = ["--run.init_param", str(ws / "init.msgpack")]
+    jrun = JASRTask.main(_argv(ws, "jexp", *init_param))
+    trun = ttrain.main(_argv(ws, "texp", *init_param, "--device", "cpu"))
+    return ws, jrun[1].reporter, trun[1].reporter
+
+
+def test_corpus_writer_is_the_jax_one(tmp_path):
+    generate_corpus(tmp_path / "t", n_utts=2, seed=3)
+    jgenerate_corpus(tmp_path / "j", n_utts=2, seed=3)
+    assert (tmp_path / "t" / "text").read_text() == \
+        (tmp_path / "j" / "text").read_text()
+    for name in ("utt0000.wav", "utt0001.wav"):
+        assert (tmp_path / "t" / "wav" / name).read_bytes() == \
+            (tmp_path / "j" / "wav" / name).read_bytes()
+
+
+def test_batches_and_token_ids_match_jax(runs):
+    ws = runs[0]
+    out = {}
+    for task, build_batches, iterator, exp in (
+            (JASRTask, jbuild_batches, JEpochIterator, "jexp"),
+            (TASRTask, tbuild_batches, TEpochIterator, "texp")):
+        cfg = task.load_config(ws / exp)
+        data = cfg["data"]
+        tok = task.build_tokenizer(data, ws / exp)
+        conv = task.build_token_list(data, ws / exp, tok)
+        ds = task.build_dataset(data, ws / "train", tok, conv)
+        batches = build_batches(
+            {"speech": ds.speech_lengths(), "text": ds.text_lengths()},
+            batch_size=data.batch_size, length_quantum=data.length_quantum,
+            text_quantum=data.text_quantum)
+        it = iterator(ds, batches, seed=cfg["run"].seed, num_shards=1,
+                      shard_index=0)
+        out[exp] = [b for e in (1, 2) for b in it.epoch(e)]
+    assert len(out["jexp"]) == len(out["texp"]) == 6
+    for jb, tb in zip(out["jexp"], out["texp"]):
+        assert jb["keys"] == tb["keys"]
+        assert set(jb) == set(tb)
+        for k in jb:
+            if k != "keys":
+                np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
+
+
+def test_collect_stats_match_jax(runs):
+    ws = runs[0]
+    j = np.load(ws / "jexp" / "stats" / "feats_stats.npz")
+    t = np.load(ws / "texp" / "stats" / "feats_stats.npz")
+    for k in ("count", "sum", "sum_square"):
+        np.testing.assert_allclose(t[k], j[k], rtol=FEATS_RTOL, err_msg=k)
+    for name in ("speech_shape", "text_shape"):
+        assert (ws / "texp" / "stats" / name).read_text() == \
+            (ws / "jexp" / "stats" / name).read_text()
+
+
+def test_epoch_stats_match_jax(runs):
+    _, jrep, trep = runs
+    for epoch in (1, 2):
+        for phase in ("train", "valid"):
+            for key in ("loss", "acc"):
+                want = jrep.epochs[epoch][phase][key]
+                got = trep.epochs[epoch][phase][key]
+                np.testing.assert_allclose(
+                    got, want, rtol=STAT_RTOL,
+                    err_msg=f"epoch {epoch} {phase} {key}")
+    assert trep.epochs[2]["train"]["skipped"] == 0.0
+
+
+def test_averaged_params_and_token_list_match_jax(runs):
+    ws = runs[0]
+    names = ("config.yaml", "tokens.txt", "ep1.params.msgpack",
+             "ep2.params.msgpack", "valid.acc.best.params.msgpack",
+             "valid.acc.ave.params.msgpack", "checkpoint.meta.json")
+    for name in names:
+        assert (ws / "texp" / name).exists(), name
+    assert (ws / "texp" / "checkpoint.pt").exists()
+    assert (ws / "texp" / "tokens.txt").read_text() == \
+        (ws / "jexp" / "tokens.txt").read_text()
+    want = flatten(load_tree(ws / "jexp" / "valid.acc.ave.params.msgpack"))
+    got = flatten(load_tree(ws / "texp" / "valid.acc.ave.params.msgpack"))
+    init = flatten(load_tree(ws / "init.msgpack"))
+    assert set(got) == set(want) == set(init)
+    moved = {k: np.linalg.norm(w - init[k]) for k, w in want.items()}
+    whole = np.sqrt(sum(m ** 2 for m in moved.values()))
+    zero = {k for k, m in moved.items() if m < ZERO_GRAD_SHARE * whole}
+    assert zero and all(k.endswith("k_proj/bias") for k in zero), zero
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype == np.float32, k
+        if k in zero:
+            continue
+        limit = (PARAM_REL_L2_CONV0_BIAS if k == "encoder/embed/conv0/bias"
+                 else PARAM_REL_L2)
+        dev = np.linalg.norm(got[k] - w) / np.linalg.norm(w)
+        assert dev < limit, (k, dev)
+
+
+def test_each_package_reads_the_others_config(runs):
+    ws = runs[0]
+
+    def sections(task, exp):
+        cfg = task.load_config(ws / exp)
+        out = {s: jdataclass_to_dict(v) for s, v in cfg.items()}
+        out["run"].pop("output_dir")
+        return out
+
+    assert sections(JASRTask, "texp") == sections(JASRTask, "jexp")
+    assert sections(TASRTask, "jexp") == sections(TASRTask, "texp")
+
+
+def _nbest(path):
+    rows = [json.loads(line) for line in open(path / "nbest.jsonl")]
+    return {r["key"]: r for r in rows}
+
+
+@pytest.mark.parametrize("exp", ["texp", "jexp"],
+                         ids=["port_directory", "jax_directory"])
+def test_both_inference_clis_decode_either_directory(runs, exp):
+    ws = runs[0]
+    base = ["--exp_dir", str(ws / exp), "--data_dir", str(ws / "valid")]
+    jinference.main(base + ["--output_dir", str(ws / exp / "jdec")]
+                    + DECODE)
+    tinference.main(base + ["--output_dir", str(ws / exp / "tdec")]
+                    + DECODE + ["--device", "cpu"])
+    for name in ("text", "nbest.jsonl", "rtf.txt", "score_wer.txt",
+                 "score_cer.txt"):
+        assert (ws / exp / "tdec" / name).exists(), name
+    want, got = _nbest(ws / exp / "jdec"), _nbest(ws / exp / "tdec")
+    assert set(got) == set(want) and len(got) == 4
+    for key, w in want.items():
+        g = got[key]
+        if g["nbest"][0]["ids"] == w["nbest"][0]["ids"]:
+            assert abs(g["score"] - w["score"]) < SCORE_TOL, key
+            assert g["text"] == w["text"], key
+            continue
+        # a near-tie: each package's best must be the other's runner-up,
+        # within the score tolerance
+        runner = {tuple(h["ids"]): h["score"] for h in g["nbest"]}
+        best = tuple(w["nbest"][0]["ids"])
+        assert best in runner, key
+        assert abs(runner[best] - w["score"]) < SCORE_TOL, key
+        assert abs(g["score"] - w["score"]) < SCORE_TOL, key
+    assert (ws / exp / "tdec" / "text").read_text().count("\n") == 4
+
+
+def test_resume_runs_only_the_epochs_left(runs, tmp_path):
+    ws = runs[0]
+    shutil.copytree(ws / "texp", tmp_path / "texp")
+    out = ttrain.main(_argv(ws, "unused") + [
+        "--run.output_dir", str(tmp_path / "texp"), "--run.max_epoch", "3",
+        "--device", "cpu"])
+    trainer = out[1]
+    assert sorted(trainer.epoch_seconds) == [3]
+    assert sorted(trainer.reporter.epochs) == [1, 2, 3]
+    assert trainer.reporter.epochs[2] == runs[2].epochs[2]
+    assert (tmp_path / "texp" / "ep3.params.msgpack").exists()
+
+
+def test_profile_steps_write_a_trace(runs, tmp_path):
+    ws = runs[0]
+    out = ttrain.main(_argv(ws, "unused") + [
+        "--run.output_dir", str(tmp_path / "p"), "--run.max_epoch", "1",
+        "--run.profile_steps", "1", "--device", "cpu"])
+    trace = json.loads((tmp_path / "p" / "profile" / "trace.json")
+                       .read_text())
+    assert trace["traceEvents"]
+    assert sorted(out[1].epoch_seconds) == [1]
+
+
+def test_jax_resume_state_is_refused(runs, tmp_path):
+    ws = runs[0]
+    (tmp_path / "jexp").mkdir()
+    for name in ("config.yaml", "tokens.txt", "checkpoint.msgpack",
+                 "checkpoint.meta.json"):
+        shutil.copy(ws / "jexp" / name, tmp_path / "jexp" / name)
+    shutil.copytree(ws / "jexp" / "stats", tmp_path / "jexp" / "stats")
+    with pytest.raises(RuntimeError, match="cross-package resume"):
+        ttrain.main(_argv(ws, "unused") + [
+            "--run.output_dir", str(tmp_path / "jexp"), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("extra, item", [
+    (["--search", "timesync"], 7),
+    (["--lm_exp_dir", "lm"], 7),
+    (["--word_lm_exp_dir", "wlm"], 7),
+    (["--ngram_file", "x.arpa"], 7),
+    (["--lm_weight", "0.3"], 7),
+    (["--ngram_weight", "0.3"], 7),
+], ids=["timesync", "lm_exp_dir", "word_lm_exp_dir", "ngram_file",
+        "lm_weight", "ngram_weight"])
+def test_unported_inference_flags_raise(runs, extra, item):
+    ws = runs[0]
+    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
+        tinference.main(["--exp_dir", str(ws / "texp"), "--data_dir",
+                         str(ws / "valid"), "--output_dir",
+                         str(ws / "unused"), "--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("extra, item", [
+    (["--model.interctc_weight", "0.3"], 2),
+    (["--model.ctc_weight", "1.0"], 2),
+    (["--model.remat_encoder", "true"], 2),
+    (["--model.input_type", "feats"], 2),
+    (["--model.decoder_type", "rnn"], 6),
+    (["--model.encoder_type", "longformer"], 6),
+    (["--run.plot_attention", "true"], 3),
+], ids=["interctc", "ctc_weight_1", "remat", "feats", "rnn_decoder",
+        "longformer", "plot_attention"])
+def test_unported_train_options_raise(runs, tmp_path, extra, item):
+    ws = runs[0]
+    argv = _argv(ws, "unused") + ["--run.output_dir", str(tmp_path / "x"),
+                                  "--device", "cpu"] + extra
+    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
+        ttrain.main(argv)
+
+
+def test_entry_points_raise_without_a_card(runs, tmp_path, monkeypatch):
+    ws = runs[0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(_argv(ws, "unused") + ["--run.output_dir",
+                                           str(tmp_path / "x")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tinference.main(["--exp_dir", str(ws / "texp"), "--data_dir",
+                         str(ws / "valid"), "--output_dir",
+                         str(tmp_path / "d")])

@@ -858,3 +858,40 @@ def test_conv_kernels_raise_past_their_shapes(cuda):
         x, mask, params = _module_args(cuda, torch.float32, (9, 4), 9, d, k)
         with pytest.raises(ValueError, match="up to"):
             tcm.conv_module(x, mask, *params, kernel_size=k)
+
+
+@pytest.mark.gpu
+def test_asr_cli_trains_and_decodes_on_the_card(cuda, tmp_path):
+    """asr_train for one epoch and asr_inference on a 4-utterance corpus,
+    both on the card (their default device), through the ported kernels:
+    the conformer of d_model 128 takes the rel-pos and pre-norm FFN kernels,
+    and the CTC loss the lattice pair."""
+    from espnet_tpu_torch.bin import asr_inference, asr_train
+    from espnet_tpu_torch.data.synth import generate_corpus
+    from espnet_tpu_torch.ops import ctc_lattice
+
+    generate_corpus(tmp_path / "data", n_utts=4, seed=0)
+    for fn in (trel.relpos_attention, tffn.prenorm_ffn,
+               ctc_lattice.ctc_alphas):
+        fn.launches = 0
+    asr_train.main([
+        "--data.train_dir", str(tmp_path / "data"),
+        "--data.valid_dir", str(tmp_path / "data"),
+        "--run.output_dir", str(tmp_path / "exp"), "--run.max_epoch", "1",
+        "--data.batch_size", "4", "--model.d_model", "128",
+        "--model.num_heads", "2", "--model.d_ff", "256",
+        "--model.num_encoder_layers", "2", "--model.num_decoder_layers", "1",
+        "--model.decoder_d_ff", "256", "--model.n_mels", "40",
+        "--optim.name", "adamw", "--optim.weight_decay", "0.01"])
+    for fn in (trel.relpos_attention, tffn.prenorm_ffn,
+               ctc_lattice.ctc_alphas):
+        assert fn.launches > 0, fn.__name__
+    for name in ("ep1.params.msgpack", "valid.acc.ave.params.msgpack",
+                 "checkpoint.pt", "stats/feats_stats.npz"):
+        assert (tmp_path / "exp" / name).exists(), name
+    hyps = asr_inference.main([
+        "--exp_dir", str(tmp_path / "exp"), "--data_dir",
+        str(tmp_path / "data"), "--output_dir", str(tmp_path / "dec"),
+        "--beam_size", "4", "--max_steps", "8", "--batch_size", "4"])
+    assert len(hyps) == 4
+    assert (tmp_path / "dec" / "score_cer.txt").exists()

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no JAX, no espnet_tpu, no triton at import.
 
-The card's machine has torch but no jax/flax/optax, so any such import in
-espnet_tpu_torch/ or chip_smoke.py would kill the run there. Entry points
+The card's machine has torch but no jax/flax/optax/yaml/msgpack, so any such
+import in espnet_tpu_torch/ or chip_smoke.py would kill the run there. Entry points
 run on the CUDA card unless the caller passes device="cpu", and raise
 rather than fall back when there is no card.
 """
@@ -16,7 +16,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "espnet_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "espnet_tpu", "triton")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "espnet_tpu", "triton", "yaml",
+             "msgpack")
 
 
 def _port_files():
@@ -66,11 +67,12 @@ def test_no_forbidden_module_level_import(path):
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_package_anywhere(path):
-    """Not even inside a function: the port keeps its own copies."""
+    """Not even inside a function: the port keeps its own copies (and its
+    own YAML and msgpack codecs)."""
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [n for n in _all_imports(tree)
            if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                  "espnet_tpu")]
+                                  "espnet_tpu", "yaml", "msgpack")]
     assert not bad, f"{path}: imports {bad}"
 
 
@@ -81,7 +83,9 @@ def test_port_files_found():
             "dropout.py", "specaug.py", "losses.py", "schedulers.py",
             "optim.py", "steps.py", "ffn.py", "flash_attention.py",
             "branchformer.py", "normalize.py", "ffn_common.py",
-            "configs.py", "conv_glu.py", "conv_module.py"} <= names
+            "configs.py", "conv_glu.py", "conv_module.py", "asr_train.py",
+            "trainer.py", "checkpoint.py", "msgpack_io.py", "config.py",
+            "dataset.py", "collect_stats.py", "pretrained.py"} <= names
 
 
 _NO_CARD_SCRIPT = r"""
@@ -89,6 +93,8 @@ import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["optax"] = None
+sys.modules["yaml"] = None
+sys.modules["msgpack"] = None
 import torch
 torch.cuda.is_available = lambda: False
 from espnet_tpu_torch.decode.asr_inference import Speech2Text
@@ -119,6 +125,19 @@ for make in (lambda d: make_train_step(model, tx, device=d),
         else:
             raise SystemExit(f"device={device!r} did not raise without a card")
     make("cpu")
+from espnet_tpu_torch.bin import asr_inference, asr_train
+clis = (lambda extra: asr_train.main(["--run.output_dir", "unused"] + extra),
+        lambda extra: asr_inference.main(["--exp_dir", "unused", "--data_dir",
+                                          "unused", "--output_dir", "unused"]
+                                         + extra))
+for cli in clis:
+    for extra in ([], ["--device", "cuda"]):
+        try:
+            cli(extra)
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+        else:
+            raise SystemExit(f"{extra} did not raise without a card")
 print("OK")
 """
 

@@ -224,8 +224,12 @@ def test_flat_adam_clip_and_nan_skip_match_jax():
 
 
 def test_build_optimizer_takes_fused_adam_only():
-    with pytest.raises(NotImplementedError):
-        toptim.build_optimizer("adamw")
+    """Every name of the JAX build_optimizer builds a flat optimizer (the
+    port's train step takes no other); an unknown name raises as in JAX."""
+    for name in ("fused_adam", "adam", "adamw", "sgd", "adadelta"):
+        assert isinstance(toptim.build_optimizer(name), toptim.FlatOptimizer)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        toptim.build_optimizer("lamb")
 
 
 # ---------------------------------------------------------------- the slice
