@@ -82,11 +82,39 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    validation and decoding; it prints the collect-stats time, each epoch's
    wall time, step_time, peak device memory and the decode RTF beside the
    card's name and power limit;
-7. a `{"kernels": [...]}` JSON line (training shapes, bfloat16; launches
+7. asr-variants: the rest of the ASR model at full width (bf16, random
+   weights from seed 0), each case with its exact kernel launches:
+   `conformer_interctc` and `transformer_interctc` (InterCTC at layer 6 of
+   12, weight 0.3: the CTC pair twice a step, the stats
+   `loss_interctc_layer6`, a float32 train step against the plain path;
+   3 steps at B=64 and 2 at B=16 x 15 s), `conformer_ctc_only` (no decoder
+   params, Speech2Text refuses, `ctc_greedy_decode` on the 4 requests'
+   log-probs, 3 steps), `conformer_att_only` (no CTC head, no CTC launch,
+   Speech2Text with CTC weight 0, 2 steps), `conformer_remat` on the plain
+   and whole-module conv routes (a float32 B=16 step with remat equal to
+   one without from the same parameters and generator: loss within 1e-6,
+   gradients within relative L2 1e-5, the generator left in the same
+   state; then 3 bf16 steps at B=64 each way, with peak memory and
+   ms/step), and the `feats` (80-dim log-mel through a Kaldi feats.scp),
+   `sliding_window` (window 400, hop 160) and `fused` (n_fft 512 and
+   1024, 160 wide) frontends (serve with the float32 encoder output
+   against the plain path, 2 steps at B=16, the encoder's input width the
+   frontend's);
+8. recipe: `python -m espnet_tpu_torch.bin.run --config
+   egs/librispeech_100/conf/train_asr_conformer.yaml` in a temporary
+   directory with printed overrides (a 64-utterance synthetic corpus,
+   char tokens, test set test_clean, the `cli` phase's asr_args, stages
+   1-12): every marker and stage file, the exact kernel launches of each
+   CLI it runs (read from `ops/launches.py`'s log), the rel-pos attention,
+   pre-norm FFN and CTC pair against their plain versions on two of the
+   recipe's own micro-batches (T' below one tile), each with a float32
+   train step with kernels against plain, each stage's wall and the
+   decode RTF, then a second call that skips every stage;
+9. a `{"kernels": [...]}` JSON line (training shapes, bfloat16; launches
    from the 3 timed train steps of the configuration whose path holds the
    kernel: the conformer's, the transformer's for flash attention, the
    E-Branchformer's for `fused_ffn`, the two conv routes' for theirs);
-8. last line: {"ok": true, "device": {...}}.
+10. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -935,30 +963,9 @@ def serve_shapes(cfg, lengths):
 
 def reset_counts():
     """Set every kernel's launch count to 0; returns the wrappers by name."""
-    from espnet_tpu_torch.ops import (conv_glu, conv_module, ctc_lattice, ffn,
-                                      flash_attention, prenorm_ffn,
-                                      relpos_attention)
+    from espnet_tpu_torch.ops import launches
 
-    wrappers = {
-        "relpos_attention": relpos_attention.relpos_attention,
-        "relpos_attention_bwd": relpos_attention.relpos_attention_bwd,
-        "prenorm_ffn": prenorm_ffn.prenorm_ffn,
-        "prenorm_ffn_bwd": prenorm_ffn.prenorm_ffn_bwd,
-        "ctc_alphas": ctc_lattice.ctc_alphas,
-        "ctc_gamma": ctc_lattice.ctc_gamma,
-        "fused_ffn": ffn.fused_ffn,
-        "fused_ffn_bwd": ffn.fused_ffn_bwd,
-        "flash_attention": flash_attention.flash_attention,
-        "prenorm_glu": conv_glu.prenorm_glu,
-        "prenorm_glu_bwd": conv_glu.prenorm_glu_bwd,
-        "postnorm_proj": conv_glu.postnorm_proj,
-        "postnorm_proj_bwd": conv_glu.postnorm_proj_bwd,
-        "conv_module": conv_module.conv_module,
-        "conv_module_bwd": conv_module.conv_module_bwd,
-    }
-    for fn in wrappers.values():
-        fn.launches = 0
-    return wrappers
+    return launches.reset()
 
 
 def sync(torch, device):
@@ -966,10 +973,13 @@ def sync(torch, device):
         torch.cuda.synchronize()
 
 
-def phase_serve(torch, np, cfg, device="cuda", tag="serve", options=None):
+def phase_serve(torch, np, cfg, device="cuda", tag="serve", options=None,
+                inputs=None):
     """Serve the requests through Speech2Text; returns the launch counts of
-    the served run. (device="cpu" with a small config rehearses the phase
-    where there is no card: the wrappers then take their plain versions.)"""
+    the served run. `inputs`: (speech, lengths) in place of the requests'
+    waveforms (features, for input_type feats). (device="cpu" with a small
+    config rehearses the phase where there is no card: the wrappers then
+    take their plain versions.)"""
     import dataclasses
 
     from espnet_tpu_torch.decode.asr_inference import Speech2Text
@@ -983,7 +993,7 @@ def phase_serve(torch, np, cfg, device="cuda", tag="serve", options=None):
     n_params = sum(p.numel() for p in model.parameters())
     log(tag, f"model built: {n_params} parameters, compute "
         f"{cfg.dtype}, {time.perf_counter() - t:.1f}s")
-    speech, lengths = requests(np)
+    speech, lengths = requests(np) if inputs is None else inputs
     t = time.perf_counter()
     warm = s2t(speech, lengths, nbest=10)
     sync(torch, device)
@@ -1058,9 +1068,10 @@ def train_batch(np, b, seconds, u, vocab, seed):
 
 
 def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity",
-                       options=None):
+                       options=None, batch=None):
     """One float32 forward and backward of the full-width model with the
-    kernels and with their plain versions (dropout and SpecAug off)."""
+    kernels and with their plain versions (dropout and SpecAug off), on
+    the requests' waveforms with random labels or on `batch`."""
     import dataclasses
 
     from espnet_tpu_torch.models.asr import ASRModel, init_random_
@@ -1070,8 +1081,9 @@ def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity",
     model = init_random_(ASRModel(cfg, options),
                          torch.Generator().manual_seed(1))
     model = model.to(device).train()
-    batch = train_batch(np, len(REQUEST_SECONDS), REQUEST_SECONDS, 20,
-                        cfg.vocab_size, 2)
+    if batch is None:
+        batch = train_batch(np, len(REQUEST_SECONDS), REQUEST_SECONDS, 20,
+                            cfg.vocab_size, 2)
     args = [torch.from_numpy(batch[k]).to(device) for k in
             ("speech", "speech_lengths", "text", "text_lengths")]
     names = [n for n, _ in model.named_parameters()]
@@ -1095,7 +1107,7 @@ def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity",
                           / max(float(b.double().norm()),
                                 TRAIN_GRAD_FLOOR * total)), n)
                    for n, a, b in zip(names, gk, gp)), reverse=True)
-    log(tag, f"float32, B={len(REQUEST_SECONDS)}: loss kernels "
+    log(tag, f"float32, B={args[0].shape[0]}: loss kernels "
         f"{lk:.6f} vs plain {lp:.6f} (relative {loss_dev:.2e}, limit "
         f"{TRAIN_FP32_LOSS_RTOL}); whole gradient relative L2 {whole:.2e} "
         f"(norm {total:.4e}); worst tensor {devs[0][0]:.2e} ({devs[0][1]}), "
@@ -1111,11 +1123,15 @@ def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity",
 
 def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
                 seconds=TRAIN_SECONDS, labels=TRAIN_LABELS,
-                steps=TRAIN_TIMED_STEPS, tag="train", options=None):
+                steps=TRAIN_TIMED_STEPS, tag="train", options=None,
+                batch=None, need_stats=()):
     """The bench's training run through make_train_step: 1 warm-up step,
-    then `steps` timed steps. Returns the launch counts of the timed steps.
-    (device="cpu" with a small config rehearses the phase where there is no
-    card: the wrappers then take their plain versions.)"""
+    then `steps` timed steps. `batch` replaces the bench's waveforms (e.g.
+    features); every step's stats must carry the keys `need_stats`. Returns
+    the launch counts of the timed steps, the seconds a step and the peak
+    device memory in GiB. (device="cpu" with a small config rehearses the
+    phase where there is no card: the wrappers then take their plain
+    versions.)"""
     from espnet_tpu_torch.models.asr import ASRModel, init_random_
     from espnet_tpu_torch.train.optim import build_optimizer
     from espnet_tpu_torch.train.steps import TrainState, make_train_step
@@ -1127,8 +1143,9 @@ def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
                          warmup_steps=25000, d_model=cfg.d_model)
     step = make_train_step(model, tx, device=device)
     state = TrainState.create(model, tx)
-    batch = train_batch(np, batch_size, [seconds] * batch_size, labels,
-                        cfg.vocab_size, 0)
+    if batch is None:
+        batch = train_batch(np, batch_size, [seconds] * batch_size, labels,
+                            cfg.vocab_size, 0)
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     gen = torch.Generator().manual_seed(0)
     log(tag, f"{sum(p.numel() for p in model.parameters())} parameters, "
@@ -1163,6 +1180,9 @@ def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
                                  "gradient norm")
         if vals["skipped"] != 0.0:
             raise AssertionError(f"train step {i + 1} was skipped")
+        missing = set(need_stats) - set(vals)
+        if missing:
+            raise AssertionError(f"train step {i + 1}: no stats {missing}")
     moved = float((state.params - before).abs().max())
     if not moved > 0.0:
         raise AssertionError("the train steps did not move the parameters")
@@ -1170,7 +1190,7 @@ def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
     log(tag, f"{steps} steps: {step_s * 1e3:.1f} ms/step, "
         f"{batch_size * seconds / step_s:.1f} audio-s/s, peak memory "
         f"{peak:.2f} GiB, max parameter move {moved:.3e}; launches {counts}")
-    return counts, step_s
+    return counts, step_s, peak
 
 
 def expected_counts(per_step: dict, steps: int) -> dict:
@@ -1194,9 +1214,10 @@ def run_config(torch, np, name, cfg, per_encode, per_step, parity=True,
     if parity:
         phase_train_parity(torch, np, cfg, tag=f"train-parity[{name}]",
                            options=options)
-    launches, _ = phase_train(torch, np, cfg, batch_size=train_batch_size,
-                              steps=train_steps, tag=f"train[{name}]",
-                              options=options)
+    launches, _, _ = phase_train(torch, np, cfg,
+                                 batch_size=train_batch_size,
+                                 steps=train_steps, tag=f"train[{name}]",
+                                 options=options)
     want = expected_counts(per_step, train_steps)
     if launches != want:
         raise AssertionError(f"{name}: {train_steps} train steps launched "
@@ -1292,19 +1313,27 @@ def check_cli_ffn(torch, mcfg, utts):
     a micro-batch's rows (`utts` utterances of CLI_SECONDS), as the macaron
     FFNs call them, in float32 and bfloat16."""
     from espnet_tpu_torch.models.subsampling import subsampled_length
-    from espnet_tpu_torch.ops.prenorm_ffn import (prenorm_ffn,
-                                                  prenorm_ffn_plain)
     from espnet_tpu_torch.ops.stft import stft_frames_lengths
 
     frames = stft_frames_lengths(torch.tensor([int(CLI_SECONDS
                                                    * SAMPLE_RATE)]),
                                  mcfg.n_fft, mcfg.hop_length)
     tp = int(subsampled_length(frames, mcfg.subsampling_factor)[0])
-    m, d, f = utts * tp, mcfg.d_model, mcfg.d_ff
+    check_ffn_rows(torch, mcfg, utts * tp, f"cli M={utts}x{tp}")
+
+
+def check_ffn_rows(torch, mcfg, m, label):
+    """The pre-norm FFN forward and backward against their plain versions
+    at the model's D and F and `m` rows, as the macaron FFNs call them
+    (swish, residual scale 0.5, the model's dropout), in float32 and
+    bfloat16."""
+    from espnet_tpu_torch.ops.prenorm_ffn import (prenorm_ffn,
+                                                  prenorm_ffn_plain)
+
+    d, f = mcfg.d_model, mcfg.d_ff
     kw = {"activation": "swish", "residual_scale": 0.5,
           "drop_rate": mcfg.dropout_rate, "seeds": (20240601, -77)}
-    label = (f"cli M={utts}x{tp} D={d} F={f} swish s=0.5 dropout "
-             f"{mcfg.dropout_rate}")
+    label = f"{label} D={d} F={f} swish s=0.5 dropout {mcfg.dropout_rate}"
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         es = 4 if dtype == torch.float32 else 2
@@ -1538,6 +1567,509 @@ def phase_cli(torch, np, smi):
         shutil.rmtree(ws, ignore_errors=True)
 
 
+# the asr-variants phase: the rest of the ASR model at the bench conformer's
+# (and the smoke transformer's) full widths, bf16, random weights from seed 0
+VARIANT_BATCH = 16  # the smaller cases' B (x 15 s)
+INTERCTC = {"interctc_layer_idx": (6,), "interctc_weight": 0.3}
+NO_CTC = {k: v for k, v in CONFORMER[1].items() if k not in CTC}
+# remat recomputes every block's forward kernels in the backward pass
+REMAT_STEP = {**CONFORMER[1], "relpos_attention": 2 * L,
+              "prenorm_ffn": 4 * L}
+REMAT_FP32_LOSS_RTOL, REMAT_FP32_GRAD_REL_L2 = 1e-6, 1e-5
+FRONTENDS = {  # case: (config overrides, the encoder's input width)
+    "conformer_feats": ({"input_type": "feats"}, 80),
+    "conformer_sliding_window": ({"input_type": "sliding_window",
+                                  "win_length": 400, "hop_length": 160}, 400),
+    "conformer_fused": ({"input_type": "fused", "n_fft": 512,
+                         "fused_n_fft2": 1024}, 160),
+}
+
+
+def check_case_launches(name, what, counts, per, n):
+    want = expected_counts(per, n)
+    if counts != want:
+        raise AssertionError(f"{name}: {what} launched {counts}, expected "
+                             f"{want}")
+
+
+def variant_model(torch, cfg, options=None):
+    from espnet_tpu_torch.models.asr import ASRModel, init_random_
+
+    return init_random_(ASRModel(cfg, options),
+                        torch.Generator().manual_seed(0))
+
+
+def check_remat_fp32(torch, np, cfg, options, tag):
+    """One float32 forward and backward (dropout 0.1, SpecAug on, B=16 x
+    15 s) with remat and one without, from the same parameters and
+    generator state: the same loss and gradients, and the generator left
+    in the same state."""
+    import dataclasses
+
+    from espnet_tpu_torch.models.asr import ASRModel
+
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    state = variant_model(torch, cfg, options).state_dict()
+    batch = train_batch(np, VARIANT_BATCH, [TRAIN_SECONDS] * VARIANT_BATCH,
+                        TRAIN_LABELS, cfg.vocab_size, 3)
+    args = [torch.from_numpy(batch[k]).cuda() for k in
+            ("speech", "speech_lengths", "text", "text_lengths")]
+    out = {}
+    for remat in (False, True):
+        model = ASRModel(dataclasses.replace(cfg, remat_encoder=remat),
+                         options)
+        model.load_state_dict(state)
+        model = model.cuda().train()
+        gen = torch.Generator().manual_seed(7)
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = model(*args, generator=gen)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        out[remat] = (float(loss.detach()), [g.double() for g in grads],
+                      gen.get_state(),
+                      torch.cuda.max_memory_allocated() / 2 ** 30)
+        del model, loss
+    (lp, gp, sp, mp), (lr, gr, sr, mr) = out[False], out[True]
+    loss_dev = abs(lr - lp) / abs(lp)
+    total = float(torch.sqrt(sum((g ** 2).sum() for g in gp)))
+    worst = max(float((a - b).norm() / max(float(b.norm()),
+                                           TRAIN_GRAD_FLOOR * total))
+                for a, b in zip(gr, gp))
+    log(tag, f"float32 B={VARIANT_BATCH}, dropout {cfg.dropout_rate}, "
+        f"SpecAug on: loss with remat {lr:.7f} vs without {lp:.7f} "
+        f"(relative {loss_dev:.2e}, limit {REMAT_FP32_LOSS_RTOL}); worst "
+        f"gradient relative L2 {worst:.2e} over {len(gp)} tensors (limit "
+        f"{REMAT_FP32_GRAD_REL_L2}); generator state equal "
+        f"{torch.equal(sr, sp)}; peak {mr:.2f} vs {mp:.2f} GiB")
+    if (loss_dev > REMAT_FP32_LOSS_RTOL or worst > REMAT_FP32_GRAD_REL_L2
+            or not torch.equal(sr, sp)):
+        raise AssertionError(f"{tag}: the remat step is not the plain step")
+
+
+def feats_inputs(torch, np, cfg, speech, lengths, ws):
+    """The waveforms' 80-dim log-mel (the card's frontend), written to a
+    Kaldi feats.scp by the port's kaldi_io and read back, padded:
+    ((B, T, 80), frames)."""
+    from espnet_tpu_torch.data.kaldi_io import (open_feats_scp,
+                                                write_kaldi_ark_scp)
+    from espnet_tpu_torch.ops.stft import log_mel_spectrogram
+
+    with torch.no_grad():
+        f, n = log_mel_spectrogram(
+            torch.from_numpy(speech).cuda(),
+            torch.from_numpy(lengths).cuda(),
+            cfg.fs, cfg.n_fft, cfg.hop_length, cfg.win_length, cfg.n_mels)
+    f, n = f.cpu().numpy(), n.cpu().numpy()
+    keys = [f"utt{i:03d}" for i in range(len(n))]
+    write_kaldi_ark_scp({k: f[i, :n[i]] for i, k in enumerate(keys)},
+                        ws / "feats.ark", ws / "feats.scp")
+    scp = open_feats_scp(ws / "feats.scp")
+    mats = [scp[k] for k in keys]
+    out = np.zeros((len(mats), max(len(m) for m in mats), cfg.n_mels),
+                   np.float32)
+    for i, m in enumerate(mats):
+        out[i, :len(m)] = m
+    return out, np.array([len(m) for m in mats], np.int32)
+
+
+def phase_asr_variants(torch, np, smi):
+    """InterCTC (conformer and transformer), CTC-only and attention-only
+    conformers, remat on two conv routes, and the feats, sliding_window and
+    fused frontends, each with its exact kernel launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from espnet_tpu_torch.configs import bench_config
+    from espnet_tpu_torch.decode.asr_inference import Speech2Text
+    from espnet_tpu_torch.decode.ctc_greedy import ctc_greedy_decode
+    from espnet_tpu_torch.models.asr import feature_dim
+    from espnet_tpu_torch.models.subsampling import _conv_out_len
+    from espnet_tpu_torch.ops.launches import counts as launch_counts
+
+    bf16 = torch.bfloat16
+    # InterCTC at layer 6: the CTC pair once more a step
+    inter_step = {**CONFORMER[1], "ctc_alphas": 2, "ctc_gamma": 2}
+    name = "conformer_interctc"
+    cfg = bench_config(bf16, **INTERCTC)
+    phase_train_parity(torch, np, cfg, tag=f"train-parity[{name}]")
+    counts, _, _ = phase_train(
+        torch, np, cfg, tag=f"train[{name}]",
+        need_stats=("loss_interctc_layer6", "loss_interctc"))
+    check_case_launches(name, "3 train steps", counts, inter_step, 3)
+
+    name = "transformer_interctc"
+    cfg = bench_config(bf16, "transformer", **INTERCTC)
+    phase_train_parity(torch, np, cfg, tag=f"train-parity[{name}]")
+    counts, _, _ = phase_train(
+        torch, np, cfg, batch_size=VARIANT_BATCH, steps=2,
+        tag=f"train[{name}]",
+        need_stats=("loss_interctc_layer6", "loss_interctc"))
+    check_case_launches(name, "2 train steps", counts,
+                        {**CONFIGS["transformer"][1], "ctc_alphas": 2,
+                         "ctc_gamma": 2}, 2)
+
+    speech, lengths = requests(np)
+    name = "conformer_ctc_only"
+    cfg = bench_config(bf16, ctc_weight=1.0)
+    model = variant_model(torch, cfg)
+    if model.decoder is not None or any(
+            n.startswith("decoder.") for n in model.state_dict()):
+        raise AssertionError(f"{name}: the model has decoder params")
+    try:
+        Speech2Text(model)
+    except ValueError as e:
+        log(name, f"Speech2Text refuses: {e}")
+    else:
+        raise AssertionError(f"{name}: Speech2Text took a CTC-only model")
+    model = model.cuda().eval()
+    reset_counts()
+    with torch.no_grad():
+        enc, olens = model.encode(torch.from_numpy(speech).cuda(),
+                                  torch.from_numpy(lengths).cuda())
+        hyps = ctc_greedy_decode(model.ctc_log_probs(enc), olens)
+    counts = launch_counts()
+    check_case_launches(name, "one encode", counts, CONFORMER[0], 1)
+    if len(hyps) != len(lengths) or not all(
+            0 < i < cfg.vocab_size for h in hyps for i in h):
+        raise AssertionError(f"{name}: greedy CTC output out of range")
+    log(name, f"ctc_greedy_decode on the {len(lengths)} requests: "
+        f"{[len(h) for h in hyps]} tokens; launches exact")
+    del model, enc
+    counts, _, _ = phase_train(torch, np, cfg, tag=f"train[{name}]",
+                               need_stats=("loss_ctc", "ctc_infeasible"))
+    check_case_launches(name, "3 train steps", counts, CONFORMER[1], 3)
+
+    name = "conformer_att_only"
+    cfg = bench_config(bf16, ctc_weight=0.0)
+    model = variant_model(torch, cfg)
+    if model.ctc_head is not None or any(
+            n.startswith("ctc_head.") for n in model.state_dict()):
+        raise AssertionError(f"{name}: the model has ctc_head params")
+    s2t = Speech2Text(model, beam_size=10, ctc_weight=0.0,
+                      max_steps=40)
+    reset_counts()
+    t = time.perf_counter()
+    results = s2t(speech, lengths)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = launch_counts()
+    check_case_launches(name, "serving", counts, CONFORMER[0], 1)
+    if len(results) != len(lengths) or not all(
+            np.isfinite(r.score) for r in results):
+        raise AssertionError(f"{name}: bad decode results")
+    log(name, f"Speech2Text ctc_weight 0, beam 10, the {len(lengths)} "
+        f"requests (first call, with warm-up): wall {wall:.3f}s; no CTC "
+        f"launch [{smi}]")
+    del s2t, model
+    counts, _, _ = phase_train(
+        torch, np, cfg, batch_size=VARIANT_BATCH, steps=2,
+        tag=f"train[{name}]", need_stats=("loss_att", "acc"))
+    check_case_launches(name, "2 train steps", counts, NO_CTC, 2)
+
+    name = "conformer_remat"
+    for route, options, extra in (
+            ("plain", {}, {}),
+            ("fused_conv", {"fused_conv": True},
+             {"conv_module": 2 * L, "conv_module_bwd": L})):
+        tag = f"{name}[{route}]"
+        cfg = bench_config(bf16)
+        check_remat_fp32(torch, np, cfg, options, tag)
+        numbers = {}
+        for remat in (False, True):
+            c = dataclasses.replace(cfg, remat_encoder=remat)
+            counts, step_s, peak = phase_train(
+                torch, np, c, tag=f"train[{tag} remat {remat}]",
+                options=options)
+            per = dict(REMAT_STEP if remat else CONFORMER[1])
+            if extra:
+                per.update({k: (v if remat else L) for k, v in
+                            extra.items()})
+            check_case_launches(tag, "3 train steps", counts, per, 3)
+            numbers[remat] = (step_s, peak)
+        (s0, p0), (s1, p1) = numbers[False], numbers[True]
+        log(tag, f"bf16 B={TRAIN_BATCH} x {TRAIN_SECONDS} s: peak memory "
+            f"{p1:.2f} GiB with remat vs {p0:.2f} without "
+            f"({1 - p1 / p0:.1%} less); {s1 * 1e3:.1f} vs {s0 * 1e3:.1f} "
+            f"ms/step ({s1 / s0 - 1:+.1%}) [{smi}]")
+
+    ws = Path(tempfile.mkdtemp(prefix="chip_smoke_variants_"))
+    try:
+        for name, (overrides, width) in FRONTENDS.items():
+            cfg = bench_config(bf16, **overrides)
+            model = variant_model(torch, cfg)
+            got = model.encoder.embed.out.in_features
+            want = cfg.d_model * _conv_out_len(_conv_out_len(width, 3, 2),
+                                               3, 2)
+            if feature_dim(cfg) != width or got != want:
+                raise AssertionError(f"{name}: encoder input width "
+                                     f"{feature_dim(cfg)} ({got})")
+            del model
+            batch = train_batch(np, VARIANT_BATCH,
+                                [TRAIN_SECONDS] * VARIANT_BATCH,
+                                TRAIN_LABELS, cfg.vocab_size, 0)
+            inputs = None
+            if cfg.input_type == "feats":
+                inputs = feats_inputs(torch, np, cfg, speech, lengths, ws)
+                batch["speech"], batch["speech_lengths"] = feats_inputs(
+                    torch, np, cfg, batch["speech"],
+                    batch["speech_lengths"], ws)
+            log(name, f"frontend {cfg.input_type}: encoder input width "
+                f"{width}; train input {batch['speech'].shape}")
+            counts = phase_serve(torch, np, cfg, tag=f"serve[{name}]",
+                                 inputs=inputs)
+            check_case_launches(name, "one encode", counts, CONFORMER[0], 1)
+            counts, _, _ = phase_train(
+                torch, np, cfg, batch_size=VARIANT_BATCH, steps=2,
+                tag=f"train[{name}]", batch=batch)
+            check_case_launches(name, "2 train steps", counts,
+                                CONFORMER[1], 2)
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+
+
+# the recipe phase: the north-star config through bin.run, as a user runs it
+RECIPE_OVERRIDES = {
+    "--recipe.local_data": "synth",
+    "--recipe.synth_utts": "64",
+    # no LibriSpeech and no `tokenizers` on the card (as in the cli phase)
+    "--recipe.token_type": "char",
+    "--recipe.test_sets": "test_clean",
+    "--recipe.stop_stage": "12",
+}
+
+
+def recipe_micro_batches(np, ds, batches, accum):
+    """Two micro-batches of the recipe's training (make_train_step's split
+    of a batch into consecutive rows, as in `cli_expected`), collated from
+    its own data dir at the batch's padded shapes: the shortest, and the
+    one whose speech lengths spread the most."""
+    from espnet_tpu_torch.data.dataset import collate
+    from espnet_tpu_torch.data.sampler import Batch
+
+    lengths = ds.speech_lengths()
+    micro = []
+    for b in batches:
+        n = max(1, min(accum, len(b.keys)))
+        while len(b.keys) % n:
+            n -= 1
+        k = len(b.keys) // n
+        for i in range(0, len(b.keys), k):
+            keys = b.keys[i:i + k]
+            spread = max(lengths[u] for u in keys) - min(lengths[u]
+                                                         for u in keys)
+            micro.append((b.pad_shapes["speech"], -spread,
+                          Batch(keys, b.pad_shapes)))
+    shortest = min(micro, key=lambda m: m[:2])[2]
+    ragged = min(micro, key=lambda m: (m[1], m[0]))[2]
+    out = []
+    for mb in (shortest, ragged):
+        c = collate(ds, mb)
+        out.append({"speech": c["speech"].astype(np.float32),
+                    "speech_lengths": c["speech_lengths"],
+                    "text": c["text"], "text_lengths": c["text_lengths"]})
+    return out
+
+
+def check_recipe_kernels(torch, np, cfg, batch):
+    """The kernels of the recipe's path against their plain versions at the
+    shapes its training gives them (utterances of about a second: T' below
+    one tile): a float32 train step of the recipe's model (`cfg`, random
+    weights) on one of its micro-batches with kernels and plain, then at
+    that micro-batch's (B, T') and lengths, in float32 and bfloat16, the
+    rel-pos attention forward and backward and the pre-norm FFN at
+    M = B x T', and the CTC pair on its labels."""
+    import dataclasses
+
+    from espnet_tpu_torch.models.asr import ASRModel
+    from espnet_tpu_torch.ops import ctc as tctc
+    from espnet_tpu_torch.ops.relpos_attention import (
+        relpos_attention, relpos_attention_plain)
+
+    phase_train_parity(torch, np, cfg, tag="train-parity[recipe]",
+                       batch=batch)
+    if cfg.num_heads != 4 or cfg.d_model != 4 * 64:
+        raise AssertionError(f"recipe: {cfg.num_heads} heads of "
+                             f"{cfg.d_model // cfg.num_heads}, relpos_case "
+                             f"builds 4 of 64")
+    model = ASRModel(dataclasses.replace(cfg, dtype=torch.float32)).cuda()
+    with torch.no_grad():
+        enc, olens = model.eval().encode(
+            torch.from_numpy(batch["speech"]).cuda(),
+            torch.from_numpy(batch["speech_lengths"]).cuda())
+    b, tp = enc.shape[:2]
+    lengths = [int(n) for n in olens]
+    del model, enc
+    label = f"recipe B={b} H=4 T={tp} D=64 lengths {lengths}"
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        es = 4 if dtype == torch.float32 else 2
+        args, flops, nbytes = relpos_case(torch, b, tp, dtype, lengths, 31)
+        with torch.no_grad():
+            check_kernel(torch, "relpos_attention", relpos_attention,
+                         relpos_attention_plain, args, flops, nbytes, dn,
+                         label, iters=10)
+        gout = torch.randn(b, 4, tp, 64, generator=torch.Generator()
+                           .manual_seed(32)).to("cuda", dtype)
+        check_grads(
+            torch, "relpos_attention_bwd", dn, label, relpos_attention,
+            relpos_attention_plain, args, 6, gout, 16.0 * b * 4 * tp * tp * 64,
+            (7 * b * 4 * tp * 64 + 2 * 4 * (2 * tp - 1) * 64) * es + b * tp * 4
+            + b * 4 * tp * 12)
+    check_ffn_rows(torch, cfg, b * tp, f"recipe M={b}x{tp}")
+    rng = np.random.RandomState(33)
+    logits = torch.from_numpy(rng.randn(b, tp, cfg.vocab_size).astype(
+        np.float32)).cuda()
+    # as the loss calls the pair (ops/ctc.py _CTCFromLogits)
+    labels = torch.from_numpy(batch["text"]).cuda().long()
+    lab_lens = torch.from_numpy(batch["text_lengths"]).cuda().long()
+    ext = tctc.extended_labels(labels)
+    emit = tctc._emissions(logits, ext, torch.logsumexp(logits, -1))
+    check_ctc_pair(torch, emit, tctc.transition_mask(ext), olens.long(),
+                   lab_lens, f"recipe B={b} T={tp} S={ext.shape[1]} labels "
+                   f"{batch['text_lengths'].tolist()}")
+
+
+def recipe_call(ws, argv, env):
+    """Run bin.run in a subprocess from the repository root; returns its
+    log (stderr)."""
+    from pathlib import Path
+
+    cmd = [sys.executable, "-m", "espnet_tpu_torch.bin.run"] + argv
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, env=env,
+                          capture_output=True, text=True, timeout=600)
+    with (ws / "run.log").open("a") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:] + proc.stderr[-8000:], flush=True)
+        raise AssertionError(f"recipe: bin.run exited {proc.returncode}")
+    return proc.stderr
+
+
+def phase_recipe(torch, np, smi):
+    """`python -m espnet_tpu_torch.bin.run --config <north-star>` with the
+    printed overrides: every stage's marker and files, the kernel launches
+    of training and decoding, and a second call that skips every stage."""
+    import os
+    import re
+    import shlex
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from espnet_tpu_torch.ops.launches import LAUNCH_LOG_ENV
+    from espnet_tpu_torch.tasks.abs_task import pop_device
+    from espnet_tpu_torch.tasks.asr import ASRTask
+    from espnet_tpu_torch.utils.config import load_yaml
+
+    conf_path = Path(__file__).resolve().parent / CLI_CONF
+    conf = load_yaml(conf_path)["recipe"]
+    ws = Path(tempfile.mkdtemp(prefix="chip_smoke_recipe_"))
+    try:
+        exp, data = ws / "exp", ws / "data"
+        overrides = dict(RECIPE_OVERRIDES)
+        overrides["--recipe.expdir"] = str(exp)
+        overrides["--recipe.datadir"] = str(data)
+        overrides["--recipe.asr_args"] = shlex.join(
+            cli_argv(conf["asr_args"]))
+        argv = ["--config", str(conf_path)]
+        for flag, value in overrides.items():
+            log("recipe", f"set {flag} {value}")
+            argv += [flag, value]
+        env = dict(os.environ, **{LAUNCH_LOG_ENV: str(ws / "launches.jsonl")})
+        t = time.perf_counter()
+        out = recipe_call(ws, argv, env)
+        wall = time.perf_counter() - t
+        walls = re.findall(r"stage (\d+) \((.+?)\) done in ([\d.]+)s", out)
+        for n, title, sec in walls:
+            log("recipe", f"stage {n:>2} ({title}): {float(sec):.2f}s "
+                f"[{smi}]")
+        log("recipe", f"stages 1-12 in {wall:.1f}s (bin.run's wall)")
+        if sorted(int(n) for n, _, _ in walls) != list(range(1, 13)):
+            raise AssertionError(f"recipe: stages run {walls}")
+        for n in range(1, 13):
+            if not (exp / f".stage{n}.done").exists():
+                raise AssertionError(f"recipe: no .stage{n}.done")
+        asr = exp / "asr"
+        for f in (exp / "tokens" / "tokens.txt",
+                  asr / "stats" / "feats_stats.npz", asr / "config.yaml",
+                  asr / "ep1.params.msgpack", asr / "ep2.params.msgpack",
+                  asr / "valid.acc.ave.params.msgpack", asr / "checkpoint.pt",
+                  exp / "decode_test_clean" / "text",
+                  exp / "decode_test_clean" / "score_wer.txt",
+                  exp / "RESULTS.md", exp / "results.json",
+                  exp / "packed_model.zip"):
+            if not f.exists():
+                raise AssertionError(f"recipe: {f.relative_to(ws)} missing")
+        if "device" in (asr / "config.yaml").read_text().replace(
+                "device parallelism", ""):
+            raise AssertionError("recipe: --device went into config.yaml")
+
+        # the launches of each CLI the recipe ran, against the batches the
+        # task and the decoder build from the recipe's data dirs
+        calls = [json.loads(ln) for ln in
+                 (ws / "launches.jsonl").read_text().splitlines()]
+        if [c["cli"] for c in calls] != ["asr_train", "asr_train",
+                                         "asr_inference"]:
+            raise AssertionError(f"recipe: CLI calls {calls}")
+        cfg = ASRTask.parse_config(pop_device(calls[1]["argv"])[1])
+        run, dcfg, mcfg = cfg["run"], cfg["data"], cfg["model"]
+        tokens = ASRTask.build_tokenizer(dcfg, asr)
+        conv = ASRTask.build_token_list(dcfg, asr, tokens)
+        ds_train = ASRTask.build_dataset(dcfg, dcfg.train_dir, tokens, conv)
+        ds_valid = ASRTask.build_dataset(dcfg, dcfg.valid_dir, tokens, conv,
+                                         train=False)
+        per_epoch, micro = cli_expected(
+            cli_batches(ds_train, dcfg, dcfg.batch_size),
+            cli_batches(ds_valid, dcfg, dcfg.batch_size), run.accum_grad,
+            mcfg.num_encoder_layers)
+        check_launches("the recipe's collect-stats", calls[0]["launches"],
+                       expected_counts({}, 1))
+        check_launches("the recipe's training", calls[1]["launches"],
+                       {k: run.max_epoch * v for k, v in per_epoch.items()})
+        dargs = shlex.split(conf["decode_args"])
+        ds_test = ASRTask.build_dataset(dcfg, data / "test_clean", tokens,
+                                        conv, train=False)
+        n_dec = len(cli_batches(
+            ds_test, dcfg, int(dargs[dargs.index("--batch_size") + 1])))
+        check_launches("the recipe's decoding", calls[2]["launches"],
+                       expected_counts({
+                           "relpos_attention": mcfg.num_encoder_layers,
+                           "prenorm_ffn": 2 * mcfg.num_encoder_layers},
+                           n_dec))
+        log("recipe", f"{len(ds_train)} training utterances (speed "
+            f"perturbed x3), {micro} micro-batches an epoch, "
+            f"{run.max_epoch} epochs; {len(ds_test)} test utterances in "
+            f"{n_dec} decode batches; launches exact")
+        rcfg = ASRTask.build_model(mcfg, len(conv)).config
+        for batch in recipe_micro_batches(np, ds_train, cli_batches(
+                ds_train, dcfg, dcfg.batch_size), run.accum_grad):
+            check_recipe_kernels(torch, np, rcfg, batch)
+        rtf = (exp / "decode_test_clean" / "rtf.txt").read_text().strip()
+        wer = (exp / "decode_test_clean" / "score_wer.txt").read_text()
+        log("recipe", f"decode test_clean: {rtf} [{smi}]")
+        log("recipe", f"WER after {run.max_epoch} epochs (no gate): "
+            f"{wer.strip().splitlines()[-1] if wer.strip() else wer}")
+
+        # a second call skips every stage and runs no CLI
+        stamp = (asr / "ep2.params.msgpack").stat().st_mtime_ns
+        t = time.perf_counter()
+        out = recipe_call(ws, argv, env)
+        skipped = re.findall(r"stage (\d+) \(.+?\): already done, skipping",
+                             out)
+        calls2 = (ws / "launches.jsonl").read_text().splitlines()
+        if (sorted(int(n) for n in skipped) != list(range(1, 13))
+                or len(calls2) != len(calls)
+                or (asr / "ep2.params.msgpack").stat().st_mtime_ns != stamp):
+            raise AssertionError("recipe: the second call did not skip every "
+                                 "stage")
+        log("recipe", f"second call skipped stages 1-12 in "
+            f"{time.perf_counter() - t:.1f}s")
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1557,6 +2089,8 @@ def main() -> int:
         run_config(torch, np, c, bench_config(torch.bfloat16, **overrides),
                    *counts, parity=False, train_batch_size=16, train_steps=1)
     phase_cli(torch, np, smi)
+    phase_asr_variants(torch, np, smi)
+    phase_recipe(torch, np, smi)
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         r = results[kname]

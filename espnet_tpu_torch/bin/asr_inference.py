@@ -11,7 +11,11 @@ without one). The experiment directory may come from either package. Writes
 `score_wer.txt` and `score_cer.txt`. Not ported yet, and raising
 `NotImplementedError` when asked for (ROADMAP.md queue 1 item 7): `--search
 timesync`, `--lm_exp_dir`, `--word_lm_exp_dir`, `--ngram_file`, and a
-non-zero `--lm_weight` or `--ngram_weight`.
+non-zero `--lm_weight` or `--ngram_weight`. A CTC-only model (no decoder)
+raises a ValueError, and so does a `--ctc_weight` > 0 for an attention-only
+model (no CTC head), where the JAX CLI fails. With
+ESPNET_TPU_TORCH_LAUNCH_LOG set, the kernels' launch counts are appended to
+that file at exit (`ops/launches.py`).
 """
 
 from __future__ import annotations
@@ -90,6 +94,9 @@ def main(argv=None):
                         format="%(asctime)s %(levelname)s %(message)s")
     args = get_parser().parse_args(argv)
     _refuse_unported(args)
+    from espnet_tpu_torch.ops.launches import log_at_exit
+
+    log_at_exit("asr_inference")
     from espnet_tpu_torch.convert import load_jax_params
     from espnet_tpu_torch.data.dataset import EpochIterator
     from espnet_tpu_torch.data.fileio import (read_2column_text,
@@ -128,11 +135,11 @@ def main(argv=None):
         stats_path = exp / "stats" / "feats_stats.npz"
         # without stats the JAX package decodes with its init's identity
         # statistics; so does the port
+        dim = model.mvn.mean.numel()
         variables["mvn"] = (
             mvn_variables(load_stats(stats_path)) if stats_path.exists()
-            else {"mvn": {"mean": np.zeros(model.config.n_mels, np.float32),
-                          "inv_std": np.ones(model.config.n_mels,
-                                             np.float32)}})
+            else {"mvn": {"mean": np.zeros(dim, np.float32),
+                          "inv_std": np.ones(dim, np.float32)}})
     load_jax_params(model, variables)
 
     s2t = Speech2Text(

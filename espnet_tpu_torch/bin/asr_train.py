@@ -6,13 +6,17 @@
 
 Same flags, files and experiment directory as the JAX package's CLI. Runs
 on the CUDA card unless `--device cpu` is given, and raises without a card.
-`--print_config true` dumps the resolved config and exits.
+`--print_config true` dumps the resolved config and exits. With
+ESPNET_TPU_TORCH_LAUNCH_LOG set, the kernels' launch counts are appended to
+that file at exit (`ops/launches.py`).
 """
 
+from espnet_tpu_torch.ops.launches import log_at_exit
 from espnet_tpu_torch.tasks.asr import ASRTask
 
 
 def main(argv=None):
+    log_at_exit("asr_train")
     return ASRTask.main(argv)
 
 

@@ -15,8 +15,10 @@ leaves change layout:
 * `pos_bias_u` / `pos_bias_v` (H, dk) and every `bias` as they are.
 
 The fused and unfused JAX layers use the same param names, so one mapping
-serves both. The stacked `layers/block` layout of `scan_layers` is refused,
-and so is any leaf that the port's model has no place for.
+serves both. A conformer built with `scan_encoder_layers=True` keeps its
+blocks as one `encoder/block` of stacked (L, ...) leaves; the port's
+encoder is unrolled, so leaf i of the stack becomes `encoder.layer{i}`. A
+leaf that the port's model has no place for is refused.
 
 A global-MVN model keeps its feature statistics in the non-trainable JAX
 collection `mvn` ({"mvn": {"mvn": {"mean", "inv_std"}}}): pass the whole
@@ -36,6 +38,9 @@ its name, rank and owner (`weight` of rank 1 is a LayerNorm `scale`, of an
 `embed` module an `embedding`, else a `kernel` in the JAX layout). It gives
 the param tree that the JAX package saves as `ep<N>.params.msgpack`; the
 global-MVN buffers, which JAX keeps in its `mvn` collection, are left out.
+With `scan_layers` (a conformer built with `scan_encoder_layers`) the
+encoder's layers are stacked back into `encoder/block`, the tree JAX saves
+for such a model.
 """
 
 from __future__ import annotations
@@ -74,6 +79,46 @@ def _leaf(name: str, value: np.ndarray):
     raise ValueError(f"unknown parameter leaf {name!r}")
 
 
+SCAN_PREFIX = "encoder/block/"
+
+
+def _unstack_scan(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The stacked `encoder/block` leaves of a scan_layers tree as the
+    unrolled `encoder/layer{i}` leaves (the layer axis is the first)."""
+    out = {}
+    for path, value in flat.items():
+        if not path.startswith(SCAN_PREFIX):
+            out[path] = value
+            continue
+        rest = path[len(SCAN_PREFIX):]
+        for i in range(value.shape[0]):
+            out[f"encoder/layer{i}/{rest}"] = value[i]
+    return out
+
+
+def _stack_scan(tree: Dict[str, Dict]) -> Dict[str, Dict]:
+    """The inverse of `_unstack_scan` on a nested tree: the encoder's
+    `layer{i}` subtrees stacked into one `block`, in its place."""
+    enc = tree["encoder"]
+    layers = [k for k in enc if k.startswith("layer")]
+    if not layers:
+        raise ValueError("scan_layers: the encoder has no layer{i}")
+    subtrees = [enc[f"layer{i}"] for i in range(len(layers))]
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return np.ascontiguousarray(np.stack(xs))
+
+    out = {}
+    for key, value in enc.items():
+        if key == "layer0":
+            out["block"] = stack(*subtrees)
+        elif key not in layers:
+            out[key] = value
+    return {k: (out if k == "encoder" else v) for k, v in tree.items()}
+
+
 def _split_variables(tree: Mapping):
     """(params, mvn collection or None) of a JAX param tree or of a
     variables dict {"params", optionally "mvn"}."""
@@ -90,12 +135,8 @@ def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     for path, value in _flatten(mvn or {}).items():
         sd[path.replace("/", ".")] = torch.from_numpy(
             np.array(value, np.float32))
-    for path, value in _flatten(params).items():
+    for path, value in _unstack_scan(_flatten(params)).items():
         parts = path.split("/")
-        if "layers" in parts and "block" in parts:
-            raise NotImplementedError(
-                f"{path}: the stacked scan_layers layout is not ported yet; "
-                "convert a model built with scan_encoder_layers=False")
         leaf, arr = _leaf(parts[-1], value)
         key = ".".join(parts[:-1] + [leaf])
         if key in sd:
@@ -161,12 +202,14 @@ def _jax_leaf(key: str, value: np.ndarray):
     raise ValueError(f"{key}: weight of unexpected rank {value.ndim}")
 
 
-def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor]
-                             ) -> Dict[str, Dict]:
+def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor],
+                             scan_layers: bool = False) -> Dict[str, Dict]:
     """The JAX param tree (nested dicts of float32 numpy arrays, in the
     port's module order) of the port's `state_dict`: the inverse of
     `jax_params_to_state_dict` on a param tree. The global-MVN buffers are
-    left out (the JAX `mvn` collection is not a param)."""
+    left out (the JAX `mvn` collection is not a param). `scan_layers`
+    stacks the encoder's layers into the `encoder/block` of a JAX model
+    built with scan_encoder_layers=True."""
     tree: Dict[str, Dict] = {}
     for key, t in state_dict.items():
         if key in MVN_BUFFERS:
@@ -180,7 +223,17 @@ def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor]
         if leaf in cur:
             raise ValueError(f"two port leaves map to {key}")
         cur[leaf] = np.ascontiguousarray(arr, dtype=np.float32)
-    return tree
+    return _stack_scan(tree) if scan_layers else tree
+
+
+def model_params(model: torch.nn.Module) -> Dict[str, Dict]:
+    """The JAX param tree of `model`, stacked where its encoder says
+    `scan_layers` (only the conformer takes the flag, as in the JAX
+    package, which saves the other encoders unrolled)."""
+    encoder = getattr(model, "encoder", None)
+    return state_dict_to_jax_params(
+        model.state_dict(),
+        scan_layers=bool(getattr(encoder, "scan_layers", False)))
 
 
 def load_jax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:

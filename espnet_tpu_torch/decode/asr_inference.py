@@ -8,6 +8,13 @@ and a token converter, the best hypothesis's tokens and text. Runs on the
 CUDA card unless the caller passes device="cpu"; it never falls back on its
 own. Not ported yet: language models and n-gram scorers (ROADMAP.md queue 1
 item 7) and meshes.
+
+The search needs the model's attention decoder, and its CTC head unless
+`ctc_weight` is 0: a CTC-only model (`ctc_weight` 1.0 in training) or a
+`ctc_weight` > 0 on an attention-only model raises a ValueError that says
+so, where the JAX `Speech2Text` fails with an AttributeError. A CTC-only
+model decodes with `decode.ctc_greedy.ctc_greedy_decode` on
+`model.ctc_log_probs` of its encoder output.
 """
 
 from __future__ import annotations
@@ -50,6 +57,16 @@ class Speech2Text:
         (`data/tokenizer.py`) turn the best token ids into tokens and text.
         `max_steps` > 0 caps the label length on top of the encoder length.
         `extra_scorers`: weighted full scorers added to the search."""
+        if getattr(model, "decoder", None) is None:
+            raise ValueError(
+                "the model has no attention decoder (trained with ctc_weight "
+                "1.0): the joint CTC/attention beam search needs one; decode "
+                "a CTC-only model with decode.ctc_greedy.ctc_greedy_decode")
+        if ctc_weight > 0.0 and getattr(model, "ctc_head", None) is None:
+            raise ValueError(
+                f"ctc_weight {ctc_weight} needs a CTC head, and the model has "
+                "none (trained with ctc_weight 0.0): decode it with "
+                "ctc_weight 0")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         cfg = model.config

@@ -1,19 +1,25 @@
 """Joint CTC/attention ASR model (port of espnet_tpu/models/asr.py).
 
-The slice ported here: raw 16 kHz waveform -> log-mel -> SpecAug (training)
--> global MVN (stats in the `mvn` buffers, loaded from the JAX `mvn`
-collection), utterance MVN or none -> Conv2d subsampling -> a conformer,
-transformer, Branchformer or E-Branchformer encoder -> a CTC head and a
-transformer decoder. `forward` is the training loss (CTC weight
-`ctc_weight`, label-smoothed attention loss), `encode`, `ctc_log_probs` and
-the decoder's step scoring serve inference. sos = eos = vocab_size - 1 and
-blank = 0, as in the JAX package. Parameters are float32; `ASRConfig.dtype`
-is the compute dtype (bfloat16 for the bench model).
+The slice ported here: a frontend (`input_type`: "raw" 16 kHz waveform ->
+log-mel; "feats", precomputed features passed through; "sliding_window",
+raw-sample frames; "fused", two log-mel resolutions concatenated) ->
+SpecAug (training) -> global MVN (stats in the `mvn` buffers, loaded from
+the JAX `mvn` collection), utterance MVN or none -> Conv2d subsampling -> a
+conformer, transformer, Branchformer or E-Branchformer encoder -> a CTC
+head (when `ctc_weight` > 0) and a transformer decoder (when `ctc_weight`
+< 1). `forward` is the training loss (CTC weight `ctc_weight`, InterCTC on
+the encoder layers `interctc_layer_idx` mixed into the CTC loss with
+`interctc_weight`, label-smoothed attention loss), `encode`,
+`ctc_log_probs` and the decoder's step scoring serve inference. sos = eos =
+vocab_size - 1 and blank = 0, as in the JAX package. Parameters are
+float32; `ASRConfig.dtype` is the compute dtype (bfloat16 for the bench
+model).
 
 Dropout and SpecAug are on while the model is training and the caller
 passes a `torch.Generator`, from which all their randomness is drawn (the
-FFN kernels' seeds included). InterCTC and the other encoder, decoder and
-frontend families are not ported yet.
+FFN kernels' seeds included). The sinc (ROADMAP.md queue 1 item 6) and SSL
+(item 8) frontends, the multichannel frontend and the other encoder and
+decoder families are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,18 +41,21 @@ from espnet_tpu_torch.ops.losses import label_smoothing_loss, token_accuracy
 from espnet_tpu_torch.ops.masks import make_valid_mask
 from espnet_tpu_torch.ops.normalize import global_mvn, utterance_mvn
 from espnet_tpu_torch.ops.specaug import specaug
-from espnet_tpu_torch.ops.stft import log_mel_spectrogram
+from espnet_tpu_torch.ops.stft import frame_signal, log_mel_spectrogram
 
 
 @dataclasses.dataclass(frozen=True)
 class ASRConfig:
     """The fields of the JAX `ASRConfig` that this slice serves, with the
-    JAX defaults: a raw waveform frontend with SpecAug and a normalisation
+    JAX defaults: a frontend (`input_type`: "raw" | "feats" |
+    "sliding_window" | "fused") with SpecAug and a normalisation
     (`normalize`: "global_mvn" | "utterance_mvn" | "none"), an encoder
     (`encoder_type`: "conformer" | "transformer" | "branchformer" |
-    "e_branchformer") and a transformer decoder."""
+    "e_branchformer"), a CTC head and a transformer decoder."""
 
     vocab_size: int
+    input_type: str = "raw"
+    fused_n_fft2: int = 0  # second resolution of "fused" (0 = 2 * n_fft)
     fs: int = 16000
     n_fft: int = 512
     hop_length: int = 128
@@ -64,10 +73,18 @@ class ASRConfig:
     d_ff: int = 2048
     num_encoder_layers: int = 12
     subsampling_factor: int = 4
+    # recompute each encoder block's activations in the backward pass
+    # (conformer and transformer; inert for the branchformers, as in JAX)
+    remat_encoder: bool = False
+    # JAX checkpoints of the conformer hold one stacked `block` (convert.py)
+    scan_encoder_layers: bool = False
     conformer_kernel_size: int = 31
     num_decoder_layers: int = 6
     decoder_d_ff: int = 2048
     ctc_weight: float = 0.3
+    # InterCTC: auxiliary CTC on these 1-based encoder layers
+    interctc_layer_idx: Tuple[int, ...] = ()
+    interctc_weight: float = 0.0
     lsm_weight: float = 0.1
     dropout_rate: float = 0.1
     dtype: torch.dtype = torch.float32
@@ -86,7 +103,22 @@ class ASRConfig:
 
 
 NORMALIZE = ("global_mvn", "utterance_mvn", "none")
+INPUT_TYPES = ("raw", "feats", "sliding_window", "fused")
+# frontends of the JAX package that the port lacks -> ROADMAP.md item
+UNPORTED_INPUT_TYPES = {"sinc": 6, "ssl": 8}
 MERGE_KERNEL = 3  # the JAX BranchformerEncoder's default; no config field
+
+
+def feature_dim(c: ASRConfig) -> int:
+    """The width of the frontend's features: the encoder's input width and
+    the global MVN's (the JAX `GlobalMVN(feat_dim)`): `win_length` (400
+    unset) samples for "sliding_window", 2 x n_mels for "fused", else n_mels
+    (precomputed "feats" must be n_mels wide)."""
+    if c.input_type == "sliding_window":
+        return c.win_length or 400
+    if c.input_type == "fused":
+        return 2 * c.n_mels
+    return c.n_mels
 
 
 class GlobalMVN(nn.Module):
@@ -108,22 +140,28 @@ def build_encoder(c: ASRConfig,
                   encoder_options: Optional[Dict] = None) -> nn.Module:
     """The encoder of `c.encoder_type`, built as the JAX `ASRModel` builds
     it (the branchformers' cgMLP width is d_ff, their conv kernel the
-    conformer's). `encoder_options` are further keyword arguments of the
-    encoder's constructor that the JAX `ASRConfig` has no field for: the
-    conformer's kernel routes `fused_conv` and `fused_conv_split`."""
+    conformer's; they have no InterCTC and no remat), its input width the
+    frontend's (`feature_dim`). `encoder_options` are further keyword
+    arguments of the encoder's constructor that the JAX `ASRConfig` has no
+    field for: the conformer's kernel routes `fused_conv` and
+    `fused_conv_split`."""
     opts = dict(encoder_options or {})
+    n_feats = feature_dim(c)
+    capture = tuple(c.interctc_layer_idx)
     if c.encoder_type == "conformer":
         return ConformerEncoder(
-            c.n_mels, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
+            n_feats, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
             c.conformer_kernel_size, c.subsampling_factor, c.dtype,
-            c.dropout_rate, **opts)
+            c.dropout_rate, capture_layers=capture, remat=c.remat_encoder,
+            scan_layers=c.scan_encoder_layers, **opts)
     if c.encoder_type == "transformer":
         return TransformerEncoder(
-            c.n_mels, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
-            c.subsampling_factor, c.dtype, c.dropout_rate, **opts)
+            n_feats, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
+            c.subsampling_factor, c.dtype, c.dropout_rate,
+            capture_layers=capture, remat=c.remat_encoder, **opts)
     if c.encoder_type in VARIANTS:
         return BranchformerEncoder(
-            c.n_mels, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
+            n_feats, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
             cgmlp_hidden=c.d_ff, cgmlp_kernel=c.conformer_kernel_size,
             subsampling_factor=c.subsampling_factor, variant=c.encoder_type,
             merge_kernel=MERGE_KERNEL, dtype=c.dtype,
@@ -134,29 +172,50 @@ def build_encoder(c: ASRConfig,
 
 
 class ASRModel(nn.Module):
-    """Frontend + encoder + CTC head + transformer decoder.
-    `encoder_options` go to `build_encoder`."""
+    """Frontend + encoder + CTC head (ctc_weight > 0) + transformer decoder
+    (ctc_weight < 1). `encoder_options` go to `build_encoder`. A model
+    without a decoder has `decoder` None, one without a CTC head `ctc_head`
+    None, so their state dicts hold exactly the JAX model's leaves."""
 
     def __init__(self, config: ASRConfig,
                  encoder_options: Optional[Dict] = None):
         super().__init__()
-        if not 0.0 < config.ctc_weight < 1.0:
-            raise NotImplementedError(
-                f"ctc_weight {config.ctc_weight} is not ported yet: the port "
-                "serves joint CTC/attention models, 0 < ctc_weight < 1 "
-                "(ROADMAP.md queue 1 item 2)")
         c = config
+        if not 0.0 <= c.ctc_weight <= 1.0:
+            raise ValueError(f"ctc_weight {c.ctc_weight} not in [0, 1]")
         if c.normalize not in NORMALIZE:
             raise ValueError(f"normalize {c.normalize!r} not in {NORMALIZE}")
+        if c.input_type in UNPORTED_INPUT_TYPES:
+            raise NotImplementedError(
+                f"input_type {c.input_type!r} is not ported yet (ROADMAP.md "
+                f"queue 1 item {UNPORTED_INPUT_TYPES[c.input_type]})")
+        if c.input_type not in INPUT_TYPES:
+            raise ValueError(f"input_type {c.input_type!r} not in "
+                             f"{INPUT_TYPES}")
+        if c.interctc_layer_idx and c.encoder_type not in ("conformer",
+                                                           "transformer"):
+            raise ValueError(
+                "interctc_layer_idx requires a conformer/transformer encoder")
+        if not all(isinstance(i, int)
+                   and 1 <= i <= c.num_encoder_layers
+                   for i in c.interctc_layer_idx):
+            # the JAX model silently captures nothing for a string such as
+            # the CLI's "6" (a list needs "6," or "[6]")
+            raise ValueError(
+                f"interctc_layer_idx {c.interctc_layer_idx!r}: give 1-based "
+                f"layer numbers up to {c.num_encoder_layers} as a list "
+                "(--model.interctc_layer_idx 6, or [6] in YAML)")
         self.config = c
         self.encoder_options = dict(encoder_options or {})
         if c.normalize == "global_mvn":
-            self.mvn = GlobalMVN(c.n_mels)
+            self.mvn = GlobalMVN(feature_dim(c))
         self.encoder = build_encoder(c, self.encoder_options)
-        self.decoder = TransformerDecoder(
+        self.decoder = (TransformerDecoder(
             c.vocab_size, c.d_model, c.num_heads, c.decoder_d_ff,
             c.num_decoder_layers, c.dtype, c.dropout_rate)
-        self.ctc_head = Dense(c.d_model, c.vocab_size, dtype=c.dtype)
+            if c.ctc_weight < 1.0 else None)
+        self.ctc_head = (Dense(c.d_model, c.vocab_size, dtype=c.dtype)
+                         if c.ctc_weight > 0.0 else None)
         # False: the plain versions even on the card (chip_smoke.py compares)
         self.use_kernels = True
 
@@ -170,10 +229,35 @@ class ASRModel(nn.Module):
                 module.use_kernel = enabled
 
     def frontend(self, speech, speech_lengths, generator=None):
+        """speech (B, N) waveforms, or (B, T, D) features for "feats" ->
+        (normalised features (B, T, feature_dim), lengths)."""
         c = self.config
-        feats, feat_lengths = log_mel_spectrogram(
-            speech, speech_lengths, c.fs, c.n_fft, c.hop_length,
-            c.win_length, c.n_mels)
+        if c.input_type == "raw":
+            feats, feat_lengths = log_mel_spectrogram(
+                speech, speech_lengths, c.fs, c.n_fft, c.hop_length,
+                c.win_length, c.n_mels)
+        elif c.input_type == "sliding_window":
+            # raw-sample frames as features
+            # (`espnet2/asr/frontend/windowing.py` SlidingWindow)
+            feats = frame_signal(speech, c.win_length or 400, c.hop_length,
+                                 center=True)
+            feat_lengths = torch.clamp(
+                torch.div(speech_lengths, c.hop_length,
+                          rounding_mode="floor") + 1, max=feats.shape[1])
+        elif c.input_type == "fused":
+            # two spectral resolutions on the same hop grid, concatenated
+            # (`espnet2/asr/frontend/fused.py` FusedFrontends)
+            f1, feat_lengths = log_mel_spectrogram(
+                speech, speech_lengths, c.fs, c.n_fft, c.hop_length,
+                c.win_length, c.n_mels)
+            f2, _ = log_mel_spectrogram(
+                speech, speech_lengths, c.fs, c.fused_n_fft2 or 2 * c.n_fft,
+                c.hop_length, None, c.n_mels)
+            t = min(f1.shape[1], f2.shape[1])
+            feats = torch.cat([f1[:, :t], f2[:, :t]], dim=-1)
+            feat_lengths = torch.clamp(feat_lengths, max=t)
+        else:  # "feats": precomputed features
+            feats, feat_lengths = speech, speech_lengths
         if c.use_specaug and self.training and generator is not None:
             feats = specaug(generator, feats, feat_lengths,
                             num_freq_masks=c.num_freq_masks,
@@ -186,43 +270,77 @@ class ASRModel(nn.Module):
             feats = utterance_mvn(feats, feat_lengths)
         return feats, feat_lengths
 
+    def encode_with_intermediates(self, speech, speech_lengths,
+                                  generator=None):
+        """(encoder out (B, T', D), output lengths, [(layer, its output),
+        ...] of the InterCTC layers, empty without them)."""
+        feats, feat_lengths = self.frontend(speech, speech_lengths, generator)
+        out = self.encoder(feats, feat_lengths, generator)
+        if len(out) == 3:
+            return out
+        return out[0], out[1], []
+
     def encode(self, speech, speech_lengths, generator=None):
         """(B, N) waveform, (B,) lengths -> (encoder out (B, T', D),
-        output lengths)."""
-        feats, feat_lengths = self.frontend(speech, speech_lengths, generator)
-        return self.encoder(feats, feat_lengths, generator)
+        output lengths); InterCTC intermediates are dropped."""
+        out = self.encode_with_intermediates(speech, speech_lengths,
+                                             generator)
+        return out[0], out[1]
 
     def forward(self, speech, speech_lengths, text, text_lengths,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Training loss: (loss, stats with loss_ctc, ctc_infeasible,
-        loss_att, acc and loss). text: (B, U) int labels padded past
-        text_lengths. In training mode `generator` drives dropout and
-        SpecAug and is required when either is configured."""
+        """Training loss: (loss, stats). The stats are the JAX model's:
+        loss_ctc, loss_interctc_layer{i} and loss_interctc (InterCTC),
+        ctc_infeasible (with a CTC head), loss_att and acc (with a decoder),
+        and loss. text: (B, U) int labels padded past text_lengths. In
+        training mode `generator` drives dropout and SpecAug and is required
+        when either is configured."""
         c = self.config
         if (self.training and generator is None
                 and (c.dropout_rate > 0.0 or c.use_specaug)):
             raise ValueError("training with dropout or SpecAug needs a "
                              "torch.Generator")
-        enc, enc_lengths = self.encode(speech, speech_lengths, generator)
+        enc, enc_lengths, inters = self.encode_with_intermediates(
+            speech, speech_lengths, generator)
         text = text.long()
         text_lengths = text_lengths.long()
         stats = {}
-        loss_ctc = ctc_loss(self.ctc_head(enc), text, enc_lengths,
-                            text_lengths, c.blank_id,
-                            use_kernels=self.use_kernels)
-        stats["loss_ctc"] = loss_ctc
-        # utterances too short for any CTC alignment (zero_infinity zeroes
-        # them; a high share means the data or subsampling is wrong)
-        need = text_lengths + min_frames(text, text_lengths)
-        stats["ctc_infeasible"] = (enc_lengths < need).float().mean()
-        ys_in, ys_out, ys_lengths = add_sos_eos(text, text_lengths, c.sos_id,
-                                                c.eos_id)
-        logits = self.decoder(ys_in, ys_lengths, enc, enc_lengths, generator)
-        valid = make_valid_mask(ys_lengths, ys_in.shape[1])
-        loss_att = label_smoothing_loss(logits, ys_out, valid, c.lsm_weight)
-        stats["loss_att"] = loss_att
-        stats["acc"] = token_accuracy(logits, ys_out, valid)
+        loss_ctc = loss_att = 0.0
+        if self.ctc_head is not None:
+            loss_ctc = ctc_loss(self.ctc_head(enc), text, enc_lengths,
+                                text_lengths, c.blank_id,
+                                use_kernels=self.use_kernels)
+            stats["loss_ctc"] = loss_ctc
+            if inters and c.interctc_weight > 0.0:
+                # auxiliary CTC on intermediate layers, the same CTC head
+                # (`espnet2/asr/espnet_model.py:244-286`)
+                loss_inter = 0.0
+                for idx, h in inters:
+                    li = ctc_loss(self.ctc_head(h), text, enc_lengths,
+                                  text_lengths, c.blank_id,
+                                  use_kernels=self.use_kernels)
+                    stats[f"loss_interctc_layer{idx}"] = li
+                    loss_inter = loss_inter + li
+                loss_inter = loss_inter / len(inters)
+                loss_ctc = ((1.0 - c.interctc_weight) * loss_ctc
+                            + c.interctc_weight * loss_inter)
+                stats["loss_interctc"] = loss_inter
+            # utterances too short for any CTC alignment (zero_infinity
+            # zeroes them; a high share means the data or subsampling is
+            # wrong)
+            need = text_lengths + min_frames(text, text_lengths)
+            stats["ctc_infeasible"] = (enc_lengths < need).float().mean()
+        if self.decoder is not None:
+            ys_in, ys_out, ys_lengths = add_sos_eos(text, text_lengths,
+                                                    c.sos_id, c.eos_id)
+            logits = self.decoder(ys_in, ys_lengths, enc, enc_lengths,
+                                  generator)
+            valid = make_valid_mask(ys_lengths, ys_in.shape[1])
+            loss_att = label_smoothing_loss(logits, ys_out, valid,
+                                            c.lsm_weight)
+            stats["loss_att"] = loss_att
+            stats["acc"] = token_accuracy(logits, ys_out, valid)
         loss = c.ctc_weight * loss_ctc + (1.0 - c.ctc_weight) * loss_att
         stats["loss"] = loss
         return loss, stats

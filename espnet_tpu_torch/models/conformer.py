@@ -2,8 +2,13 @@
 
 Macaron FFN pair scaled by 1/2, rel-pos self-attention, a depthwise conv
 module with GLU, LayerNorm and swish, pre-norm everywhere and a LayerNorm at
-the end of every block. Only the unrolled layer layout (`layer{i}`) is
-ported; the JAX package's `scan_layers` stacked layout comes later.
+the end of every block. The module is always unrolled (`layer{i}`): the JAX
+package's `scan_layers` changes only the checkpoint layout (one stacked
+`block` of (L, ...) leaves), which `convert.py` unstacks and restacks, not
+the math. `capture_layers` (InterCTC) also returns the outputs of the given
+1-based layers, the raw block outputs as in JAX; `remat` recomputes each
+block's activations in the backward pass (`models.remat`, which replays the
+block's dropout seeds).
 
 Both macaron FFNs go through `ops.prenorm_ffn.prenorm_ffn` (the CUDA kernels
 on the card, with their hash dropout: two int32 seeds per call drawn from the
@@ -33,13 +38,14 @@ module is training and the caller passes a `torch.Generator`.
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 
 from espnet_tpu_torch.models.attention import RelPositionMultiHeadAttention
 from espnet_tpu_torch.models.embedding import rel_position_encoding
+from espnet_tpu_torch.models import remat as _remat
 from espnet_tpu_torch.models.layers import Dense, LayerNorm
 from espnet_tpu_torch.models.subsampling import Conv2dSubsampling
 from espnet_tpu_torch.models.transformer import (PositionwiseFeedForward,
@@ -204,19 +210,33 @@ class ConformerBlock(nn.Module):
 
 class ConformerEncoder(nn.Module):
     """Conv2d-subsampled conformer encoder. Returns (hidden (B, T', D),
-    output lengths). `fused_conv` and `fused_conv_split` go to every block
-    (the encoder options of `models.asr.build_encoder`)."""
+    output lengths), and with `capture_layers` (1-based layer indices) also
+    the list [(index, that layer's output), ...]. `remat` checkpoints every
+    block; `scan_layers` marks a model whose JAX checkpoints use the stacked
+    layout, which InterCTC cannot use (ValueError, as in JAX). `fused_conv`
+    and `fused_conv_split` go to every block (the encoder options of
+    `models.asr.build_encoder`)."""
 
     def __init__(self, n_feats: int, d_model: int = 256, num_heads: int = 4,
                  d_ff: int = 2048, num_layers: int = 12,
                  kernel_size: int = 31, subsampling_factor: int = 4,
                  dtype=torch.float32, dropout_rate: float = 0.1,
                  fused_conv: Optional[bool] = None,
-                 fused_conv_split: Optional[bool] = None):
+                 fused_conv_split: Optional[bool] = None,
+                 capture_layers: Sequence[int] = (), remat: bool = False,
+                 scan_layers: bool = False):
         super().__init__()
+        if scan_layers and capture_layers:
+            raise ValueError(
+                "scan_layers is incompatible with capture_layers (InterCTC "
+                "needs per-layer outputs); use the unrolled layout for "
+                "InterCTC models")
         self.d_model = d_model
         self.num_layers = num_layers
         self.dtype = dtype
+        self.capture_layers = tuple(capture_layers)
+        self.remat = remat
+        self.scan_layers = scan_layers
         self.embed = Conv2dSubsampling(d_model, n_feats, subsampling_factor,
                                        dtype=dtype)
         self.dropout = FastDropout(dropout_rate)
@@ -235,6 +255,15 @@ class ConformerEncoder(nn.Module):
         pos_emb = rel_position_encoding(t, self.d_model, self.dtype, x.device)
         pad_mask = make_valid_mask(olens, t)
         bias = attention_bias(pad_mask[:, None, None, :])
-        for layer in self.layers():
-            x = layer(x, pos_emb, bias, pad_mask, generator)
+        intermediates = []
+        for i, layer in enumerate(self.layers()):
+            if self.remat:
+                x = _remat.checkpoint_block(layer, generator, x, pos_emb,
+                                            bias, pad_mask)
+            else:
+                x = layer(x, pos_emb, bias, pad_mask, generator)
+            if i + 1 in self.capture_layers:
+                intermediates.append((i + 1, x))
+        if self.capture_layers:
+            return x, olens, intermediates
         return x, olens

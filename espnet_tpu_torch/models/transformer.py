@@ -6,6 +6,9 @@ through `MultiHeadAttention`'s kernel route and its FFN through the pre-norm
 FFN (`ops.prenorm_ffn`, relu, residual scale 1, hash dropout with two
 int32 seeds drawn from the caller's generator), as the JAX layer's fused
 path does: one encode call launches 1 attention and 1 FFN kernel per layer.
+`capture_layers` (InterCTC) also returns the given layers' outputs, taken
+before the final LayerNorm as in JAX; `remat` recomputes each layer in the
+backward pass (`models.remat`).
 The decoder ends in an output projection to the vocabulary; `score_step`
 decodes one token for every hypothesis of a beam search against an explicit
 per-layer KV cache. The decoder's FFN is plain PyTorch: in the JAX package
@@ -27,11 +30,12 @@ activation. It is on while the module is training and the caller passes a
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Sequence
 
 import torch
 from torch import nn
 
+from espnet_tpu_torch.models import remat as _remat
 from espnet_tpu_torch.models.attention import MultiHeadAttention
 from espnet_tpu_torch.models.embedding import (add_positional_encoding,
                                                sinusoidal_table)
@@ -128,14 +132,20 @@ class TransformerEncoderLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """Conv2d-subsampled transformer encoder. Returns (hidden (B, T', D),
-    output lengths)."""
+    output lengths), and with `capture_layers` (1-based layer indices) also
+    the list [(index, that layer's output before the final LayerNorm),
+    ...], as the JAX encoder does. `remat` checkpoints every layer
+    (`models.remat`)."""
 
     def __init__(self, n_feats: int, d_model: int = 256, num_heads: int = 4,
                  d_ff: int = 2048, num_layers: int = 12,
                  subsampling_factor: int = 4, dtype=torch.float32,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1,
+                 capture_layers: Sequence[int] = (), remat: bool = False):
         super().__init__()
         self.num_layers = num_layers
+        self.capture_layers = tuple(capture_layers)
+        self.remat = remat
         self.embed = Conv2dSubsampling(d_model, n_feats, subsampling_factor,
                                        dtype=dtype)
         self.dropout = FastDropout(dropout_rate)
@@ -152,9 +162,18 @@ class TransformerEncoder(nn.Module):
         x = self.dropout(add_positional_encoding(x), generator)
         bias = attention_bias(
             make_valid_mask(olens, x.shape[1])[:, None, None, :])
-        for layer in self.layers():
-            x = layer(x, bias, generator)
-        return self.final_norm(x), olens
+        intermediates = []
+        for i, layer in enumerate(self.layers()):
+            if self.remat:
+                x = _remat.checkpoint_block(layer, generator, x, bias)
+            else:
+                x = layer(x, bias, generator)
+            if i + 1 in self.capture_layers:
+                intermediates.append((i + 1, x))
+        x = self.final_norm(x)
+        if self.capture_layers:
+            return x, olens, intermediates
+        return x, olens
 
 
 class TransformerDecoderLayer(nn.Module):

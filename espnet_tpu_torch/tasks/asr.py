@@ -6,11 +6,18 @@ line or a config.yaml means the same run in both. `ASRModelSection` carries
 every field of the JAX `ASRConfig`; `build_model` maps it onto the port's
 `ASRConfig` (`dtype` "float32" or "bfloat16" becomes the torch dtype only
 there) and raises `NotImplementedError`, naming its ROADMAP.md item, for a
-field value that selects a part not ported yet. Fields that only matter
-under such a value (the sinc, multichannel, streaming and RNN-decoder
-geometry, `ssl_freeze`) are inert otherwise, as in JAX, and so is
-`frontend_precision`, the TPU's matmul precision for the frontend (the
-port's frontend runs its matmuls in float32).
+field value that selects a part not ported yet: the sinc and SSL
+frontends, the multichannel frontend, the SSL and Whisper sections, another
+decoder and the plugin `*_conf` sections (`UNPORTED_FIELDS`; the model
+refuses the frontends, `models.asr.UNPORTED_INPUT_TYPES`), and the encoder
+types of `UNPORTED_ENCODERS`.
+Fields that only matter under such a value (`sinc_out_dim`, the
+multichannel geometry `use_wpe` to `frontend_layers`, the streaming and
+longformer geometry `attention_window` to `look_ahead`, the RNN decoder's
+`rnn_att_type` and `sampling_probability`, `ssl_freeze`) are inert
+otherwise, as in JAX, and so is `frontend_precision`, the TPU's matmul
+precision for the frontend (the port's frontend runs its matmuls in
+float32). `remat_encoder` is inert for the branchformers, as in JAX.
 """
 
 from __future__ import annotations
@@ -133,17 +140,12 @@ class ASRModelSection:
 # a value other than the JAX default selects a part not ported yet:
 # field -> (default, ROADMAP.md queue 1 item)
 UNPORTED_FIELDS = {
-    "input_type": ("raw", 2),
     "num_channels": (1, 6),
-    "remat_encoder": (False, 2),
-    "scan_encoder_layers": (False, 2),
     "ssl": (None, 8),
     "whisper": (None, 8),
     "decoder_type": ("transformer", 6),
     "encoder_conf": (None, 6),
     "decoder_conf": (None, 6),
-    "interctc_layer_idx": ((), 2),
-    "interctc_weight": (0.0, 2),
 }
 # encoder types of the JAX package that the port lacks -> ROADMAP item
 UNPORTED_ENCODERS = {"contextual_block_conformer": 4, "longformer": 6,
@@ -321,7 +323,7 @@ class ASRTask(AbsTask):
                     fs=data.fs, n_fft=model.config.n_fft,
                     hop_length=model.config.hop_length,
                     n_mels=model.config.n_mels,
-                    input_type=cfg["model"].input_type, device=dev,
+                    input_type=model.config.input_type, device=dev,
                 )
             extra_init = {"mvn": mvn_variables(load_stats(stats_path))}
         if run.stats_only:

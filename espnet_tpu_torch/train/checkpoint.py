@@ -4,8 +4,8 @@ The experiment directory holds the JAX package's files under the same names
 and layouts, so either package reads the other's:
 
 * `ep<N>.params.msgpack`: the epoch's parameters as the JAX param tree
-  (`convert.state_dict_to_jax_params`), in flax's msgpack
-  (`train/msgpack_io.py`);
+  (`convert.model_params`: stacked for a scan_encoder_layers conformer), in
+  flax's msgpack (`train/msgpack_io.py`);
 * `<phase>.<key>.best.params.msgpack`: a symlink to the best epoch's file;
 * `<phase>.<key>.ave.params.msgpack`: the float64 mean of the n best
   epochs' files, written as float32 (non-float leaves from the first);
@@ -28,7 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from espnet_tpu_torch.convert import state_dict_to_jax_params
+from espnet_tpu_torch.convert import model_params
 from espnet_tpu_torch.train.msgpack_io import load_tree, save_tree
 
 
@@ -101,8 +101,7 @@ class CheckpointManager:
         return self.out / f"ep{epoch}.params.msgpack"
 
     def save_epoch_params(self, model: torch.nn.Module, epoch: int) -> None:
-        save_tree(self.params_path(epoch),
-                  state_dict_to_jax_params(model.state_dict()))
+        save_tree(self.params_path(epoch), model_params(model))
 
     def link_best(self, epoch: int, tag: str) -> None:
         """tag like 'valid.acc.best' -> symlink to epoch params."""

@@ -6,7 +6,10 @@ port's `ops/stft.py` on the run's device (for `input_type` "feats" the
 features are the inputs) and sums, over valid frames, their count, sum and
 sum of squares (float32 per batch, float64 across batches), as the JAX pass
 does. Like the JAX pass, the features use the n_fft-long window
-(`win_length` None) whatever the model's `win_length`. Writes
+(`win_length` None) whatever the model's `win_length`, and every
+`input_type` but "raw" counts as precomputed features: for
+"sliding_window" and "fused", whose data are waveforms, the JAX pass fails
+on the (B, N) batch, and this one raises a ValueError. Writes
 `feats_stats.npz` {count, sum, sum_square} and the `speech_shape` /
 `text_shape` files; `mvn_variables` turns the stats into the model's
 `GlobalMVN` buffers.
@@ -35,6 +38,12 @@ def _moments(speech, lengths, fs, n_fft, hop_length, n_mels, input_type):
                                            hop_length, None, n_mels)
     else:
         feats, flens = speech, lengths
+        if feats.ndim != 3:
+            raise ValueError(
+                f"collect-stats takes input_type {input_type!r} as "
+                f"precomputed features, but the batch is {tuple(feats.shape)}"
+                " waveforms (the JAX pass fails on it too): global MVN needs "
+                "input_type raw or feats")
     mask = make_valid_mask(flens, feats.shape[1])[:, :, None]
     feats = feats * mask.to(feats.dtype)
     return torch.cat([flens.sum().float()[None], feats.sum(dim=(0, 1)),

@@ -26,8 +26,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from espnet_tpu_torch.convert import (jax_params_to_state_dict,
-                                      state_dict_to_jax_params)
+from espnet_tpu_torch.convert import jax_params_to_state_dict, model_params
 from espnet_tpu_torch.device import resolve_device
 from espnet_tpu_torch.models.asr import init_random_
 from espnet_tpu_torch.train.checkpoint import CheckpointManager
@@ -97,7 +96,7 @@ class Trainer:
         if self.options.init_param:
             from espnet_tpu_torch.train.pretrained import load_pretrained
 
-            params = state_dict_to_jax_params(model.state_dict())
+            params = model_params(model)
             for spec in self.options.init_param:
                 params, _, _ = load_pretrained(params, spec)
             model.load_state_dict(jax_params_to_state_dict(params),

@@ -73,7 +73,7 @@ def test_config_mirrors_the_jax_config():
 
 
 def test_unported_choices_raise():
-    for kw in (dict(ctc_weight=1.0), dict(ctc_weight=0.0),
+    for kw in (dict(input_type="sinc"), dict(input_type="ssl"),
                dict(encoder_type="longformer")):
         with pytest.raises(NotImplementedError):
             ASRModel(dataclasses.replace(_torch_config(), **kw))
@@ -154,10 +154,15 @@ def test_converter_layouts(slice_models):
 
 def test_converter_refuses_what_it_cannot_place(slice_models):
     _, params, _, _, _ = slice_models
-    with pytest.raises(NotImplementedError, match="scan_layers"):
+    # the stacked scan layout is placed, layer by layer; unknown leaves not
+    stacked = jax_params_to_state_dict(
+        {"encoder": {"block": {"norm_ff1": {
+            "scale": np.ones((2, 64), np.float32)}}}})
+    assert set(stacked) == {"encoder.layer0.norm_ff1.weight",
+                            "encoder.layer1.norm_ff1.weight"}
+    with pytest.raises(ValueError, match="unknown parameter leaf"):
         jax_params_to_state_dict(
-            {"encoder": {"layers": {"block": {"norm_ff1": {
-                "scale": np.ones((2, 64), np.float32)}}}}})
+            {"encoder": {"norm": {"running_mean": np.ones(3, np.float32)}}})
     extra = dict(params, extra_head={"kernel": np.zeros((64, 3), np.float32)})
     with pytest.raises(KeyError, match="extra_head"):
         load_jax_params(ASRModel(_torch_config()), extra)

@@ -283,14 +283,14 @@ def test_unported_inference_flags_raise(runs, extra, item):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--model.interctc_weight", "0.3"], 2),
-    (["--model.ctc_weight", "1.0"], 2),
-    (["--model.remat_encoder", "true"], 2),
-    (["--model.input_type", "feats"], 2),
+    (["--model.input_type", "sinc"], 6),
+    (["--model.num_channels", "2"], 6),
+    (["--model.input_type", "ssl"], 8),
+    (["--model.encoder_type", "wav2vec2"], 8),
     (["--model.decoder_type", "rnn"], 6),
     (["--model.encoder_type", "longformer"], 6),
     (["--run.plot_attention", "true"], 3),
-], ids=["interctc", "ctc_weight_1", "remat", "feats", "rnn_decoder",
+], ids=["sinc", "multichannel", "ssl", "wav2vec2", "rnn_decoder",
         "longformer", "plot_attention"])
 def test_unported_train_options_raise(runs, tmp_path, extra, item):
     ws = runs[0]
@@ -298,6 +298,53 @@ def test_unported_train_options_raise(runs, tmp_path, extra, item):
                                   "--device", "cpu"] + extra
     with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
         ttrain.main(argv)
+
+
+def _feats_dirs(ws, tmp_path):
+    """The corpus's 24-mel log-mel features in Kaldi feats.scp dirs."""
+    from espnet_tpu_torch.data.fileio import read_2column_text, read_wav
+    from espnet_tpu_torch.data.kaldi_io import write_kaldi_ark_scp
+    from espnet_tpu_torch.ops.stft import log_mel_spectrogram
+
+    for split in ("train", "valid"):
+        mats = {}
+        for key, path in read_2column_text(ws / split / "wav.scp").items():
+            wav, _ = read_wav(path)
+            f, n = log_mel_spectrogram(torch.from_numpy(wav)[None],
+                                       torch.tensor([len(wav)]), n_mels=24)
+            mats[key] = f[0, :int(n[0])].numpy()
+        d = tmp_path / split
+        write_kaldi_ark_scp(mats, d / "feats.ark", d / "feats.scp")
+        shutil.copy(ws / split / "text", d / "text")
+    return ["--data.train_dir", str(tmp_path / "train"), "--data.valid_dir",
+            str(tmp_path / "valid"), "--data.input_type", "feats",
+            "--model.input_type", "feats"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--model.interctc_layer_idx", "1,", "--model.interctc_weight", "0.3"],
+    ["--model.ctc_weight", "1.0"],
+    ["--model.remat_encoder", "true"],
+    "feats",
+], ids=["interctc", "ctc_weight_1", "remat", "feats"])
+def test_ported_model_options_train(runs, tmp_path, extra):
+    """Model options the port once refused train one epoch through the CLI
+    and write the JAX tree of their model."""
+    ws = runs[0]
+    if extra == "feats":
+        extra = _feats_dirs(ws, tmp_path)
+    out = tmp_path / "x"
+    argv = _argv(ws, "unused") + ["--run.output_dir", str(out),
+                                  "--run.max_epoch", "1", "--device",
+                                  "cpu"] + extra
+    _, trainer, model, _, _ = ttrain.main(argv)
+    losses = [st["loss"] for _, st in trainer.step_log]
+    assert losses and all(np.isfinite(v) for v in losses)
+    leaves = set(flatten(load_tree(out / "ep1.params.msgpack")))
+    assert any(k.startswith("decoder/") for k in leaves) == (
+        model.decoder is not None)
+    stats = trainer.reporter.epochs[1]["train"]
+    assert ("loss_interctc_layer1" in stats) == ("interctc" in str(argv))
 
 
 def test_entry_points_raise_without_a_card(runs, tmp_path, monkeypatch):

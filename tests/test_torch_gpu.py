@@ -895,3 +895,85 @@ def test_asr_cli_trains_and_decodes_on_the_card(cuda, tmp_path):
         "--beam_size", "4", "--max_steps", "8", "--batch_size", "4"])
     assert len(hyps) == 4
     assert (tmp_path / "dec" / "score_cer.txt").exists()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("options", [{}, {"fused_conv": True}])
+def test_asr_variants_launch_their_kernels_on_the_card(cuda, options):
+    """The asr-variants phase in small (d_model 128, 2 layers, float32):
+    InterCTC launches the CTC pair twice a step; remat re-runs each block's
+    forward kernels in the backward pass and gives the plain step's
+    gradients, leaving the generator where the plain step does."""
+    import dataclasses
+
+    from espnet_tpu_torch.models.asr import ASRConfig, ASRModel, init_random_
+    from espnet_tpu_torch.ops import conv_module, ctc_lattice, launches
+
+    cfg = ASRConfig(vocab_size=50, d_model=128, num_heads=2, d_ff=256,
+                    num_encoder_layers=2, num_decoder_layers=1,
+                    decoder_d_ff=256, conformer_kernel_size=15,
+                    normalize="utterance_mvn", interctc_layer_idx=(1,),
+                    interctc_weight=0.3)
+    state = init_random_(ASRModel(cfg, options),
+                         torch.Generator().manual_seed(0)).state_dict()
+    speech = 0.1 * torch.randn(2, 16000, generator=torch.Generator()
+                               .manual_seed(1)).to(cuda)
+    lens = torch.tensor([16000, 12000], device=cuda)
+    text = torch.randint(1, 49, (2, 6), device=cuda)
+    tlens = torch.tensor([6, 4], device=cuda)
+    grads, states = {}, {}
+    for remat in (False, True):
+        model = ASRModel(dataclasses.replace(cfg, remat_encoder=remat),
+                         options)
+        model.load_state_dict(state)
+        model = model.to(cuda).train()
+        gen = torch.Generator().manual_seed(3)
+        launches.reset()
+        loss, stats = model(speech, lens, text, tlens, gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert "loss_interctc_layer1" in stats
+        assert ctc_lattice.ctc_alphas.launches == 2
+        assert ctc_lattice.ctc_gamma.launches == 2
+        assert tffn.prenorm_ffn.launches == 2 * 2 * (2 if remat else 1)
+        assert trel.relpos_attention.launches == 2 * (2 if remat else 1)
+        assert trel.relpos_attention_bwd.launches == 2
+        if options:
+            assert conv_module.conv_module.launches == 2 * (2 if remat
+                                                            else 1)
+        grads[remat] = [p.grad.double() for p in model.parameters()]
+        states[remat] = gen.get_state()
+    total = float(torch.sqrt(sum((g ** 2).sum() for g in grads[False])))
+    for a, b in zip(grads[True], grads[False]):
+        assert float((a - b).norm()) <= 1e-5 * max(float(b.norm()),
+                                                   1e-3 * total)
+    assert torch.equal(states[True], states[False])
+
+
+@pytest.mark.gpu
+def test_recipe_runs_on_the_card(cuda, tmp_path):
+    """bin.run, stages 1-12, a reduced conformer on a 12-utterance corpus,
+    on the card (the default device), then a second call that skips every
+    stage."""
+    from espnet_tpu_torch.bin import run
+
+    argv = [
+        "--recipe.expdir", str(tmp_path / "exp"),
+        "--recipe.datadir", str(tmp_path / "data"),
+        "--recipe.train_set", "train", "--recipe.valid_set", "train",
+        "--recipe.test_sets", "test", "--recipe.synth_utts", "12",
+        "--recipe.asr_args",
+        "--run.max_epoch 1 --data.batch_size 4 --model.d_model 128 "
+        "--model.num_heads 2 --model.d_ff 256 --model.num_encoder_layers 2 "
+        "--model.num_decoder_layers 1 --model.decoder_d_ff 256 "
+        "--model.n_mels 40",
+        "--recipe.decode_args", "--beam_size 4 --max_steps 8 --batch_size 4"]
+    run.main(argv)
+    exp = tmp_path / "exp"
+    for n in range(1, 13):
+        assert (exp / f".stage{n}.done").exists(), n
+    assert (exp / "decode_test" / "score_wer.txt").exists()
+    assert "# Snt" in (exp / "RESULTS.md").read_text()
+    stamp = (exp / "packed_model.zip").stat().st_mtime_ns
+    run.main(argv)
+    assert (exp / "packed_model.zip").stat().st_mtime_ns == stamp

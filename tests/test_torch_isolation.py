@@ -85,7 +85,10 @@ def test_port_files_found():
             "branchformer.py", "normalize.py", "ffn_common.py",
             "configs.py", "conv_glu.py", "conv_module.py", "asr_train.py",
             "trainer.py", "checkpoint.py", "msgpack_io.py", "config.py",
-            "dataset.py", "collect_stats.py", "pretrained.py"} <= names
+            "dataset.py", "collect_stats.py", "pretrained.py", "recipe.py",
+            "run.py", "make_synth_data.py", "build_token_list.py",
+            "pack.py", "prep_librispeech.py", "ctc_greedy.py", "remat.py",
+            "launches.py"} <= names
 
 
 _NO_CARD_SCRIPT = r"""
@@ -125,11 +128,13 @@ for make in (lambda d: make_train_step(model, tx, device=d),
         else:
             raise SystemExit(f"device={device!r} did not raise without a card")
     make("cpu")
-from espnet_tpu_torch.bin import asr_inference, asr_train
+from espnet_tpu_torch.bin import asr_inference, asr_train, run
 clis = (lambda extra: asr_train.main(["--run.output_dir", "unused"] + extra),
         lambda extra: asr_inference.main(["--exp_dir", "unused", "--data_dir",
                                           "unused", "--output_dir", "unused"]
-                                         + extra))
+                                         + extra),
+        lambda extra: run.main(["--recipe.expdir", "unused",
+                                "--recipe.datadir", "unused"] + extra))
 for cli in clis:
     for extra in ([], ["--device", "cuda"]):
         try:
