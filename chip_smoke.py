@@ -110,11 +110,35 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    recipe's own micro-batches (T' below one tile), each with a float32
    train step with kernels against plain, each stage's wall and the
    decode RTF, then a second call that skips every stage;
-9. a `{"kernels": [...]}` JSON line (training shapes, bfloat16; launches
+9. trained-exp: the JAX-trained egs_work/synth_hard conformer (6 x 128,
+   head dim 32, FFN 512) through `espnet_tpu_torch.bin.asr_inference` on
+   its 300 test utterances with the recipe's decode_args (beam 5, CTC
+   0.3, 60 label steps, batches of 30), in float32 and in bf16: every text
+   equal to JAX's exp/decode_test/text, WER 0.0, the exact rel-pos and
+   pre-norm FFN launches, the decode wall and RTF; then
+   `espnet_tpu_torch.bin.asr_train --run.resume` on a copy of its JAX
+   resume state (checkpoint.msgpack, epoch 30): one epoch-31 step on 4
+   test utterances, finite, not skipped, parameters moved, launches
+   exact. A missing file fails the phase;
+10. streaming: the `streaming_conformer` configuration (the bench
+   conformer's widths as a contextual-block encoder, block 40, hop 16,
+   look-ahead 16; random weights from seed 0): (a) the float32 encoder's
+   parallel and blockwise modes on the 4 requests, with kernels and with
+   plain versions (1e-4), exact `fused_ffn` launches; (b) `fused_ffn`
+   against its plain version at one block's 42 rows; (c) the device and
+   host engines, greedy and beam 10, in chunks of 1600 samples: greedy
+   equal to offline CTC greedy, the engines' beam results equal (and
+   counted against the offline search), ms per 0.512 s quantum, the
+   streaming RTF, `fused_ffn` launches per block; (d) a float32 train step
+   with kernels against plain; (e) 3 bf16 steps at B=64 x 15 s with exact
+   launches, ms/step and peak memory; (f)
+   `espnet_tpu_torch.bin.asr_inference_streaming` in both engines on an
+   experiment directory written by `CheckpointManager` from those weights;
+11. a `{"kernels": [...]}` JSON line (training shapes, bfloat16; launches
    from the 3 timed train steps of the configuration whose path holds the
    kernel: the conformer's, the transformer's for flash attention, the
    E-Branchformer's for `fused_ffn`, the two conv routes' for theirs);
-10. last line: {"ok": true, "device": {...}}.
+12. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2070,6 +2094,432 @@ def phase_recipe(torch, np, smi):
         shutil.rmtree(ws, ignore_errors=True)
 
 
+# the trained-exp phase: the JAX-trained synth_hard conformer (6 x 128,
+# kernel 15, FFN 512, a 2-layer decoder, global MVN, char tokens) decoded by
+# the port with the recipe's decode_args, which wrote exp/decode_test
+# (tools/synth_headtohead.sh), and its JAX resume state resumed
+SYNTH = "egs_work/synth_hard"
+SYNTH_EXP = f"{SYNTH}/exp/asr"
+SYNTH_PARAMS = f"{SYNTH_EXP}/valid.acc.ave.params.msgpack"
+SYNTH_FILES = (SYNTH_PARAMS, f"{SYNTH_EXP}/config.yaml",
+               f"{SYNTH_EXP}/stats/feats_stats.npz",
+               f"{SYNTH_EXP}/checkpoint.msgpack",
+               f"{SYNTH_EXP}/checkpoint.meta.json",
+               f"{SYNTH}/exp/tokens/tokens.txt",
+               f"{SYNTH}/exp/decode_test/text", f"{SYNTH}/data/test/wav.scp",
+               f"{SYNTH}/data/test/text")
+SYNTH_DECODE = ["--beam_size", "5", "--ctc_weight", "0.3", "--max_steps",
+                "60", "--batch_size", "30"]
+SYNTH_RESUME_UTTS = 4
+
+
+def synth_decode(np, ws, dtype_name, smi):
+    """The 300 test utterances through bin.asr_inference in `dtype_name`:
+    text against JAX's decode_test/text, WER 0.0, the exact launches."""
+    from pathlib import Path
+
+    from espnet_tpu_torch.bin import asr_inference
+    from espnet_tpu_torch.data.fileio import read_2column_text
+    from espnet_tpu_torch.tasks.asr import ASRTask
+
+    exp = ws / f"exp_{dtype_name}"
+    (exp / "stats").mkdir(parents=True)
+    conf = Path(SYNTH_EXP, "config.yaml").read_text()
+    if conf.count("  dtype: float32\n") != 1:
+        raise AssertionError("synth_hard config.yaml: no single model dtype")
+    (exp / "config.yaml").write_text(
+        conf.replace("  dtype: float32\n", f"  dtype: {dtype_name}\n"))
+    (exp / "stats" / "feats_stats.npz").write_bytes(
+        Path(SYNTH_EXP, "stats", "feats_stats.npz").read_bytes())
+    out = ws / f"decode_{dtype_name}"
+    wrappers = reset_counts()
+    asr_inference.main(["--exp_dir", str(exp), "--data_dir",
+                        f"{SYNTH}/data/test", "--output_dir", str(out),
+                        "--params", SYNTH_PARAMS, *SYNTH_DECODE,
+                        "--device", "cuda"])
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    ref = read_2column_text(f"{SYNTH}/exp/decode_test/text")
+    hyp = read_2column_text(out / "text")
+    bad = [k for k in ref if hyp.get(k) != ref[k]]
+    if bad or len(hyp) != len(ref):
+        raise AssertionError(
+            f"trained-exp {dtype_name}: {len(bad)} of {len(ref)} texts differ "
+            f"from JAX's decode_test/text, e.g. "
+            f"{[(k, hyp.get(k), ref[k]) for k in bad[:3]]}")
+    wer = (out / "score_wer.txt").read_text().strip()
+    if "| Err 0.0 |" not in wer:
+        raise AssertionError(f"trained-exp {dtype_name}: WER {wer}")
+    cfg = ASRTask.load_config(exp)
+    tok = ASRTask.build_tokenizer(cfg["data"], exp)
+    conv = ASRTask.build_token_list(cfg["data"], exp, tok)
+    ds = ASRTask.build_dataset(cfg["data"], f"{SYNTH}/data/test", tok, conv,
+                               train=False)
+    n_batches = len(cli_batches(ds, cfg["data"], 30))
+    layers = cfg["model"].num_encoder_layers
+    check_launches(f"trained-exp {dtype_name} decoding", counts,
+                   expected_counts({"relpos_attention": layers,
+                                    "prenorm_ffn": 2 * layers}, n_batches))
+    log("trained-exp", f"{dtype_name}: {len(hyp)} texts equal to JAX's "
+        f"decode_test/text, {wer}; {(out / 'rtf.txt').read_text().strip()} "
+        f"[{smi}]; launches exact ({n_batches} batches: rel-pos attention "
+        f"head dim 32, pre-norm FFN D 128 F 512)")
+
+
+def synth_resume(np, ws):
+    """asr_train --run.resume on a copy of the JAX resume state (epoch 30):
+    one epoch-31 step on a few test utterances."""
+    import shutil
+    from pathlib import Path
+
+    from espnet_tpu_torch.bin import asr_train
+    from espnet_tpu_torch.data.fileio import (read_2column_text,
+                                              write_2column_text)
+    from espnet_tpu_torch.tasks.asr import ASRTask
+    from espnet_tpu_torch.train.msgpack_io import flatten, load_tree
+
+    exp, data = ws / "resume", ws / "data"
+    (exp / "stats").mkdir(parents=True)
+    for name in ("config.yaml", "checkpoint.msgpack", "checkpoint.meta.json",
+                 "stats/feats_stats.npz"):
+        shutil.copy(Path(SYNTH_EXP, name), exp / name)
+    keys = sorted(read_2column_text(f"{SYNTH}/data/test/wav.scp"))
+    keys = keys[:SYNTH_RESUME_UTTS]
+    data.mkdir()
+    for f in ("wav.scp", "text"):
+        rows = read_2column_text(f"{SYNTH}/data/test/{f}")
+        write_2column_text(data / f, {k: rows[k] for k in keys})
+    argv = ["--config", str(exp / "config.yaml"), "--run.output_dir",
+            str(exp), "--run.max_epoch", "31", "--run.resume", "true",
+            "--data.train_dir", str(data), "--data.valid_dir", str(data),
+            "--data.batch_size", str(SYNTH_RESUME_UTTS), "--device", "cuda"]
+    wrappers = reset_counts()
+    t = time.perf_counter()
+    _, trainer, _, _, _ = asr_train.main(argv)
+    wall = time.perf_counter() - t
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    steps = [st for e, st in trainer.step_log if e == 31]
+    if sorted(trainer.epoch_seconds) != [31] or not steps:
+        raise AssertionError(f"trained-exp resume: epochs "
+                             f"{sorted(trainer.epoch_seconds)}, steps {steps}")
+    for st in steps:
+        if not (np.isfinite(st["loss"]) and st["skipped"] == 0.0):
+            raise AssertionError(f"trained-exp resume: step {st}")
+    before = flatten(load_tree(Path(SYNTH_EXP, "checkpoint.msgpack"))
+                     ["params"])
+    after = flatten(load_tree(exp / "ep31.params.msgpack"))
+    moved = max(float(np.abs(after[k] - v).max()) for k, v in before.items())
+    if not moved > 0.0:
+        raise AssertionError("trained-exp resume: parameters did not move")
+    cfg = ASRTask.parse_config(argv[:-2])
+    tok = ASRTask.build_tokenizer(cfg["data"], exp)
+    conv = ASRTask.build_token_list(cfg["data"], exp, tok)
+    ds = ASRTask.build_dataset(cfg["data"], data, tok, conv)
+    batches = cli_batches(ds, cfg["data"], SYNTH_RESUME_UTTS)
+    want, _ = cli_expected(batches, batches, 1,
+                           cfg["model"].num_encoder_layers)
+    check_launches("trained-exp resume", counts, want)
+    log("trained-exp", f"resumed JAX's checkpoint.msgpack (epoch 30): "
+        f"{len(steps)} epoch-31 step(s), loss "
+        f"{[round(st['loss'], 4) for st in steps]}, max parameter move "
+        f"{moved:.3e}, {wall:.1f}s with validation; launches exact")
+
+
+def phase_trained_exp(torch, np, smi):
+    """The JAX-trained synth_hard experiment: its 300 test utterances
+    decoded by the port in float32 and bf16, and its resume state resumed
+    for one step."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    missing = [f for f in SYNTH_FILES if not Path(f).exists()]
+    if missing:
+        raise FileNotFoundError(f"trained-exp: the checkout lacks {missing}")
+    ws = Path(tempfile.mkdtemp(prefix="chip_smoke_trained_"))
+    try:
+        for dtype_name in ("float32", "bfloat16"):
+            synth_decode(np, ws, dtype_name, smi)
+        synth_resume(np, ws)
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+
+
+# the streaming phase: the streaming_conformer configuration (the bench
+# conformer's widths, contextual-block encoder 40 / 16 / 16) at full width
+STREAM_CHUNK = 1600      # samples a simulated chunk (0.1 s)
+STREAM_BEAM = 10
+STREAM_MAX_STEPS = 64    # the streaming engines' default label budget
+BLOCK_ROWS = 42          # block 40 + 2 context slots, one utterance
+
+
+def streaming_offline(torch, model, wave, search):
+    """The offline result the streaming engines must give: CTC greedy or
+    the beam search over the whole utterance's encoder output."""
+    from espnet_tpu_torch.decode.beam_search import batched_beam_search
+    from espnet_tpu_torch.decode.ctc_greedy import collapse_ctc
+    from espnet_tpu_torch.decode.streaming_inference import beam_config
+
+    c = model.config
+    with torch.no_grad():
+        enc, lens = model.encode(
+            torch.from_numpy(wave[None]).cuda(),
+            torch.tensor([len(wave)], device="cuda"))
+        lp = model.ctc_log_probs(enc)
+        if search == "greedy":
+            return collapse_ctc(lp[0, :int(lens[0])].argmax(-1).tolist())
+        w = STREAM_BEAM
+        mem, mem_lens = enc.repeat_interleave(w, 0), lens.repeat_interleave(w)
+        yseq, ylen, _ = batched_beam_search(
+            beam_config(w, 0.3, 0.0, c.blank_id), c.sos_id, c.eos_id,
+            c.vocab_size, lens,
+            lambda tok, pos, cache: model.decoder_score_step(
+                tok, pos, mem, mem_lens, cache),
+            model.decoder_init_cache(w, STREAM_MAX_STEPS + 1, "cuda"),
+            ctc_log_probs=lp, max_steps=STREAM_MAX_STEPS)
+        return yseq[0, 0, :int(ylen[0, 0])].tolist()
+
+
+def stream_one(torch, rec, wave):
+    """Feed `wave` in STREAM_CHUNK chunks; returns (ids, wall seconds, the
+    ms of each quantum step of the device engine, blocks run)."""
+    times, blocks = [], []
+    advance, run_block = getattr(rec, "_advance", None), rec._run_block
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        advance(*a, **k)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+
+    def counted(*a, **k):
+        blocks.append(1)
+        return run_block(*a, **k)
+
+    rec._run_block = counted
+    if advance is not None:
+        rec._advance = timed
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(0, len(wave), STREAM_CHUNK):
+            out = rec(wave[i:i + STREAM_CHUNK],
+                      is_final=i + STREAM_CHUNK >= len(wave))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        del rec._run_block
+        if advance is not None:
+            del rec._advance
+    return out["token_ids"], wall, times, len(blocks)
+
+
+def streaming_engines(torch, np, model, smi):
+    """(c): both engines, greedy and beam, on the requests: greedy equal to
+    offline CTC greedy and the two engines' beam results equal (beam against
+    the offline search is counted: the online search commits steps on
+    partial input, which the offline search need not take), ms per quantum,
+    RTF, fused_ffn launches a block. Returns the greedy ids by request."""
+    from espnet_tpu_torch.decode.streaming_device import \
+        DeviceStreamingRecognizer
+    from espnet_tpu_torch.decode.streaming_inference import \
+        Speech2TextStreaming
+
+    speech, lengths = requests(np)
+    waves = [speech[i, :n] for i, n in enumerate(lengths)]
+    ffn = 2 * model.config.num_encoder_layers
+    results = {}
+    for search in ("greedy", "beam"):
+        offline = [streaming_offline(torch, model, w, search) for w in waves]
+        for name, engine in (("device", DeviceStreamingRecognizer),
+                             ("host", Speech2TextStreaming)):
+            rec = engine(model, search=search, beam_size=STREAM_BEAM,
+                         max_steps=STREAM_MAX_STEPS, device="cuda")
+            stream_one(torch, rec, waves[0])  # warm-up
+            walls, quanta, per_block, got = [], [], set(), []
+            for w in waves:
+                wrappers = reset_counts()
+                ids, wall, times, blocks = stream_one(torch, rec, w)
+                counts = {k: fn.launches for k, fn in wrappers.items()}
+                if counts != expected_counts({"fused_ffn": ffn}, blocks):
+                    raise AssertionError(
+                        f"streaming {name} {search}: {blocks} blocks "
+                        f"launched {counts}")
+                per_block.add(counts["fused_ffn"] // max(blocks, 1))
+                walls.append(wall)
+                quanta += times
+                got.append(ids)
+            results[search, name] = got
+            same = sum(g == o for g, o in zip(got, offline))
+            if search == "greedy" and same != len(waves):
+                raise AssertionError(f"streaming {name} greedy: {same} of "
+                                     f"{len(waves)} requests equal offline")
+            audio = float(sum(lengths)) / SAMPLE_RATE
+            q = (f"ms a quantum (0.512 s of audio) median "
+                 f"{np.median(quanta):.2f}, worst {max(quanta):.2f} over "
+                 f"{len(quanta)}; " if quanta else "")
+            log("streaming", f"{name} engine, {search}"
+                f"{f' {STREAM_BEAM}' if search == 'beam' else ''}, chunks of "
+                f"{STREAM_CHUNK}: {same} of {len(waves)} requests equal to "
+                f"offline; {q}streaming RTF {sum(walls) / audio:.4f} "
+                f"({sum(walls):.2f}s for {audio:.0f}s) [{smi}]; fused_ffn "
+                f"{sorted(per_block)} launches a block")
+        if results[search, "device"] != results[search, "host"]:
+            raise AssertionError(f"streaming {search}: the engines differ")
+    return dict(enumerate(results["greedy", "device"]))
+
+
+def streaming_cli(torch, np, model, greedy):
+    """(f): bin.asr_inference_streaming in both engines on an experiment
+    directory that the port's CheckpointManager wrote from `model`."""
+    import dataclasses
+    import json
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from espnet_tpu_torch.bin import asr_inference_streaming
+    from espnet_tpu_torch.data.fileio import write_2column_text, write_wav
+    from espnet_tpu_torch.tasks.abs_task import OptimConfig, RunConfig
+    from espnet_tpu_torch.tasks.asr import (ASRDataConfig, ASRModelSection,
+                                            ASRTask)
+    from espnet_tpu_torch.train.checkpoint import CheckpointManager
+
+    ws = Path(tempfile.mkdtemp(prefix="chip_smoke_stream_"))
+    try:
+        c = model.config
+        exp, data = ws / "exp", ws / "test"
+        fill = [f"x{i}" for i in range(c.vocab_size - 30)]
+        tokens = (["<blank>", "<unk>", "<space>"]
+                  + [chr(ord("a") + i) for i in range(26)] + fill
+                  + ["<sos/eos>"])
+        exp.mkdir()
+        (exp / "tokens.txt").write_text("\n".join(tokens) + "\n")
+        fields = {f.name for f in dataclasses.fields(ASRModelSection)}
+        section = ASRModelSection(**{
+            k: v for k, v in dataclasses.asdict(c).items()
+            if k in fields and k not in ("vocab_size", "dtype")})
+        ASRTask.dump_config({
+            "run": RunConfig(output_dir=str(exp)), "optim": OptimConfig(),
+            "data": ASRDataConfig(token_list=str(exp / "tokens.txt")),
+            "model": section}, exp)
+        CheckpointManager(exp).save_epoch_params(model, 1)
+        speech, lengths = requests(np)
+        wavs = {}
+        for i, n in enumerate(lengths):
+            key = f"req{i}"
+            write_wav(data / "wav" / f"{key}.wav", speech[i, :n], SAMPLE_RATE)
+            wavs[key] = str(data / "wav" / f"{key}.wav")
+        write_2column_text(data / "wav.scp", wavs)
+        write_2column_text(data / "text", {k: "a b" for k in wavs})
+        texts = {}
+        for engine in ("device", "host"):
+            out = ws / f"decode_{engine}"
+            asr_inference_streaming.main([
+                "--exp_dir", str(exp), "--data_dir", str(data),
+                "--output_dir", str(out), "--engine", engine,
+                "--sim_chunk_length", str(STREAM_CHUNK), "--device", "cuda"])
+            rows = [json.loads(ln) for ln in
+                    (out / "nbest.jsonl").read_text().splitlines()]
+            got = {int(r["key"][3:]): r["token_ids"] for r in rows}
+            if got != greedy or not (out / "score_wer.txt").exists():
+                raise AssertionError(f"streaming CLI {engine}: ids differ "
+                                     "from the engines' greedy ids")
+            texts[engine] = (out / "text").read_text()
+        if texts["device"] != texts["host"]:
+            raise AssertionError("streaming CLI: the engines' texts differ")
+        log("streaming", f"bin.asr_inference_streaming, both engines, on an "
+            f"experiment written by CheckpointManager: {len(rows)} requests,"
+            f" the engines' greedy ids")
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+
+
+def phase_streaming(torch, np, smi):
+    """The streaming path at full width: (a) the encoder's two modes,
+    (b) fused_ffn at one block's rows, (c) both engines, (d) a float32
+    train step with kernels against plain, (e) 3 bf16 bench steps, (f) the
+    streaming CLI."""
+    from espnet_tpu_torch.configs import bench_config
+    from espnet_tpu_torch.models.asr import ASRModel, init_random_
+    from espnet_tpu_torch.models.streaming import _block_geometry
+    from espnet_tpu_torch.ops.ffn import fused_ffn, fused_ffn_plain
+
+    cfg = bench_config(torch.float32, "streaming_conformer")
+    model = init_random_(ASRModel(cfg), torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+    e = model.encoder
+    speech, lengths = requests(np)
+    sp = torch.from_numpy(speech).cuda()
+    ln = torch.from_numpy(lengths).cuda()
+    # (a) all blocks in parallel against block after block
+    outs = {}
+    with torch.no_grad():
+        feats, flens = model.frontend(sp, ln)
+        for use in (True, False):
+            model.set_use_kernels(use)
+            wrappers = reset_counts()
+            par, olens = e(feats, flens)
+            n_par = {k: fn.launches for k, fn in wrappers.items()}
+            wrappers = reset_counts()
+            blk, _ = e.forward_blockwise(feats, flens)
+            n_blk = {k: fn.launches for k, fn in wrappers.items()}
+            valid = (torch.arange(par.shape[1], device="cuda")[None, :]
+                     < olens[:, None])[:, :, None]
+            dev = float(((par - blk).abs() * valid).max())
+            label = "kernels" if use else "plain"
+            log("streaming", f"(a) forward vs forward_blockwise, float32, "
+                f"{label}, B={par.shape[0]} T'={par.shape[1]}: max |dev| "
+                f"{dev:.3e} (limit 1e-4)")
+            if dev > 1e-4 or not torch.isfinite(par).all():
+                raise AssertionError(f"streaming: the encoder's modes differ "
+                                     f"({label}) by {dev:.3e}")
+            nblk = _block_geometry(par.shape[1], e.block_size, e.hop_size,
+                                   e.look_ahead)[0]
+            ffn = 2 * cfg.num_encoder_layers
+            want = (({"fused_ffn": ffn}, {"fused_ffn": ffn * nblk}) if use
+                    else ({}, {}))
+            if (n_par, n_blk) != tuple(expected_counts(w, 1) for w in want):
+                raise AssertionError(f"streaming (a) {label}: launches "
+                                     f"{n_par}, {n_blk}")
+            outs[use] = (par, valid)
+        model.set_use_kernels(True)
+    (par, valid), (plain, _) = outs[True], outs[False]
+    dev = float(((par - plain).abs() * valid).max())
+    log("streaming", f"(a) encoder output, kernels vs plain: max |dev| "
+        f"{dev:.3e} (limit {ENCODER_FP32_TOL}); launches exact (fused_ffn "
+        f"{ffn} a forward, {ffn} x {nblk} blocks blockwise)")
+    if dev > ENCODER_FP32_TOL:
+        raise AssertionError(f"streaming encoder, kernels vs plain {dev:.3e}")
+    # (b) fused_ffn at one block's rows (below one 64-row tile)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        args, (flops, nbytes), _ = fused_ffn_case(torch, BLOCK_ROWS, dtype,
+                                                  31, d=256, f=2048)
+        with torch.no_grad():
+            check_kernel(torch, "fused_ffn", fused_ffn, fused_ffn_plain,
+                         args, flops, nbytes, dn,
+                         f"streaming block M={BLOCK_ROWS} D=256 F=2048 swish",
+                         {"activation": "swish"})
+    # (c) the engines; (f) the CLI on the same weights
+    greedy = streaming_engines(torch, np, model, smi)
+    streaming_cli(torch, np, model, greedy)
+    # (d) float32 train step, kernels vs plain; (e) the bench's steps
+    phase_train_parity(torch, np, cfg, tag="train-parity[streaming]")
+    steps = TRAIN_TIMED_STEPS
+    launches, step_s, peak = phase_train(
+        torch, np, bench_config(torch.bfloat16, "streaming_conformer"),
+        tag="train[streaming]", steps=steps)
+    ffn = 2 * cfg.num_encoder_layers
+    want = expected_counts({"fused_ffn": ffn, "fused_ffn_bwd": ffn, **CTC},
+                           steps)
+    if launches != want:
+        raise AssertionError(f"streaming: {steps} train steps launched "
+                             f"{launches}, expected {want}")
+    log("streaming", f"(e) {step_s * 1e3:.1f} ms/step, peak {peak:.2f} GiB "
+        f"[{smi}]; launches exact")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2091,6 +2541,8 @@ def main() -> int:
     phase_cli(torch, np, smi)
     phase_asr_variants(torch, np, smi)
     phase_recipe(torch, np, smi)
+    phase_trained_exp(torch, np, smi)
+    phase_streaming(torch, np, smi)
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         r = results[kname]

@@ -75,6 +75,39 @@ def pick_params_file(exp_dir: Path) -> Path:
     raise FileNotFoundError(f"no params file in {exp_dir}")
 
 
+def load_experiment(exp: Path, data_dir, params=None):
+    """(model with its parameters and global-MVN stats, the data section,
+    the dataset of `data_dir`, tokenizer, token converter) of an experiment
+    directory written by either package; `params` names the params file
+    (default: `pick_params_file`)."""
+    from espnet_tpu_torch.convert import load_jax_params
+    from espnet_tpu_torch.tasks.asr import ASRTask
+    from espnet_tpu_torch.train.collect_stats import load_stats, mvn_variables
+    from espnet_tpu_torch.train.msgpack_io import load_tree
+
+    cfg = ASRTask.load_config(exp)
+    data = cfg["data"]
+    tokenizer = ASRTask.build_tokenizer(data, exp)
+    converter = ASRTask.build_token_list(data, exp, tokenizer)
+    model = ASRTask.build_model(cfg["model"], len(converter))
+    ds = ASRTask.build_dataset(data, data_dir, tokenizer, converter,
+                               train=False)
+    params_file = Path(params) if params else pick_params_file(exp)
+    logger.info("loading params: %s", params_file)
+    variables = {"params": load_tree(params_file)}
+    if model.config.normalize == "global_mvn":
+        stats_path = exp / "stats" / "feats_stats.npz"
+        # without stats the JAX package decodes with its init's identity
+        # statistics; so does the port
+        dim = model.mvn.mean.numel()
+        variables["mvn"] = (
+            mvn_variables(load_stats(stats_path)) if stats_path.exists()
+            else {"mvn": {"mean": np.zeros(dim, np.float32),
+                          "inv_std": np.ones(dim, np.float32)}})
+    load_jax_params(model, variables)
+    return model, data, ds, tokenizer, converter
+
+
 def _refuse_unported(args) -> None:
     asked = []
     if args.search == "timesync":
@@ -97,50 +130,25 @@ def main(argv=None):
     from espnet_tpu_torch.ops.launches import log_at_exit
 
     log_at_exit("asr_inference")
-    from espnet_tpu_torch.convert import load_jax_params
     from espnet_tpu_torch.data.dataset import EpochIterator
     from espnet_tpu_torch.data.fileio import (read_2column_text,
                                               write_2column_text)
     from espnet_tpu_torch.data.sampler import build_batches
     from espnet_tpu_torch.decode.asr_inference import Speech2Text
     from espnet_tpu_torch.device import resolve_device
-    from espnet_tpu_torch.tasks.asr import ASRTask
-    from espnet_tpu_torch.train.collect_stats import load_stats, mvn_variables
-    from espnet_tpu_torch.train.msgpack_io import load_tree
     from espnet_tpu_torch.utils.metrics import sclite_report
 
     device = resolve_device(args.device)
-    exp = Path(args.exp_dir)
     out = Path(args.output_dir)
     out.mkdir(parents=True, exist_ok=True)
-    cfg = ASRTask.load_config(exp)
-    data = cfg["data"]
-    tokenizer = ASRTask.build_tokenizer(data, exp)
-    converter = ASRTask.build_token_list(data, exp, tokenizer)
-    model = ASRTask.build_model(cfg["model"], len(converter))
-
-    ds = ASRTask.build_dataset(data, args.data_dir, tokenizer, converter,
-                               train=False)
+    model, data, ds, tokenizer, converter = load_experiment(
+        Path(args.exp_dir), args.data_dir, args.params)
     shapes = {"speech": ds.speech_lengths(), "text": ds.text_lengths()}
     batches = build_batches(
         shapes, batch_size=args.batch_size,
         length_quantum=data.length_quantum, text_quantum=data.text_quantum,
     )
     it = EpochIterator(ds, batches, shuffle=False, prefetch=2)
-
-    params_file = Path(args.params) if args.params else pick_params_file(exp)
-    logger.info("loading params: %s", params_file)
-    variables = {"params": load_tree(params_file)}
-    if model.config.normalize == "global_mvn":
-        stats_path = exp / "stats" / "feats_stats.npz"
-        # without stats the JAX package decodes with its init's identity
-        # statistics; so does the port
-        dim = model.mvn.mean.numel()
-        variables["mvn"] = (
-            mvn_variables(load_stats(stats_path)) if stats_path.exists()
-            else {"mvn": {"mean": np.zeros(dim, np.float32),
-                          "inv_std": np.ones(dim, np.float32)}})
-    load_jax_params(model, variables)
 
     s2t = Speech2Text(
         model, device=device, beam_size=args.beam_size,

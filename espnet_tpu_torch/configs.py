@@ -39,6 +39,13 @@ ENCODERS = {
     # kernels (JAX: fused_conv_split) or the whole-module kernel (fused_conv)
     "conformer_conv_split": {"encoder_type": "conformer"},
     "conformer_conv_module": {"encoder_type": "conformer"},
+    # the bench conformer's widths as ESPnet's streaming encoder
+    # (contextual_block_conformer: block 40, hop 16, look-ahead 16, its
+    # defaults and the JAX ASRConfig's), with global MVN: the streaming
+    # engines refuse utterance MVN, which needs the whole utterance
+    "streaming_conformer": {
+        "encoder_type": "contextual_block_conformer", "block_size": 40,
+        "stream_hop_size": 16, "look_ahead": 16, "normalize": "global_mvn"},
 }
 OPTIONS = {
     "conformer_conv_split": {"fused_conv_split": True},

@@ -10,6 +10,8 @@ decoder, optional extra scorers), keeps a pre-beam of K = 1.5 W candidates
 retires those that end in eos and keeps the best W others. eos is forced at
 maxlen-1; `max_steps` caps the label length. The JAX `lax.while_loop`
 becomes a Python loop whose condition is read on the host once per step.
+`initial_state` resumes a search from the beam of the block-synchronous
+online search (`decode/online_beam_search.py`).
 
 Ties are broken as `lax.top_k` breaks them (lower index first), by a stable
 sort, so both frameworks keep the same hypotheses among equal scores.
@@ -139,10 +141,13 @@ def batched_beam_search(
     lm_score_fn: Optional[Callable] = None,
     lm_cache_init: Any = None,
     max_steps: Optional[int] = None,    # bound L on the label length
+    initial_state: Optional[BeamState] = None,  # resume (online search)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the search. Returns the finished pool sorted by score:
     (yseq (B, W, L) without sos, ylen (B, W) emitted tokens excluding eos,
-    score (B, W))."""
+    score (B, W)). With `initial_state` (the block-synchronous online
+    search's) the search resumes from that beam and its scorer states; only
+    the padded CTC table is built afresh from `ctc_log_probs`."""
     if max_steps is None:
         raise ValueError("max_steps is required")
     dev = enc_lengths.device
@@ -169,7 +174,7 @@ def batched_beam_search(
                                             cfg.blank_id)
     else:
         lp_pad, ctc_state = None, None
-    s = BeamState(
+    s = initial_state if initial_state is not None else BeamState(
         step=0, yseq=yseq0, ylen=torch.zeros(b, w, dtype=torch.long, device=dev),
         score=score0, att_cache=att_cache_init, lm_cache=lm_cache_init,
         ctc=ctc_state, fin_yseq=yseq0.clone(),

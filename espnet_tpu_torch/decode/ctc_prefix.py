@@ -121,3 +121,35 @@ def ctc_prefix_select(state: CTCPrefixState, r_new: torch.Tensor,
         psi=psi[bi, src_hyp, src_cand],
         last=cand_ids[bi, src_hyp, src_cand],
     )
+
+
+def ctc_prefix_extend(state: CTCPrefixState, log_probs: torch.Tensor,
+                      old_lengths: torch.Tensor, new_lengths: torch.Tensor,
+                      blank_id: int = 0) -> CTCPrefixState:
+    """Extend the stored forward variables over newly arrived frames (the
+    online search's blank-path extension): for t in [old, new) of each
+    utterance r^b_t = p_t(blank) + logaddexp(r^b_{t-1}, r^n_{t-1}) with
+    the real blank posteriors, while r^n_t stays NEG_INF (the last label
+    of the prefix is not emitted again inside the extension). Other frames
+    keep their values. log_probs: (B, T, V) padded buffer holding the new
+    frames. The loop runs over the frames that any utterance extends,
+    which a loop over all T frames would leave unchanged elsewhere."""
+    b, w, t, _ = state.r.shape
+    lo = int(old_lengths.min())
+    hi = min(int(new_lengths.max()), t)
+    r = state.r.clone()
+    if hi <= lo:
+        return CTCPrefixState(r=r, psi=state.psi, last=state.last)
+    blank = log_probs[:, :, blank_id]  # (B, T)
+    neg = torch.full((b, w), NEG_INF, device=r.device)
+    prev_rn, prev_rb = ((r[:, :, lo - 1, 0], r[:, :, lo - 1, 1]) if lo > 0
+                        else (neg, neg))
+    for ti in range(lo, hi):
+        ext = ((old_lengths <= ti) & (ti < new_lengths))[:, None]
+        rb = torch.where(ext, blank[:, ti, None]
+                         + logaddexp(prev_rb, prev_rn), r[:, :, ti, 1])
+        rn = torch.where(ext, neg, r[:, :, ti, 0])
+        r[:, :, ti, 0] = rn
+        r[:, :, ti, 1] = rb
+        prev_rn, prev_rb = rn, rb
+    return CTCPrefixState(r=r, psi=state.psi, last=state.last)

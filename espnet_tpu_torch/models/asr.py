@@ -5,12 +5,13 @@ log-mel; "feats", precomputed features passed through; "sliding_window",
 raw-sample frames; "fused", two log-mel resolutions concatenated) ->
 SpecAug (training) -> global MVN (stats in the `mvn` buffers, loaded from
 the JAX `mvn` collection), utterance MVN or none -> Conv2d subsampling -> a
-conformer, transformer, Branchformer or E-Branchformer encoder -> a CTC
-head (when `ctc_weight` > 0) and a transformer decoder (when `ctc_weight`
-< 1). `forward` is the training loss (CTC weight `ctc_weight`, InterCTC on
-the encoder layers `interctc_layer_idx` mixed into the CTC loss with
-`interctc_weight`, label-smoothed attention loss), `encode`,
-`ctc_log_probs` and the decoder's step scoring serve inference. sos = eos =
+conformer, transformer, Branchformer, E-Branchformer or contextual-block
+(streaming) conformer encoder -> a CTC head (when `ctc_weight` > 0) and a
+transformer decoder (when `ctc_weight` < 1). `forward` is the training
+loss (CTC weight `ctc_weight`, InterCTC on the encoder layers
+`interctc_layer_idx` mixed into the CTC loss with `interctc_weight`,
+label-smoothed attention loss), `encode`, `ctc_log_probs` and the
+decoder's step scoring serve inference. sos = eos =
 vocab_size - 1 and blank = 0, as in the JAX package. Parameters are
 float32; `ASRConfig.dtype` is the compute dtype (bfloat16 for the bench
 model).
@@ -34,6 +35,7 @@ from torch import nn
 from espnet_tpu_torch.models.branchformer import VARIANTS, BranchformerEncoder
 from espnet_tpu_torch.models.conformer import ConformerEncoder
 from espnet_tpu_torch.models.layers import Dense
+from espnet_tpu_torch.models.streaming import ContextualBlockConformerEncoder
 from espnet_tpu_torch.models.transformer import (TransformerDecoder,
                                                  TransformerEncoder)
 from espnet_tpu_torch.ops.ctc import ctc_loss, min_frames
@@ -51,7 +53,8 @@ class ASRConfig:
     "sliding_window" | "fused") with SpecAug and a normalisation
     (`normalize`: "global_mvn" | "utterance_mvn" | "none"), an encoder
     (`encoder_type`: "conformer" | "transformer" | "branchformer" |
-    "e_branchformer"), a CTC head and a transformer decoder."""
+    "e_branchformer" | "contextual_block_conformer"), a CTC head and a
+    transformer decoder."""
 
     vocab_size: int
     input_type: str = "raw"
@@ -68,6 +71,10 @@ class ASRConfig:
     time_mask_width: Tuple[int, int] = (0, 40)
     normalize: str = "global_mvn"
     encoder_type: str = "conformer"
+    # streaming (contextual_block_conformer) geometry, in subsampled frames
+    block_size: int = 40
+    stream_hop_size: int = 16
+    look_ahead: int = 16
     d_model: int = 256
     num_heads: int = 4
     d_ff: int = 2048
@@ -166,9 +173,15 @@ def build_encoder(c: ASRConfig,
             subsampling_factor=c.subsampling_factor, variant=c.encoder_type,
             merge_kernel=MERGE_KERNEL, dtype=c.dtype,
             dropout_rate=c.dropout_rate, **opts)
+    if c.encoder_type == "contextual_block_conformer":
+        return ContextualBlockConformerEncoder(
+            n_feats, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
+            c.conformer_kernel_size, c.dropout_rate, c.subsampling_factor,
+            c.block_size, c.stream_hop_size, c.look_ahead, dtype=c.dtype,
+            **opts)
     raise NotImplementedError(
         f"encoder_type {c.encoder_type!r} is not ported (conformer, "
-        f"transformer, {', '.join(VARIANTS)})")
+        f"transformer, {', '.join(VARIANTS)}, contextual_block_conformer)")
 
 
 class ASRModel(nn.Module):

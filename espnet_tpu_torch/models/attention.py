@@ -12,6 +12,13 @@ package's `T >= 512` gate is a TPU tuning); other calls take the plain
 gate first (`relpos_attention.kernel_takes`, a head dim that is a multiple
 of 8): a head dim it refuses goes to the plain version, as in the JAX
 package.
+
+`MultiHeadAttention.capture` (a dict, None by default) records each call's
+attention weights (B, H, Tq, Tk) under the module's `capture_name`, through
+the plain path (the kernels never form the weights), where the JAX module
+sows them: every call but a full self-attention of at least
+`JAX_FLASH_THRESHOLD` frames, which JAX sends to its flash kernel
+(`train/plot.py`).
 """
 
 from __future__ import annotations
@@ -24,6 +31,10 @@ from torch import nn
 from espnet_tpu_torch.models.layers import Dense
 from espnet_tpu_torch.ops import flash_attention as _flash
 from espnet_tpu_torch.ops import relpos_attention as _relpos
+
+# the JAX MultiHeadAttention's flash_threshold: its flash path sows no
+# attention weights
+JAX_FLASH_THRESHOLD = 512
 
 
 class MultiHeadAttention(nn.Module):
@@ -41,6 +52,9 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = Dense(d_model, d_model, dtype=dtype)
         # False: the plain version even on the card (chip_smoke.py compares)
         self.use_kernel = True
+        # attention-map capture (train/plot.py): {name: [weights, ...]}
+        self.capture = None
+        self.capture_name = ""
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
@@ -68,8 +82,14 @@ class MultiHeadAttention(nn.Module):
             step_bias = torch.where(
                 valid, 0.0, torch.finfo(torch.float32).min).float()
             bias = step_bias if bias is None else bias + step_bias
-        if (cache is None and q.shape[2] == k.shape[2]
-                and _flash.key_padding_only(bias)
+        full = cache is None and q.shape[2] == k.shape[2]
+        if (self.capture is not None
+                and not (full and q.shape[2] >= JAX_FLASH_THRESHOLD
+                         and q.shape[3] % 8 == 0)):
+            x, w = _flash.reference_attention(q, k, v, bias,
+                                              return_weights=True)
+            self.capture.setdefault(self.capture_name, []).append(w)
+        elif (full and _flash.key_padding_only(bias)
                 and _relpos.kernel_takes(q.shape[3])):
             attn = (_flash.flash_attention if self.use_kernel
                     else _flash.flash_attention_plain)

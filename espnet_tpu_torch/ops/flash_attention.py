@@ -54,18 +54,21 @@ def key_padding_only(bias: Optional[torch.Tensor]) -> bool:
                             and bias.shape[2] == 1)
 
 
-def reference_attention(q, k, v, bias):
+def reference_attention(q, k, v, bias, return_weights: bool = False):
     """softmax(q kᵀ / sqrt(D) + bias) v in the input dtype: the port of
     `_reference_attention` (espnet_tpu/ops/pallas_attention.py), whose
     gradient the JAX custom VJP takes. q kᵀ is a product in q's dtype,
     widened to float32 for the softmax; the weights are rounded to v's
     dtype before their product with v. q, k, v: (B, H, T, D); bias:
-    additive, broadcastable to (B, H, Tq, Tk), or None."""
+    additive, broadcastable to (B, H, Tq, Tk), or None. With
+    `return_weights`, (output, float32 weights), as the JAX package's
+    `scaled_dot_attention(..., return_weights=True)` (attention maps)."""
     scores = (q @ k.transpose(-1, -2)).float() / math.sqrt(q.shape[-1])
     if bias is not None:
         scores = scores + bias.float()
     weights = torch.softmax(scores, dim=-1)
-    return weights.to(v.dtype) @ v
+    out = weights.to(v.dtype) @ v
+    return (out, weights) if return_weights else out
 
 
 def _plain_forward(q, k, v, bias):

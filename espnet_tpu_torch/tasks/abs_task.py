@@ -42,7 +42,7 @@ class RunConfig:
     stats_only: bool = False
     # comma-separated init_param specs "path:src:dst:excludes"
     init_param: str = ""
-    # per-epoch attention-heatmap PNGs: not ported (raises)
+    # per-epoch attention heat maps (train/plot.py)
     plot_attention: bool = False
     use_wandb: bool = False
     wandb_project: str = ""

@@ -148,8 +148,8 @@ UNPORTED_FIELDS = {
     "decoder_conf": (None, 6),
 }
 # encoder types of the JAX package that the port lacks -> ROADMAP item
-UNPORTED_ENCODERS = {"contextual_block_conformer": 4, "longformer": 6,
-                     "vgg_blstm": 6, "wav2vec2": 8, "whisper": 8}
+UNPORTED_ENCODERS = {"longformer": 6, "vgg_blstm": 6, "wav2vec2": 8,
+                     "whisper": 8}
 DTYPES = ("float32", "bfloat16")
 
 

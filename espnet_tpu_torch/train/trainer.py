@@ -53,7 +53,8 @@ class TrainerOptions:
     accum_grad: int = 1
     # partial pretrained transfer specs "path:src:dst:excludes"
     init_param: tuple = ()
-    # per-epoch attention heatmaps: not ported (raises)
+    # per-epoch attention heat maps of the first validation batch
+    # (train/plot.py; PNGs where matplotlib is installed)
     plot_attention: bool = False
     use_wandb: bool = False
     wandb_project: str = ""
@@ -65,10 +66,6 @@ class TrainerOptions:
 class Trainer:
     def __init__(self, model, tx, out_dir,
                  options: TrainerOptions = TrainerOptions(), device="cuda"):
-        if options.plot_attention:
-            raise NotImplementedError(
-                "--run.plot_attention is not ported: it needs attention maps "
-                "captured from the port's modules (ROADMAP.md queue 1 item 3)")
         self.model = model
         self.tx = tx
         self.options = options
@@ -135,7 +132,7 @@ class Trainer:
         start_epoch = 1
         if opts.resume and self.ckpt.has_checkpoint():
             state, last_epoch, rep_state, gen_state = self.ckpt.load_state(
-                state)
+                state, self.model)
             self.reporter.load_state_dict(rep_state)
             if gen_state is not None:
                 self.generator.set_state(gen_state)
@@ -174,7 +171,10 @@ class Trainer:
             # ---- valid phase ----
             if valid_iter is not None:
                 sub = SubReporter("valid", epoch)
+                plot_batch = None
                 for batch in valid_iter.epoch(epoch):
+                    if plot_batch is None:
+                        plot_batch = batch
                     stats = self.eval_step(state, batch)
                     keys = list(stats)
                     row = torch.stack([stats[k] for k in keys]).cpu().tolist()
@@ -183,6 +183,12 @@ class Trainer:
                 valid_stats = self.reporter.finish_phase(sub)
                 self.tb.log_epoch(epoch, "valid", valid_stats)
                 self.wandb.log_epoch(epoch, "valid", valid_stats)
+                if opts.plot_attention and plot_batch is not None:
+                    from espnet_tpu_torch.train.plot import \
+                        dump_attention_plots
+
+                    dump_attention_plots(self.model, plot_batch,
+                                         self.out_dir, epoch, tb=self.tb)
 
             for hook in hooks:
                 hook(self, state, epoch)

@@ -11,6 +11,7 @@ packages' `ASRTask.main` start from the same JAX initial parameters
 `asr_inference` decodes both experiment directories.
 """
 
+import importlib.util
 import json
 import shutil
 
@@ -254,15 +255,30 @@ def test_profile_steps_write_a_trace(runs, tmp_path):
 
 
 def test_jax_resume_state_is_refused(runs, tmp_path):
+    """(Named for its first check: the port once refused this state.) A
+    directory that holds only the JAX package's resume state: the port's
+    trainer resumes it (parameters, sgd's momentum trace and the count, in
+    the port's flat order) and runs epoch 3 alone."""
     ws = runs[0]
     (tmp_path / "jexp").mkdir()
     for name in ("config.yaml", "tokens.txt", "checkpoint.msgpack",
                  "checkpoint.meta.json"):
         shutil.copy(ws / "jexp" / name, tmp_path / "jexp" / name)
     shutil.copytree(ws / "jexp" / "stats", tmp_path / "jexp" / "stats")
-    with pytest.raises(RuntimeError, match="cross-package resume"):
-        ttrain.main(_argv(ws, "unused") + [
-            "--run.output_dir", str(tmp_path / "jexp"), "--device", "cpu"])
+    _, trainer, model, _, _ = ttrain.main(_argv(ws, "unused") + [
+        "--run.output_dir", str(tmp_path / "jexp"), "--run.max_epoch", "3",
+        "--device", "cpu"])
+    assert sorted(trainer.epoch_seconds) == [3]
+    assert sorted(trainer.reporter.epochs) == [1, 2, 3]
+    assert (tmp_path / "jexp" / "ep3.params.msgpack").exists()
+    assert (tmp_path / "jexp" / "checkpoint.pt").exists()
+    # epochs 1 and 2 are JAX's record; epoch 3 went on from JAX's state
+    # (a fresh start would begin near epoch 1's loss)
+    ep = trainer.reporter.epochs
+    for e in (1, 2):
+        assert ep[e]["train"]["loss"] == runs[1].epochs[e]["train"]["loss"]
+    for phase in ("train", "valid"):
+        assert ep[3][phase]["loss"] < ep[2][phase]["loss"]
 
 
 @pytest.mark.parametrize("extra, item", [
@@ -289,9 +305,8 @@ def test_unported_inference_flags_raise(runs, extra, item):
     (["--model.encoder_type", "wav2vec2"], 8),
     (["--model.decoder_type", "rnn"], 6),
     (["--model.encoder_type", "longformer"], 6),
-    (["--run.plot_attention", "true"], 3),
 ], ids=["sinc", "multichannel", "ssl", "wav2vec2", "rnn_decoder",
-        "longformer", "plot_attention"])
+        "longformer"])
 def test_unported_train_options_raise(runs, tmp_path, extra, item):
     ws = runs[0]
     argv = _argv(ws, "unused") + ["--run.output_dir", str(tmp_path / "x"),
@@ -326,7 +341,12 @@ def _feats_dirs(ws, tmp_path):
     ["--model.ctc_weight", "1.0"],
     ["--model.remat_encoder", "true"],
     "feats",
-], ids=["interctc", "ctc_weight_1", "remat", "feats"])
+    ["--run.plot_attention", "true"],
+    ["--model.encoder_type", "contextual_block_conformer",
+     "--model.block_size", "8", "--model.stream_hop_size", "4",
+     "--model.look_ahead", "2"],
+], ids=["interctc", "ctc_weight_1", "remat", "feats", "plot_attention",
+        "contextual_block_conformer"])
 def test_ported_model_options_train(runs, tmp_path, extra):
     """Model options the port once refused train one epoch through the CLI
     and write the JAX tree of their model."""
@@ -345,6 +365,10 @@ def test_ported_model_options_train(runs, tmp_path, extra):
         model.decoder is not None)
     stats = trainer.reporter.epochs[1]["train"]
     assert ("loss_interctc_layer1" in stats) == ("interctc" in str(argv))
+    plots = list((out / "att_ws" / "ep1").glob("*.png"))
+    assert bool(plots) == ("plot_attention" in str(argv)
+                           and importlib.util.find_spec("matplotlib")
+                           is not None)
 
 
 def test_entry_points_raise_without_a_card(runs, tmp_path, monkeypatch):
