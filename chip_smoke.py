@@ -134,11 +134,30 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    launches, ms/step and peak memory; (f)
    `espnet_tpu_torch.bin.asr_inference_streaming` in both engines on an
    experiment directory written by `CheckpointManager` from those weights;
-11. a `{"kernels": [...]}` JSON line (training shapes, bfloat16; launches
-   from the 3 timed train steps of the configuration whose path holds the
-   kernel: the conformer's, the transformer's for flash attention, the
-   E-Branchformer's for `fused_ffn`, the two conv routes' for theirs);
-12. last line: {"ok": true, "device": {...}}.
+11. transducer: the `transducer_conformer` RNN-T (the JAX TransducerConfig
+   defaults, vocab 5000: 12 x 256 conformer, 1 x 256 LSTM prediction
+   network, joint 320; random weights from seed 0): (a) the lattice pair
+   `transducer_alphas` and `transducer_occupancy` against their plain
+   versions in float32 at the training shape (B=8, T'=468, U=40, V=5000)
+   and at a character-level shape (U=200, ragged lengths), each with the
+   device time, the bound, the chain's T+U waves and the plain version's
+   time, and U+1 = 1025 raising; (b) Speech2TextTransducer on the 4
+   requests, greedy and mAES (beam 5, 3 expansions), float32, the kernel
+   route's token ids equal to the plain encoder route's and scores within
+   1e-4, wall and RTF, launches exact (12 rel-pos, 24 pre-norm FFN an
+   encode); (c) a float32 train step with kernels against plain, then 3
+   bf16 steps at B=8 x 15 s, U=40 (ms/step, audio-s/s, peak GiB; the pair
+   once each a step); (d) `bin.asr_transducer_train` (2 encoder layers at
+   full width) on a synthetic corpus, then `bin.asr_transducer_inference`
+   greedy and mAES, each a subprocess whose launch log must show the exact
+   launches;
+12. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
+   lattice pairs float32; launches from the 3 timed train steps of the
+   configuration whose path holds the kernel: the conformer's, the
+   transformer's for flash attention, the E-Branchformer's for
+   `fused_ffn`, the two conv routes' for theirs, the transducer's for its
+   lattice pair);
+13. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -170,6 +189,20 @@ CTC_LOSS_RTOL, CTC_GRAD_ATOL = 1e-5, 5e-3
 # the lattice's float32 vector work per state and frame: 3 exp, 1 log,
 # 2 max, 3 subtractions, 3 additions (log-add-exp of three and the emission)
 CTC_OPS_PER_STATE = 12
+# the transducer lattice pair, float32: alpha and log Z as the CTC lattice
+# (|alpha| reaches ~4e3 after 468 frames); the occupancies exponentiate
+# alpha + emission + beta - log Z, sums near 8e3 where a float32 ulp is
+# 4.9e-4: a few ulps of the exponent, as absolute error on a value in [0, 1]
+RNNT_TOLERANCE, RNNT_OCC_ATOL = (1e-3, 1e-5), 2e-3
+# float32 vector work per node: alpha, the log-add-exp of two (2 max, 2
+# subtractions, 2 exp, 1 log, 2 additions, 1 select) and its 2 inputs'
+# additions; the occupancy pass, beta's 12 and each occupancy's 3
+# additions, clip (2) and exp
+RNNT_ALPHA_OPS, RNNT_OCC_OPS = 12, 24
+# the transducer's training geometry: B utterances of 15 s, 40 labels
+RNNT_BATCH, RNNT_LABELS = 8, 40
+# serve: the kernel route's scores against the plain route's (relative)
+RNNT_SCORE_RTOL = 1e-4
 # float32 train step of the full-width model, kernels vs plain versions
 TRAIN_FP32_LOSS_RTOL = 1e-5
 TRAIN_FP32_GRAD_REL_L2 = 1e-3
@@ -915,6 +948,11 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                     "espnet_tpu/ops/pallas_conv_module.py:305"),
     "conv_module_bwd": ("espnet_tpu_torch/csrc/conv_module.cu",
                         "espnet_tpu/ops/pallas_conv_module.py:252"),
+    # no Pallas kernel: the JAX package's lax.scan pairs
+    "transducer_alphas": ("espnet_tpu_torch/csrc/transducer_lattice.cu",
+                          "espnet_tpu/ops/transducer.py:43"),
+    "transducer_occupancy": ("espnet_tpu_torch/csrc/transducer_lattice.cu",
+                             "espnet_tpu/ops/transducer.py:87"),
 }
 REQUEST_SECONDS = (4.0, 6.0, 9.0, 12.0)
 SAMPLE_RATE = 16000
@@ -964,6 +1002,8 @@ MAIN_PATH = {  # kernel: the configuration whose train run gives its launches
         "postnorm_proj_bwd")},
     "conv_module": "conformer_conv_module",
     "conv_module_bwd": "conformer_conv_module",
+    "transducer_alphas": "transducer",
+    "transducer_occupancy": "transducer",
 }
 
 
@@ -983,6 +1023,18 @@ def serve_shapes(cfg, lengths):
 
     frames = int(max(lengths)) // cfg.hop_length + 1
     return len(lengths), subsampled_length(frames, cfg.subsampling_factor)
+
+
+def build_model(cfg, options=None):
+    """The port's model of `cfg`: the transducer for a TransducerConfig,
+    else the joint CTC/attention ASRModel."""
+    from espnet_tpu_torch.models.asr import ASRModel
+    from espnet_tpu_torch.models.transducer import (TransducerASRModel,
+                                                    TransducerConfig)
+
+    if isinstance(cfg, TransducerConfig):
+        return TransducerASRModel(cfg, options)
+    return ASRModel(cfg, options)
 
 
 def reset_counts():
@@ -1098,11 +1150,11 @@ def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity",
     the requests' waveforms with random labels or on `batch`."""
     import dataclasses
 
-    from espnet_tpu_torch.models.asr import ASRModel, init_random_
+    from espnet_tpu_torch.models.asr import init_random_
 
     cfg = dataclasses.replace(cfg, dtype=torch.float32, dropout_rate=0.0,
                               use_specaug=False)
-    model = init_random_(ASRModel(cfg, options),
+    model = init_random_(build_model(cfg, options),
                          torch.Generator().manual_seed(1))
     model = model.to(device).train()
     if batch is None:
@@ -1156,12 +1208,12 @@ def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
     device memory in GiB. (device="cpu" with a small config rehearses the
     phase where there is no card: the wrappers then take their plain
     versions.)"""
-    from espnet_tpu_torch.models.asr import ASRModel, init_random_
+    from espnet_tpu_torch.models.asr import init_random_
     from espnet_tpu_torch.train.optim import build_optimizer
     from espnet_tpu_torch.train.steps import TrainState, make_train_step
 
     t = time.perf_counter()
-    model = init_random_(ASRModel(cfg, options),
+    model = init_random_(build_model(cfg, options),
                          torch.Generator().manual_seed(0))
     tx = build_optimizer("fused_adam", lr=2e-3, schedule="warmuplr",
                          warmup_steps=25000, d_model=cfg.d_model)
@@ -2520,6 +2572,296 @@ def phase_streaming(torch, np, smi):
         f"[{smi}]; launches exact")
 
 
+def transducer_case(torch, np, b, t, u, v, ilens, llens, seed):
+    """The lattice inputs of seeded (B, T, U+1, V) logits on the card: the
+    float32 log-softmax's blank column and masked label emissions, as the
+    loss gathers them; labels padded with the blank past each length."""
+    from espnet_tpu_torch.ops import transducer as ttr
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lp = torch.log_softmax(torch.randn(b, t, u + 1, v, generator=g,
+                                       device="cuda"), -1)
+    rng = np.random.RandomState(seed)
+    labels = torch.from_numpy(rng.randint(1, v, (b, u))).cuda()
+    ilen = torch.tensor(ilens, device="cuda")
+    llen = torch.tensor(llens, device="cuda")
+    labels[torch.arange(u, device="cuda")[None, :] >= llen[:, None]] = 0
+    blank, lab = ttr.lattice_inputs(lp, labels, llen)
+    del lp
+    return blank, lab, ilen, llen
+
+
+def check_transducer_pair(torch, blank, lab, ilen, llen, label,
+                          plain_iters=2):
+    """transducer_alphas and transducer_occupancy against their plain
+    versions on one lattice (float32), each timed with CUDA events and by
+    its device time, beside the bound and the chain of T+U waves. Returns
+    the two kernels' results by name."""
+    from espnet_tpu_torch.ops import transducer_lattice as trl
+
+    b, t, u1 = blank.shape
+    atol, rtol = RNNT_TOLERANCE
+    nodes = float(ilen.clamp(0, t).sum()) * u1  # the walk's nodes
+    waves = int(ilen.max()) + u1 - 1
+    args = (blank, lab, ilen, llen)
+
+    def how(pairs, atol_, rtol_):
+        worst, max_err, finite = 0.0, 0.0, True
+        for got, want in pairs:
+            finite &= bool(torch.isfinite(got).all())
+            err = (got - want).abs()
+            max_err = max(max_err, float(err.max()))
+            worst = max(worst, float((err - rtol_ * want.abs()).max()))
+        return max_err, finite and worst <= atol_, (
+            f"max |err| {max_err:.3e} (atol {atol_}, rtol {rtol_})")
+
+    alphas, log_z = trl.transducer_alphas(*args)
+    pa, plz = trl.transducer_alphas_plain(*args)
+    occ_b, occ_l = trl.transducer_occupancy(*args, alphas, log_z)
+    pob, pol = trl.transducer_occupancy_plain(*args, pa, plz)
+    torch.cuda.synchronize()
+    out = {}
+    lengths = b * 16
+    for name, pairs, tol, call, plain, ops, nbytes in (
+            ("transducer_alphas", ((alphas, pa), (log_z, plz)), (atol, rtol),
+             lambda: trl.transducer_alphas(*args),
+             lambda: trl.transducer_alphas_plain(*args), RNNT_ALPHA_OPS,
+             # blank and lab read, alphas written, lengths, log Z
+             (2 * b * t * u1 + b * t * (u1 - 1)) * 4 + lengths + b * 4),
+            ("transducer_occupancy", ((occ_b, pob), (occ_l, pol)),
+             (RNNT_OCC_ATOL, 0.0),
+             lambda: trl.transducer_occupancy(*args, alphas, log_z),
+             lambda: trl.transducer_occupancy_plain(*args, alphas, log_z),
+             RNNT_OCC_OPS,
+             # blank, lab, alphas, log Z read; both occupancies written
+             (3 * b * t * u1 + 2 * b * t * (u1 - 1)) * 4 + lengths + b * 4)):
+        max_err, ok, text = how(pairs, *tol)
+        dev = device_ms(torch, call)
+        bound_ms, bound_by = bound(ops * nodes, nbytes, PEAK_FLOPS["float32"])
+        out[name] = report(name, label, "float32", text, ok,
+                           time_ms(torch, call, 10),
+                           time_ms(torch, plain, plain_iters), bound_ms,
+                           bound_by, max_err, dev_ms=dev)
+        per_wave = "not measured" if dev is None else \
+            f"{dev / waves * 1e3:.3f} us a wave"
+        log("transducer", f"{name} {label}: the chain is {waves} waves "
+            f"(T+U), {per_wave} on the device; bytes and operations bound "
+            f"it at {bound_ms * 1e3:.3f} us")
+    return out
+
+
+def transducer_serve(torch, np, cfg, smi, device="cuda"):
+    """Greedy and mAES (beam 5, 3 expansions) on the requests, float32:
+    the kernel route against the plain encoder route, launches exact
+    (device="cpu" with a small config rehearses it where there is no card:
+    no launch is then expected)."""
+    from espnet_tpu_torch.decode.transducer_inference import \
+        Speech2TextTransducer
+    from espnet_tpu_torch.models.asr import init_random_
+
+    model = init_random_(build_model(cfg), torch.Generator().manual_seed(0))
+    log("transducer", f"model built: "
+        f"{sum(p.numel() for p in model.parameters())} parameters, "
+        f"compute {cfg.dtype}")
+    speech, lengths = requests(np)
+    audio = float(sum(REQUEST_SECONDS))
+    per_encode = ({"relpos_attention": cfg.num_encoder_layers,
+                   "prenorm_ffn": 2 * cfg.num_encoder_layers}
+                  if device == "cuda" else {})
+    for search, beam in (("greedy", 1), ("maes", 5)):
+        s2t = Speech2TextTransducer(model, device=device, beam_size=beam,
+                                    max_expansions=3, search=search)
+        s2t(speech, lengths)  # warm-up
+        sync(torch, device)
+        wrappers = reset_counts()
+        t = time.perf_counter()
+        got = s2t(speech, lengths)
+        sync(torch, device)
+        wall = time.perf_counter() - t
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        if counts != expected_counts(per_encode, 1):
+            raise AssertionError(f"transducer {search}: one decode launched "
+                                 f"{counts}, expected {per_encode}")
+        model.set_use_kernels(False)
+        want = s2t(speech, lengths)
+        model.set_use_kernels(True)
+        worst = max(abs(g.score - w.score) / max(1.0, abs(w.score))
+                    for g, w in zip(got, want))
+        same = all(g.token_ids == w.token_ids for g, w in zip(got, want))
+        log("transducer", f"(b) {search} beam {beam}, {len(got)} requests, "
+            f"{audio:.0f} s of audio: wall {wall:.3f}s, RTF "
+            f"{wall / audio:.5f} [{smi}]; tokens "
+            f"{[len(r.token_ids) for r in got]}, equal to the plain route's "
+            f"{same}, scores {[round(r.score, 4) for r in got]} (worst "
+            f"relative dev {worst:.2e}, limit {RNNT_SCORE_RTOL}); launches "
+            f"exact")
+        if not same or worst > RNNT_SCORE_RTOL:
+            raise AssertionError(f"transducer {search}: the kernel route's "
+                                 "decode differs from the plain route's")
+        if not all(np.isfinite(r.score) and all(
+                0 <= i < cfg.vocab_size for i in r.token_ids) for r in got):
+            raise AssertionError(f"transducer {search}: bad results")
+
+
+RNNT_CLI_ARGS = (
+    "--run.max_epoch 1 --run.log_interval 1 "
+    "--run.best_metric valid.loss.min --data.token_type char "
+    "--data.batch_size 8 --model.num_encoder_layers 2")
+RNNT_CLI_LAYERS = 2
+
+
+def transducer_cli(torch, np, smi):
+    """bin.asr_transducer_train and bin.asr_transducer_inference (greedy,
+    mAES) in subprocesses, each with its launch log."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from espnet_tpu_torch.data.synth import generate_corpus
+    from espnet_tpu_torch.ops.launches import LAUNCH_LOG_ENV
+    from espnet_tpu_torch.tasks.transducer import TransducerTask
+
+    ws = Path(tempfile.mkdtemp(prefix="chip_smoke_rnnt_"))
+    try:
+        generate_corpus(ws / "train", n_utts=24, min_words=4, max_words=10,
+                        seed=0)
+        generate_corpus(ws / "valid", n_utts=8, min_words=4, max_words=10,
+                        seed=1)
+        log_path = ws / "launches.jsonl"
+        env = dict(os.environ, **{LAUNCH_LOG_ENV: str(log_path)})
+        exp = ws / "exp"
+        train = RNNT_CLI_ARGS.split() + [
+            "--data.train_dir", str(ws / "train"),
+            "--data.valid_dir", str(ws / "valid"),
+            "--run.output_dir", str(exp)]
+        calls = [("asr_transducer_train", train)]
+        for search, beam in (("greedy", 1), ("maes", 5)):
+            calls.append(("asr_transducer_inference", [
+                "--exp_dir", str(exp), "--data_dir", str(ws / "valid"),
+                "--output_dir", str(ws / f"decode_{search}"),
+                "--beam_size", str(beam), "--search", search,
+                "--batch_size", "4"]))
+        for cli, argv in calls:
+            t = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"espnet_tpu_torch.bin.{cli}", *argv],
+                cwd=Path(__file__).resolve().parent, env=env,
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:] + proc.stderr[-8000:], flush=True)
+                raise AssertionError(f"transducer: {cli} exited "
+                                     f"{proc.returncode}")
+            log("transducer", f"(d) {cli} {' '.join(argv[-6:])}: "
+                f"{time.perf_counter() - t:.1f}s")
+        logged = [json.loads(ln) for ln in log_path.read_text().splitlines()]
+        if [c["cli"] for c in logged] != [c for c, _ in calls]:
+            raise AssertionError(f"transducer: CLI calls {logged}")
+        cfg = TransducerTask.load_config(exp)
+        data = cfg["data"]
+        tokens = TransducerTask.build_tokenizer(data, exp)
+        conv = TransducerTask.build_token_list(data, exp, tokens)
+        n_train = len(cli_batches(TransducerTask.build_dataset(
+            data, ws / "train", tokens, conv), data, data.batch_size))
+        ds_valid = TransducerTask.build_dataset(data, ws / "valid", tokens,
+                                                conv, train=False)
+        n_valid = len(cli_batches(ds_valid, data, data.batch_size))
+        n_dec = len(cli_batches(ds_valid, data, 4))
+        n = RNNT_CLI_LAYERS
+        want = expected_counts({}, 1)
+        want.update({
+            "relpos_attention": n * (n_train + n_valid),
+            "relpos_attention_bwd": n * n_train,
+            "prenorm_ffn": 2 * n * (n_train + n_valid),
+            "prenorm_ffn_bwd": 2 * n * n_train,
+            "transducer_alphas": n_train + n_valid,
+            "transducer_occupancy": n_train})
+        check_launches("asr_transducer_train", logged[0]["launches"], want)
+        for call in logged[1:]:
+            check_launches(f"asr_transducer_inference {call['argv']}",
+                           call["launches"], expected_counts(
+                               {"relpos_attention": n,
+                                "prenorm_ffn": 2 * n}, n_dec))
+        for search in ("greedy", "maes"):
+            out = ws / f"decode_{search}"
+            hyps = (out / "text").read_text().splitlines()
+            if len(hyps) != len(ds_valid) or not (
+                    out / "score_wer.txt").exists():
+                raise AssertionError(f"transducer: decode_{search} files")
+            log("transducer", f"(d) {search}: {len(hyps)} utterances, "
+                f"{(out / 'rtf.txt').read_text().strip()} [{smi}]")
+        log("transducer", f"(d) {n_train} train and {n_valid} validation "
+            f"batches, {n_dec} decode batches each search; launches exact")
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+
+
+def phase_transducer(torch, np, smi):
+    """The RNN-T at full width: (a) the lattice pair's kernel lines, (b)
+    greedy and mAES serving, (c) a float32 train step with kernels against
+    plain and 3 bf16 steps, (d) both CLIs. Returns (the train-shape kernel
+    results, the 3 timed train steps' launch counts)."""
+    from espnet_tpu_torch.configs import transducer_conformer
+    from espnet_tpu_torch.models.subsampling import subsampled_length
+    from espnet_tpu_torch.ops import transducer_lattice as trl
+
+    t0 = time.perf_counter()
+    cfg = transducer_conformer(torch.float32)
+    frames = int(TRAIN_SECONDS * SAMPLE_RATE) // cfg.hop_length + 1
+    tp = int(subsampled_length(frames, cfg.subsampling_factor))
+    # (a) the training shape, then a character-level label count
+    b, u = RNNT_BATCH, RNNT_LABELS
+    case = transducer_case(torch, np, b, tp, u, cfg.vocab_size, [tp] * b,
+                           [u] * b, 21)
+    main = check_transducer_pair(
+        torch, *case, f"train B={b} T={tp} U={u} V={cfg.vocab_size}")
+    rng = np.random.RandomState(22)
+    uc = 200
+    ilens = [tp] + rng.randint(tp // 3, tp + 1, b - 1).tolist()
+    llens = [uc] + rng.randint(uc // 2, uc + 1, b - 1).tolist()
+    case = transducer_case(torch, np, b, tp, uc, 64, ilens, llens, 23)
+    check_transducer_pair(torch, *case,
+                          f"characters B={b} T={tp} U={uc} V=64, ragged")
+    del case
+    before = trl.transducer_alphas.launches
+    try:
+        trl.transducer_alphas(torch.zeros(1, 2, 1025, device="cuda"),
+                              torch.zeros(1, 2, 1024, device="cuda"),
+                              torch.tensor([2], device="cuda"),
+                              torch.tensor([1], device="cuda"))
+    except ValueError as e:
+        log("transducer", f"(a) U+1 = 1025 raises: {e}")
+    else:
+        raise AssertionError("transducer_alphas took U+1 = 1025")
+    if trl.transducer_alphas.launches != before:
+        raise AssertionError("transducer_alphas launched for U+1 = 1025")
+    # (b) serve
+    transducer_serve(torch, np, cfg, smi)
+    # (c) train: float32 parity, then the timed bf16 steps
+    phase_train_parity(torch, np, cfg, tag="train-parity[transducer]")
+    steps = TRAIN_TIMED_STEPS
+    launches, step_s, peak = phase_train(
+        torch, np, transducer_conformer(torch.bfloat16),
+        batch_size=RNNT_BATCH, labels=RNNT_LABELS, steps=steps,
+        tag="train[transducer]", need_stats=("loss_rnnt",))
+    n = cfg.num_encoder_layers
+    want = expected_counts({"relpos_attention": n, "relpos_attention_bwd": n,
+                            "prenorm_ffn": 2 * n, "prenorm_ffn_bwd": 2 * n,
+                            "transducer_alphas": 1,
+                            "transducer_occupancy": 1}, steps)
+    if launches != want:
+        raise AssertionError(f"transducer: {steps} train steps launched "
+                             f"{launches}, expected {want}")
+    log("transducer", f"(c) B={RNNT_BATCH} x {TRAIN_SECONDS} s, U="
+        f"{RNNT_LABELS}, V={cfg.vocab_size}, bf16: {step_s * 1e3:.1f} "
+        f"ms/step, {RNNT_BATCH * TRAIN_SECONDS / step_s:.1f} audio-s/s, "
+        f"peak {peak:.2f} GiB [{smi}]; launches exact")
+    # (d) the CLIs
+    transducer_cli(torch, np, smi)
+    log("transducer", f"phase {time.perf_counter() - t0:.1f}s")
+    return main, launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2543,6 +2885,8 @@ def main() -> int:
     phase_recipe(torch, np, smi)
     phase_trained_exp(torch, np, smi)
     phase_streaming(torch, np, smi)
+    rnnt_results, launches["transducer"] = phase_transducer(torch, np, smi)
+    results.update(rnnt_results)
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         r = results[kname]

@@ -10,11 +10,22 @@ MVN, 12 x 256 encoder, 6 x 2048 decoder, CTC weight 0.3, label smoothing
 `encoder_options(name)` gives the configuration's encoder options (the
 `encoder_options` of `ASRModel`): the conformer's conv routes, which the
 JAX `ASRConfig` has no field for.
+
+    transducer_conformer(torch.bfloat16)
+
+gives the `TransducerConfig` of the conformer RNN-T: the JAX
+`TransducerConfig` defaults (raw 16 kHz input, n_fft 512, hop 128, 80 mels,
+SpecAug, utterance MVN; a 12 x 256 conformer, 4 heads, FFN 2048, kernel 31,
+subsampling 4; a 1-layer 256 LSTM prediction network on 256-wide
+embeddings; a joint of width 320; dropout 0.1; no aux CTC) with bench.py's
+vocab of 5000: the widths of ESPnet's conformer-RNN-T recipes for
+LibriSpeech-100. 37,088,264 parameters.
 """
 
 from __future__ import annotations
 
 from espnet_tpu_torch.models.asr import ASRConfig
+from espnet_tpu_torch.models.transducer import TransducerConfig
 
 BENCH = dict(
     vocab_size=5000, n_mels=80, d_model=256, num_heads=4, d_ff=2048,
@@ -68,3 +79,10 @@ def encoder_options(name: str) -> dict:
         raise ValueError(f"unknown configuration {name!r}; one of "
                          f"{sorted(ENCODERS)}")
     return dict(OPTIONS.get(name, {}))
+
+
+def transducer_conformer(dtype, **overrides) -> TransducerConfig:
+    """The conformer RNN-T at full width (the JAX defaults, vocab 5000)."""
+    fields = {"vocab_size": BENCH["vocab_size"], "dtype": dtype,
+              **overrides}
+    return TransducerConfig(**fields)

@@ -41,6 +41,13 @@ global-MVN buffers, which JAX keeps in its `mvn` collection, are left out.
 With `scan_layers` (a conformer built with `scan_encoder_layers`) the
 encoder's layers are stacked back into `encoder/block`, the tree JAX saves
 for such a model.
+
+The transducer's tree (`models/transducer.py`) follows the same rules: its
+LSTM cells are Dense layers named as flax's `OptimizedLSTMCell` names its
+kernels (`decoder/lstm{i}/{ii,if,ig,io}/kernel`, `decoder/lstm{i}/{hi,hf,hg,
+ho}/{kernel,bias}`), its embedding is `decoder/embed/embedding` and the
+joint's layers `joint/lin_{enc,dec,out}`, so no leaf needs a rule of its
+own.
 """
 
 from __future__ import annotations
@@ -239,7 +246,14 @@ def model_params(model: torch.nn.Module) -> Dict[str, Dict]:
 def load_jax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
     """Load a JAX param tree, or the variables dict {"params", "mvn"} of a
     global-MVN model, into `model`; raises on any key left unused on either
-    side, or on a shape that does not match."""
+    side, or on a shape that does not match. The transducer drops the `mvn`
+    collection: it has no global-MVN buffers, and the JAX model never reads
+    the stats that its task passes it."""
+    from espnet_tpu_torch.models.transducer import TransducerASRModel
+
+    tree, mvn = _split_variables(params)
+    if mvn is not None and isinstance(model, TransducerASRModel):
+        params = tree
     sd = jax_params_to_state_dict(params)
     own = model.state_dict()
     unused = sorted(set(sd) - set(own))

@@ -60,6 +60,9 @@ _SIGNATURES = {
     "espnet_conv_module_fwd": (_P,) * 13 + (_I,) * 5 + (_F, _I, _I, _P),
     "espnet_conv_module_bwd": (_P,) * 24 + (_I,) * 9 + (_F, _I, _I, _P),
     "espnet_conv_module_tile_rows": (_I, _I),
+    "espnet_transducer_alphas": (_P,) * 6 + (_I,) * 3 + (_P,),
+    "espnet_transducer_occupancy": (_P,) * 8 + (_I,) * 3 + (_P,),
+    "espnet_transducer_max_labels": (),
 }
 
 

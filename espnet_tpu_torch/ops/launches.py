@@ -27,7 +27,7 @@ def wrappers() -> Dict[str, Callable]:
     """Every kernel wrapper, by the kernel's name."""
     from espnet_tpu_torch.ops import (conv_glu, conv_module, ctc_lattice, ffn,
                                       flash_attention, prenorm_ffn,
-                                      relpos_attention)
+                                      relpos_attention, transducer_lattice)
 
     return {
         "relpos_attention": relpos_attention.relpos_attention,
@@ -45,6 +45,8 @@ def wrappers() -> Dict[str, Callable]:
         "postnorm_proj_bwd": conv_glu.postnorm_proj_bwd,
         "conv_module": conv_module.conv_module,
         "conv_module_bwd": conv_module.conv_module_bwd,
+        "transducer_alphas": transducer_lattice.transducer_alphas,
+        "transducer_occupancy": transducer_lattice.transducer_occupancy,
     }
 
 

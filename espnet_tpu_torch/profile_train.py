@@ -1,11 +1,13 @@
 """Where the time of one train step goes, on the CUDA card.
 
     python -m espnet_tpu_torch.profile_train [--batch 64] [--secs 15]
-        [--encoder NAME]  (a configuration of espnet_tpu_torch.configs)
+        [--encoder NAME]  (a configuration of espnet_tpu_torch.configs,
+                           or "transducer")
 
 Builds the bench model (full width and depth, bf16 compute, dropout 0.1,
 SpecAug, random weights from a seed) with the encoder of the chosen
-configuration of `espnet_tpu_torch.configs`; runs one warm-up train step
+configuration of `espnet_tpu_torch.configs`, or with `--encoder transducer`
+the RNN-T `configs.transducer_conformer`; runs one warm-up train step
 through
 `make_train_step`, then one step under `torch.profiler` and one step timed
 by the host clock alone. Prints the card's name and power limit, the step's
@@ -23,8 +25,10 @@ import time
 import numpy as np
 import torch
 
-from espnet_tpu_torch.configs import ENCODERS, bench_config, encoder_options
+from espnet_tpu_torch.configs import (ENCODERS, bench_config,
+                                      encoder_options, transducer_conformer)
 from espnet_tpu_torch.models.asr import ASRModel, init_random_
+from espnet_tpu_torch.models.transducer import TransducerASRModel
 from espnet_tpu_torch.train.optim import build_optimizer
 from espnet_tpu_torch.train.steps import TrainState, make_train_step
 
@@ -47,7 +51,8 @@ def main() -> None:
     ap.add_argument("--secs", type=float, default=15.0)
     ap.add_argument("--labels", type=int, default=40)
     ap.add_argument("--top", type=int, default=25)
-    ap.add_argument("--encoder", default="conformer", choices=sorted(ENCODERS))
+    ap.add_argument("--encoder", default="conformer",
+                    choices=sorted(ENCODERS) + ["transducer"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train needs a CUDA card")
@@ -57,9 +62,13 @@ def main() -> None:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    cfg = bench_config(torch.bfloat16, args.encoder)
-    model = init_random_(ASRModel(cfg, encoder_options(args.encoder)),
-                         torch.Generator().manual_seed(0))
+    if args.encoder == "transducer":
+        cfg = transducer_conformer(torch.bfloat16)
+        model = TransducerASRModel(cfg)
+    else:
+        cfg = bench_config(torch.bfloat16, args.encoder)
+        model = ASRModel(cfg, encoder_options(args.encoder))
+    model = init_random_(model, torch.Generator().manual_seed(0))
     tx = build_optimizer("fused_adam", lr=2e-3, schedule="warmuplr",
                          warmup_steps=25000, d_model=cfg.d_model)
     step = make_train_step(model, tx, device="cuda")

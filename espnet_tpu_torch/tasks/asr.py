@@ -325,7 +325,10 @@ class ASRTask(AbsTask):
                     n_mels=model.config.n_mels,
                     input_type=model.config.input_type, device=dev,
                 )
-            extra_init = {"mvn": mvn_variables(load_stats(stats_path))}
+            # the transducer has no global-MVN buffers: as in JAX it gets
+            # the stats collected and never reads them
+            if hasattr(model, "mvn"):
+                extra_init = {"mvn": mvn_variables(load_stats(stats_path))}
         if run.stats_only:
             logger.info("stats_only: stopping after collect-stats stage")
             return None

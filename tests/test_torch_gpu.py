@@ -977,3 +977,103 @@ def test_recipe_runs_on_the_card(cuda, tmp_path):
     stamp = (exp / "packed_model.zip").stat().st_mtime_ns
     run.main(argv)
     assert (exp / "packed_model.zip").stat().st_mtime_ns == stamp
+
+
+def _rnnt_case(device, t, u, ilens, llens, v=64, seed=0):
+    """The lattice inputs of random (B, T, U+1, V) logits: blank and the
+    masked label emissions, as the loss builds them."""
+    from espnet_tpu_torch.ops import transducer as ttr
+
+    b = len(ilens)
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy(rng.randn(b, t, u + 1, v).astype(np.float32))
+    labels = rng.randint(1, v, (b, u))
+    llens = np.asarray(llens)
+    labels[np.arange(u)[None, :] >= llens[:, None]] = 0
+    lp = torch.log_softmax(logits.to(device), -1)
+    labels, llens = torch.from_numpy(labels).to(device), torch.from_numpy(
+        llens).to(device)
+    blank, lab = ttr.lattice_inputs(lp, labels, llens)
+    return blank, lab, torch.tensor(ilens, device=device), llens
+
+
+# the CTC pair's float32 log-space tolerance for alpha and log Z; the
+# occupancies exponentiate alpha + emission + beta - log Z, sums near 8e3
+# where a float32 ulp is 4.9e-4: a few ulps of the exponent, as absolute
+# error on a value in [0, 1]
+RNNT_TOL, RNNT_OCC_ATOL = (1e-3, 1e-5), 2e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,u,ilens,llens,v", [
+    (468, 40, [468] * 8, [40] * 8, 5000),
+    (468, 200, [468, 301, 17, 1, 420, 233], [200, 150, 3, 0, 199, 81], 64),
+    (1, 0, [1, 1], [0, 0], 8),
+    (50, 1023, [50, 1], [1023, 0], 16),
+    (37, 5, [37, 1, 20], [5, 0, 3], 16)])
+def test_transducer_lattice_kernels_match_plain(cuda, t, u, ilens, llens, v):
+    from espnet_tpu_torch.ops import transducer_lattice as trl
+
+    blank, lab, ilen, llen = _rnnt_case(cuda, t, u, ilens, llens, v)
+    before = (trl.transducer_alphas.launches,
+              trl.transducer_occupancy.launches)
+    alphas, log_z = trl.transducer_alphas(blank, lab, ilen, llen)
+    occ_b, occ_l = trl.transducer_occupancy(blank, lab, ilen, llen, alphas,
+                                            log_z)
+    pa, plz = trl.transducer_alphas_plain(blank, lab, ilen, llen)
+    pob, pol = trl.transducer_occupancy_plain(blank, lab, ilen, llen, pa,
+                                              plz)
+    torch.cuda.synchronize()
+    assert (trl.transducer_alphas.launches,
+            trl.transducer_occupancy.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    atol, rtol = RNNT_TOL
+    for got, want in ((alphas, pa), (log_z, plz)):
+        torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+    for got, want in ((occ_b, pob), (occ_l, pol)):
+        torch.testing.assert_close(got, want, atol=RNNT_OCC_ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+def test_transducer_lattice_refuses_a_wider_lattice(cuda):
+    """U + 1 > 1024 raises on the card (one thread a label position),
+    never runs the plain version."""
+    from espnet_tpu_torch.ops import transducer_lattice as trl
+
+    assert trl.max_labels() == 1024
+    assert trl.kernel_takes(1024) and not trl.kernel_takes(1025)
+    before = trl.transducer_alphas.launches
+    with pytest.raises(ValueError, match="exceed"):
+        trl.transducer_alphas(torch.zeros(1, 2, 1025, device=cuda),
+                              torch.zeros(1, 2, 1024, device=cuda),
+                              torch.tensor([2], device=cuda),
+                              torch.tensor([1], device=cuda))
+    assert trl.transducer_alphas.launches == before
+
+
+@pytest.mark.gpu
+def test_transducer_loss_routes_agree_on_card(cuda):
+    """The loss and its logits gradient through the kernel pair against the
+    plain versions, float32 logits."""
+    from espnet_tpu_torch.ops import transducer as ttr
+
+    rng = np.random.RandomState(4)
+    b, t, u, v = 4, 120, 20, 500
+    logits = torch.from_numpy(rng.randn(b, t, u + 1, v).astype(
+        np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.randint(1, v, (b, u))).to(cuda)
+    ilen = torch.tensor([120, 77, 1, 60], device=cuda)
+    llen = torch.tensor([20, 11, 0, 20], device=cuda)
+    labels[torch.arange(u, device=cuda)[None, :] >= llen[:, None]] = 0
+    out = {}
+    for use in (True, False):
+        x = logits.clone().requires_grad_(True)
+        nll = ttr.transducer_loss(x, labels, ilen, llen, reduction="none",
+                                  use_kernels=use)
+        nll.sum().backward()
+        out[use] = (nll.detach(), x.grad)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[True][0], out[False][0], atol=1e-3,
+                               rtol=1e-5)
+    torch.testing.assert_close(out[True][1], out[False][1],
+                               atol=RNNT_OCC_ATOL, rtol=0)
