@@ -151,13 +151,30 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    full width) on a synthetic corpus, then `bin.asr_transducer_inference`
    greedy and mAES, each a subprocess whose launch log must show the exact
    launches;
-12. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
+12. asr-families: the rest of what the JAX ASRModel selects, at full
+   width (random weights from seed 0), each case with its exact kernel
+   launches: (a) `configs.longformer_conformer` (the slice's main path:
+   12 x 256 longformer, window 100; `fused_ffn` 24 an encode and 24 + 24
+   a step, the CTC pair 1 + 1): beam 10 on the 4 requests in float32,
+   the kernel route's tokens equal to the plain route's and its encoder
+   output within 1e-3, a float32 train step with kernels against plain,
+   3 bf16 steps at B=64 x 15 s; (b) `configs.vgg_blstm_rnn` (v1
+   VGG-BLSTMP + AttLoc): the same serve, 3 bf16 steps at B=64 x 15 s;
+   (c) the S4 decoder, sinc and multichannel (with and without DNN-WPE)
+   frontends on the bench conformer at 2 layers (`configs.FAMILIES`):
+   the same serve (the S4 decoder's `fused_ffn` 6 a decoder step, counted)
+   and one bf16 step at B=16 x 15 s; (d) `WindowStreamingASR` on the
+   VGG-LSTM: one window equals the offline decode, then 0.512 s windows,
+   timed; (e) `bin.asr_align` on synth_hard's 300 test utterances in a
+   subprocess with its launch log, its `segments` equal to the plain
+   route's;
+13. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
    lattice pairs float32; launches from the 3 timed train steps of the
    configuration whose path holds the kernel: the conformer's, the
    transformer's for flash attention, the E-Branchformer's for
    `fused_ffn`, the two conv routes' for theirs, the transducer's for its
    lattice pair);
-13. last line: {"ok": true, "device": {...}}.
+14. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2326,7 +2343,8 @@ def streaming_offline(torch, model, wave, search):
             c.vocab_size, lens,
             lambda tok, pos, cache: model.decoder_score_step(
                 tok, pos, mem, mem_lens, cache),
-            model.decoder_init_cache(w, STREAM_MAX_STEPS + 1, "cuda"),
+            model.decoder_init_cache(w, STREAM_MAX_STEPS + 1, mem,
+                                     mem_lens),
             ctc_log_probs=lp, max_steps=STREAM_MAX_STEPS)
         return yseq[0, 0, :int(ylen[0, 0])].tolist()
 
@@ -2862,6 +2880,264 @@ def phase_transducer(torch, np, smi):
     return main, launches
 
 
+# the asr-families phase: the rest of what the JAX ASRModel selects, at
+# full width (random weights from seed 0): the longformer (the slice's main
+# path: fused_ffn 2 a layer), the v1 VGG-BLSTM + AttLoc model, and on the
+# bench conformer at 2 layers the S4 decoder, the sinc frontend and the
+# multichannel frontend without and with DNN-WPE; then v1 window streaming
+# and CTC forced alignment
+FAMILY_LAYERS = 2
+FAMILY_BATCH = 16  # the 2-layer cases' B (x 15 s)
+FAMILY_SCORE_RTOL = 1e-4
+FFN_PAIR = ("fused_ffn", "fused_ffn_bwd")
+
+
+def family_inputs(np, cfg, speech):
+    """The requests' waveforms as the configuration takes them: (B, N, 2)
+    for the multichannel frontend (the second channel the first delayed
+    by 3 samples at half the level), else (B, N)."""
+    if cfg.num_channels > 1:
+        return np.stack([speech, 0.5 * np.roll(speech, 3, axis=1)], axis=2)
+    return speech
+
+
+def family_serve(torch, np, name, cfg, per_encode, per_step, smi,
+                 device="cuda"):
+    """Beam 10 (CTC 0.3, 40 label steps) on the 4 requests in float32: the
+    kernel route's launches exact (one encode, `per_step` a decoder step),
+    its token ids equal to the plain route's and its scores within
+    FAMILY_SCORE_RTOL; the float32 encoder output against the plain
+    route's. (device="cpu" with a small config rehearses it where there is
+    no card: no launch is then expected.)"""
+    import dataclasses
+
+    from espnet_tpu_torch.decode.asr_inference import Speech2Text
+
+    if device != "cuda":
+        per_encode, per_step = {}, {}
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    model = variant_model(torch, cfg)
+    s2t = Speech2Text(model, device=device, beam_size=10, ctc_weight=0.3,
+                      max_steps=40)
+    speech, lengths = requests(np)
+    speech = family_inputs(np, cfg, speech)
+    s2t(speech, lengths)  # warm-up
+    sync(torch, device)
+    steps = []
+    score_step = model.decoder_score_step
+
+    def counted(*a, **k):
+        steps.append(1)
+        return score_step(*a, **k)
+
+    model.decoder_score_step = counted
+    wrappers = reset_counts()
+    t = time.perf_counter()
+    got = s2t(speech, lengths, nbest=10)
+    sync(torch, device)
+    wall = time.perf_counter() - t
+    counts = {n: fn.launches for n, fn in wrappers.items()}
+    del model.decoder_score_step
+    want = expected_counts(per_encode, 1)
+    for k, v in per_step.items():
+        want[k] += v * len(steps)
+    if counts != want:
+        raise AssertionError(f"{name}: serving launched {counts}, expected "
+                             f"{want} ({len(steps)} decoder steps)")
+    model.set_use_kernels(False)
+    plain = s2t(speech, lengths, nbest=10)
+    sp = torch.from_numpy(speech).to(device)
+    ln = torch.from_numpy(lengths).to(device)
+    with torch.no_grad():
+        enc_p, olens = model.encode(sp, ln)
+        model.set_use_kernels(True)
+        enc_k, _ = model.encode(sp, ln)
+    valid = (torch.arange(enc_k.shape[1], device=device)[None, :]
+             < olens[:, None])[:, :, None]
+    dev = float(((enc_k - enc_p).abs() * valid).max())
+    worst = max(abs(g.score - w.score) / max(1.0, abs(w.score))
+                for g, w in zip(got, plain))
+    same = all(g.nbest[0][0] == w.nbest[0][0] for g, w in zip(got, plain))
+    audio = float(sum(REQUEST_SECONDS))
+    log("asr-families", f"{name} serve float32, beam 10: wall {wall:.3f}s, "
+        f"RTF {wall / audio:.5f} [{smi}]; tokens "
+        f"{[len(r.token_ids) for r in got]}, equal to the plain route's "
+        f"{same}, worst relative score dev {worst:.2e} (limit "
+        f"{FAMILY_SCORE_RTOL}); encoder output kernels vs plain max |dev| "
+        f"{dev:.3e} (limit {ENCODER_FP32_TOL}); {len(steps)} decoder "
+        f"steps; launches exact {({k: v for k, v in counts.items() if v})}")
+    if not same or worst > FAMILY_SCORE_RTOL or dev > ENCODER_FP32_TOL:
+        raise AssertionError(f"{name}: the kernel route's serve differs "
+                             "from the plain route's")
+    if not all(np.isfinite(r.score) and all(
+            0 <= i < cfg.vocab_size for i in r.token_ids) for r in got):
+        raise AssertionError(f"{name}: bad results")
+
+
+def family_train(torch, np, name, cfg, per_step, batch_size, steps, smi,
+                 parity, device="cuda", seconds=TRAIN_SECONDS):
+    """(a float32 train step with kernels against plain,) then `steps`
+    timed steps of `cfg` at batch_size x `seconds` with exact launches."""
+    if device != "cuda":
+        per_step = {}
+    speech = train_batch(np, batch_size, [seconds] * batch_size,
+                         TRAIN_LABELS, cfg.vocab_size, 0)
+    speech["speech"] = family_inputs(np, cfg, speech["speech"])
+    if parity:
+        pb = train_batch(np, len(REQUEST_SECONDS), REQUEST_SECONDS, 20,
+                         cfg.vocab_size, 2)
+        pb["speech"] = family_inputs(np, cfg, pb["speech"])
+        phase_train_parity(torch, np, cfg, device=device,
+                           tag=f"train-parity[{name}]", batch=pb)
+    launches, step_s, peak = phase_train(
+        torch, np, cfg, device=device, batch_size=batch_size,
+        seconds=seconds, steps=steps, tag=f"train[{name}]", batch=speech)
+    check_case_launches(name, f"{steps} train steps", launches, per_step,
+                        steps)
+    log("asr-families", f"{name} train {cfg.dtype} B={batch_size} x "
+        f"{seconds} s: {step_s * 1e3:.1f} ms/step, "
+        f"{batch_size * seconds / step_s:.1f} audio-s/s, peak "
+        f"{peak:.2f} GiB [{smi}]; launches exact")
+
+
+def family_window(torch, np, smi, cfg, device="cuda"):
+    """(d) WindowStreamingASR on the VGG-LSTM `cfg`, float32: one window
+    holding a request equals the offline decode; then the request in
+    0.512 s windows, timed."""
+    from espnet_tpu_torch.decode.asr_inference import Speech2Text
+    from espnet_tpu_torch.decode.streaming_v1 import WindowStreamingASR
+
+    model = variant_model(torch, cfg)
+    s2t = Speech2Text(model, device=device, beam_size=10, ctc_weight=0.3,
+                      max_steps=40)
+    speech, lengths = requests(np)
+    wave = speech[-1, :lengths[-1]]
+    offline = s2t(wave[None], lengths[-1:], nbest=10)[0].nbest
+    one = WindowStreamingASR(s2t)
+    one.accept_input(wave)
+    single = one.decode_with_attention_offline()
+    if single != offline:
+        raise AssertionError("asr-families: one window differs from the "
+                             f"offline decode: {single[0]} vs {offline[0]}")
+    win = WindowStreamingASR(s2t)
+    hop = 8192
+    sync(torch, device)
+    t = time.perf_counter()
+    for i in range(0, len(wave), hop):
+        win.accept_input(wave[i:i + hop])
+    sync(torch, device)
+    feed = time.perf_counter() - t
+    t = time.perf_counter()
+    hyps = win.decode_with_attention_offline()
+    final = time.perf_counter() - t
+    n = -(-len(wave) // hop)
+    log("asr-families", f"(d) vgg_lstm window streaming float32: one window "
+        f"equals the offline decode ({len(single[0][0])} tokens); "
+        f"{n} windows of {hop / SAMPLE_RATE:.3f} s: {feed / n * 1e3:.2f} "
+        f"ms a window, final decode {final:.3f}s, "
+        f"{len(hyps[0][0])} tokens [{smi}]")
+
+
+def family_align(torch, np, smi, device="cuda"):
+    """(e) bin.asr_align on the JAX-trained synth_hard experiment's 300 test
+    utterances, a subprocess with its launch log, against the plain
+    route's segments computed here."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    from espnet_tpu_torch.bin.asr_align import align_lines
+    from espnet_tpu_torch.bin.asr_inference import load_experiment
+    from espnet_tpu_torch.ops.launches import LAUNCH_LOG_ENV
+
+    ws = Path(tempfile.mkdtemp(prefix="chip_smoke_align_"))
+    try:
+        log_path = ws / "launches.jsonl"
+        argv = ["--exp_dir", SYNTH_EXP, "--data_dir", f"{SYNTH}/data/test",
+                "--output_dir", str(ws / "align"), "--params", SYNTH_PARAMS,
+                "--batch_size", "30", "--device", device]
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "espnet_tpu_torch.bin.asr_align", *argv],
+            cwd=Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=600,
+            env=dict(os.environ, **{LAUNCH_LOG_ENV: str(log_path)}))
+        wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:] + proc.stderr[-8000:], flush=True)
+            raise AssertionError(f"asr_align exited {proc.returncode}")
+        got = (ws / "align" / "segments").read_text().splitlines()
+        model, data, ds, _, conv = load_experiment(
+            Path(SYNTH_EXP), f"{SYNTH}/data/test", SYNTH_PARAMS)
+        model.set_use_kernels(False)
+        want = align_lines(model, data, ds, conv, 30, device)
+        if got != want:
+            bad = [(g, w) for g, w in zip(got, want) if g != w]
+            raise AssertionError(f"asr_align: the kernel route's segments "
+                                 f"differ from the plain route's: "
+                                 f"{len(got)} vs {len(want)} lines, "
+                                 f"{bad[:3]}")
+        (call,) = [json.loads(ln) for ln in log_path.read_text().splitlines()]
+        layers = model.config.num_encoder_layers
+        n_batches = len(cli_batches(ds, data, 30))
+        per = ({"relpos_attention": layers, "prenorm_ffn": 2 * layers}
+               if device == "cuda" else {})
+        check_case_launches("asr_align", "aligning", call["launches"], per,
+                            n_batches)
+        utts = len({ln.split()[0] for ln in got})
+        log("asr-families", f"(e) bin.asr_align on synth_hard's {len(ds)} "
+            f"test utterances: {len(got)} segments of {utts} utterances, "
+            f"equal to the plain route's; {wall:.1f}s with process start "
+            f"[{smi}]; launches exact ({n_batches} batches)")
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+
+
+def phase_asr_families(torch, np, smi):
+    """(a) the longformer at full width: serve, a float32 step with
+    kernels against plain, 3 bf16 steps at B=64 x 15 s; (b) vgg_blstm_rnn:
+    serve and 3 bf16 steps at B=64; (c) the S4 decoder, sinc and
+    multichannel (with and without WPE) models at 2 layers: serve and one
+    bf16 step at B=16; (d) v1 window streaming; (e) bin.asr_align."""
+    from espnet_tpu_torch.configs import (FAMILIES, bench_config,
+                                          longformer_conformer,
+                                          vgg_blstm_rnn)
+
+    t0 = time.perf_counter()
+    # (a) the slice's main path
+    ffn = {"fused_ffn": 2 * L}
+    family_serve(torch, np, "longformer", longformer_conformer(
+        torch.float32), ffn, {}, smi)
+    family_train(torch, np, "longformer", longformer_conformer(
+        torch.bfloat16), {"fused_ffn": 2 * L, "fused_ffn_bwd": 2 * L, **CTC},
+        TRAIN_BATCH, TRAIN_TIMED_STEPS, smi, parity=True)
+    # (b) v1 VGG-BLSTM + AttLoc: only the CTC pair is a kernel there
+    family_serve(torch, np, "vgg_blstm_rnn", vgg_blstm_rnn(torch.float32),
+                 {}, {}, smi)
+    family_train(torch, np, "vgg_blstm_rnn", vgg_blstm_rnn(torch.bfloat16),
+                 CTC, TRAIN_BATCH, TRAIN_TIMED_STEPS, smi, parity=False)
+    # (c) the 2-layer conformer cases
+    n = FAMILY_LAYERS
+    conformer = ({"relpos_attention": n, "prenorm_ffn": 2 * n},
+                 {"relpos_attention": n, "relpos_attention_bwd": n,
+                  "prenorm_ffn": 2 * n, "prenorm_ffn_bwd": 2 * n, **CTC})
+    for name, overrides in FAMILIES.items():
+        cfg = bench_config(torch.bfloat16, num_encoder_layers=n, **overrides)
+        per_step, train_step = {}, dict(conformer[1])
+        if cfg.decoder_type == "s4":  # its FFN: fused_ffn, one a block
+            per_step = {"fused_ffn": cfg.num_decoder_layers}
+            train_step.update({k: cfg.num_decoder_layers for k in FFN_PAIR})
+        family_serve(torch, np, name, cfg, conformer[0], per_step, smi)
+        family_train(torch, np, name, cfg, train_step, FAMILY_BATCH, 1, smi,
+                     parity=False)
+    family_window(torch, np, smi,
+                  vgg_blstm_rnn(torch.float32, encoder_type="vgg_lstm"))
+    family_align(torch, np, smi)
+    log("asr-families", f"phase {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2886,6 +3162,7 @@ def main() -> int:
     phase_trained_exp(torch, np, smi)
     phase_streaming(torch, np, smi)
     rnnt_results, launches["transducer"] = phase_transducer(torch, np, smi)
+    phase_asr_families(torch, np, smi)
     results.update(rnnt_results)
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

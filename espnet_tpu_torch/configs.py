@@ -20,6 +20,22 @@ subsampling 4; a 1-layer 256 LSTM prediction network on 256-wide
 embeddings; a joint of width 320; dropout 0.1; no aux CTC) with bench.py's
 vocab of 5000: the widths of ESPnet's conformer-RNN-T recipes for
 LibriSpeech-100. 37,088,264 parameters.
+
+    longformer_conformer(torch.bfloat16)
+
+gives bench.py's model with the longformer encoder (12 x 256, 4 heads, FFN
+2048, conv kernel 31, attention window 100: the JAX `ASRConfig` defaults),
+46,043,920 parameters;
+
+    vgg_blstm_rnn(torch.bfloat16)
+
+the v1 VGG-BLSTMP + AttLoc model: a 4-layer VGG-BLSTM encoder of 320 units
+and projections (the JAX model ties both to d_model), a 1-layer RNN decoder
+of 320 units with location attention (320 dims, 10 conv channels, 100
+filters: the JAX `RNNDecoder` defaults, ESPnet v1's), CTC weight 0.3,
+vocab 5000, utterance MVN; 16,312,578 parameters. `FAMILIES` adds the S4
+decoder, the sinc frontend and the multichannel frontend (with and
+without WPE) to bench.py's conformer, as overrides of `bench_config`.
 """
 
 from __future__ import annotations
@@ -86,3 +102,29 @@ def transducer_conformer(dtype, **overrides) -> TransducerConfig:
     fields = {"vocab_size": BENCH["vocab_size"], "dtype": dtype,
               **overrides}
     return TransducerConfig(**fields)
+
+
+def longformer_conformer(dtype, **overrides) -> ASRConfig:
+    """bench.py's model with the longformer encoder (window 100)."""
+    return bench_config(dtype, "conformer", **{
+        "encoder_type": "longformer", "attention_window": 100, **overrides})
+
+
+VGG_BLSTM_RNN = dict(
+    encoder_type="vgg_blstm", d_model=320, num_encoder_layers=4,
+    decoder_type="rnn", num_decoder_layers=1, rnn_att_type="location")
+
+
+def vgg_blstm_rnn(dtype, **overrides) -> ASRConfig:
+    """The v1 VGG-BLSTMP + AttLoc model at ESPnet v1's widths."""
+    return bench_config(dtype, "conformer", **{**VGG_BLSTM_RNN, **overrides})
+
+
+# the other families of the JAX ASRModel on bench.py's conformer: name ->
+# bench_config overrides
+FAMILIES = {
+    "s4_decoder": {"decoder_type": "s4"},
+    "sinc": {"input_type": "sinc", "sinc_out_dim": 256},
+    "multichannel": {"num_channels": 2},
+    "multichannel_wpe": {"num_channels": 2, "use_wpe": True},
+}

@@ -12,7 +12,12 @@ leaves change layout:
 * depthwise Conv1d `kernel` (k, 1, d) -> (d, 1, k);
 * LayerNorm `scale` -> `weight` (eps 1e-6 is set by the port's LayerNorm);
 * Embed `embedding` -> `weight`;
-* `pos_bias_u` / `pos_bias_v` (H, dk) and every `bias` as they are.
+* Conv1d `kernel` (k, in, out) -> (out, in, k) (the depthwise (k, 1, d)
+  among them), Conv2d's as above (the VGG front and AttLoc2D);
+* `pos_bias_u` / `pos_bias_v` (H, dk), every `bias`, and the raw
+  parameters of the S4 layer (`log_neg_a_re`, `a_im`, `log_dt`, `c_re`,
+  `c_im`, `d`), the sinc filters (`low_hz`, `band_hz`) and the multi-head
+  RNN attentions (`gvec`, (H, dk)) as they are.
 
 The fused and unfused JAX layers use the same param names, so one mapping
 serves both. A conformer built with `scan_encoder_layers=True` keeps its
@@ -47,7 +52,10 @@ LSTM cells are Dense layers named as flax's `OptimizedLSTMCell` names its
 kernels (`decoder/lstm{i}/{ii,if,ig,io}/kernel`, `decoder/lstm{i}/{hi,hf,hg,
 ho}/{kernel,bias}`), its embedding is `decoder/embed/embedding` and the
 joint's layers `joint/lin_{enc,dec,out}`, so no leaf needs a rule of its
-own.
+own. So do the v1 RNN models' and the beamformer's cells, which the JAX
+`nn.RNN` calls leave under flax's automatic names
+(`encoder/OptimizedLSTMCell_{k}`, `frontend_beamformer/mask_est/
+OptimizedLSTMCell_{k}`): the port's modules carry the same names.
 """
 
 from __future__ import annotations
@@ -69,6 +77,11 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+# raw parameters carried without a layout change
+RAW_LEAVES = ("bias", "pos_bias_u", "pos_bias_v", "log_neg_a_re", "a_im",
+              "log_dt", "c_re", "c_im", "d", "low_hz", "band_hz", "gvec")
+
+
 def _leaf(name: str, value: np.ndarray):
     """(torch leaf name, array in torch layout) for one JAX leaf."""
     if name == "kernel":
@@ -81,7 +94,7 @@ def _leaf(name: str, value: np.ndarray):
         raise ValueError(f"kernel of unexpected rank {value.ndim}")
     if name in ("scale", "embedding"):
         return "weight", value
-    if name in ("bias", "pos_bias_u", "pos_bias_v"):
+    if name in RAW_LEAVES:
         return name, value
     raise ValueError(f"unknown parameter leaf {name!r}")
 
@@ -196,7 +209,7 @@ def _jax_leaf(key: str, value: np.ndarray):
     """(JAX leaf name, array in the JAX layout) of the port's leaf `key`."""
     parts = key.split(".")
     name = parts[-1]
-    if name in ("bias", "pos_bias_u", "pos_bias_v"):
+    if name in RAW_LEAVES:
         return name, value
     if name != "weight":
         raise ValueError(f"unknown parameter leaf {key!r}")

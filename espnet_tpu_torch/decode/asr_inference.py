@@ -90,8 +90,11 @@ class Speech2Text:
         return self.search_from_memory(enc, enc_lens)
 
     @torch.no_grad()
-    def search_from_memory(self, enc: torch.Tensor, enc_lens: torch.Tensor):
-        """Beam search over encoder memory (B, T, D)."""
+    def search_from_memory(self, enc: torch.Tensor, enc_lens: torch.Tensor,
+                           ctc_lp: Optional[torch.Tensor] = None):
+        """Beam search over encoder memory (B, T, D); `ctc_lp`, the CTC
+        log-probs of that memory when the caller has them (the v1 streaming
+        recognisers accumulate them chunk by chunk)."""
         model = self.model
         b, w = enc.shape[0], self.cfg.beam_size
         # label budget: the encoder length (maxlenratio 0), capped by
@@ -101,10 +104,13 @@ class Speech2Text:
             steps = max(1, int(math.ceil(self.cfg.maxlenratio * steps)))
         if self.max_steps:
             steps = min(steps, self.max_steps)
-        ctc_lp = model.ctc_log_probs(enc) if self.cfg.ctc_weight > 0 else None
+        if self.cfg.ctc_weight <= 0:
+            ctc_lp = None
+        elif ctc_lp is None:
+            ctc_lp = model.ctc_log_probs(enc)
         mem = enc.repeat_interleave(w, dim=0)
         mem_lens = enc_lens.repeat_interleave(w, dim=0)
-        att_cache = model.decoder_init_cache(b * w, steps + 1, enc.device)
+        att_cache = model.decoder_init_cache(b * w, steps + 1, mem, mem_lens)
 
         def att_score_fn(tokens, pos, cache):
             return model.decoder_score_step(tokens, pos, mem, mem_lens, cache)

@@ -144,7 +144,9 @@ class DeviceStreamingRecognizer:
             self._dev["lp_buf"] = torch.zeros(1, n, c.vocab_size, device=dev)
             self._dev["beam"] = init_online_state(
                 self.bs_cfg, c.sos_id, c.eos_id, 1, n, self.max_steps,
-                self.model.decoder_init_cache(w, self.max_steps + 1, dev),
+                self.model.decoder_init_cache(
+                    w, self.max_steps + 1, torch.zeros(w, n, d, device=dev),
+                    torch.zeros(w, dtype=torch.long, device=dev)),
                 vocab_size=c.vocab_size, device=dev)
 
     # ------------------------------------------------------------------
@@ -355,7 +357,8 @@ class DeviceStreamingRecognizer:
             self.bs_cfg, c.sos_id, c.eos_id, c.vocab_size,
             torch.full((1,), t_s, dtype=torch.long, device=self.device),
             att_score_fn,
-            self.model.decoder_init_cache(w, self.max_steps + 1, self.device),
+            self.model.decoder_init_cache(w, self.max_steps + 1, mem,
+                                          mem_lens),
             ctc_log_probs=lp if self.bs_cfg.ctc_weight > 0 else None,
             max_steps=self.max_steps)
         self._ids = yseq[0, 0, :int(ylen[0, 0])].tolist()

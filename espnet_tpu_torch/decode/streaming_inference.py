@@ -215,7 +215,9 @@ class Speech2TextStreaming:
             self._beam_state = init_online_state(
                 self.bs_cfg, c.sos_id, c.eos_id, 1, self.t_max,
                 self.max_steps, self.model.decoder_init_cache(
-                    w, self.max_steps + 1, self.device),
+                    w, self.max_steps + 1,
+                    self._enc_buf.repeat_interleave(w, dim=0),
+                    torch.zeros(w, dtype=torch.long, device=self.device)),
                 vocab_size=c.vocab_size, device=self.device)
         mem = self._enc_buf.repeat_interleave(w, dim=0)
         mem_lens = torch.full((w,), new, dtype=torch.long, device=self.device)

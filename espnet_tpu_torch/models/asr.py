@@ -1,40 +1,50 @@
 """Joint CTC/attention ASR model (port of espnet_tpu/models/asr.py).
 
-The slice ported here: a frontend (`input_type`: "raw" 16 kHz waveform ->
-log-mel; "feats", precomputed features passed through; "sliding_window",
-raw-sample frames; "fused", two log-mel resolutions concatenated) ->
-SpecAug (training) -> global MVN (stats in the `mvn` buffers, loaded from
-the JAX `mvn` collection), utterance MVN or none -> Conv2d subsampling -> a
-conformer, transformer, Branchformer, E-Branchformer or contextual-block
-(streaming) conformer encoder -> a CTC head (when `ctc_weight` > 0) and a
-transformer decoder (when `ctc_weight` < 1). `forward` is the training
-loss (CTC weight `ctc_weight`, InterCTC on the encoder layers
-`interctc_layer_idx` mixed into the CTC loss with `interctc_weight`,
-label-smoothed attention loss), `encode`, `ctc_log_probs` and the
-decoder's step scoring serve inference. sos = eos =
-vocab_size - 1 and blank = 0, as in the JAX package. Parameters are
-float32; `ASRConfig.dtype` is the compute dtype (bfloat16 for the bench
-model).
+Every part that the JAX `ASRModel` selects through its `ASRConfig`, but
+the SSL and Whisper ones (ROADMAP.md queue 1 item 8): a frontend
+(`input_type`: "raw" 16 kHz waveform -> log-mel, multichannel (B, N, C)
+with DNN-WPE and the mask-MVDR beamformer when `num_channels` > 1;
+"feats", precomputed features passed through; "sliding_window", raw-sample
+frames; "fused", two log-mel resolutions concatenated; "sinc",
+`LightweightSincConvs`) -> SpecAug (training) -> global MVN (stats in the
+`mvn` buffers, loaded from the JAX `mvn` collection), utterance MVN or
+none -> an encoder (conformer, transformer, Branchformer, E-Branchformer,
+contextual-block conformer, longformer, VGG-BLSTM, VGG-LSTM, or a plugin
+registered under `encoder_type` in `utils/registry.py`, built from
+`encoder_conf`) -> a CTC head (when `ctc_weight` > 0) and a decoder (when
+`ctc_weight` < 1: transformer, the v1 RNN decoder with the attention of
+`rnn_att_type`, the S4 decoder, or a registered plugin built from
+`decoder_conf`). `forward` is the training loss (CTC weight `ctc_weight`,
+InterCTC on the encoder layers `interctc_layer_idx` mixed into the CTC
+loss with `interctc_weight`, label-smoothed attention loss); `encode`,
+`encode_chunk` (the VGG-LSTM's carried chunk streaming), `ctc_log_probs`
+and the decoder's step scoring serve inference. sos = eos = vocab_size - 1
+and blank = 0, as in the JAX package. Parameters are float32;
+`ASRConfig.dtype` is the compute dtype (bfloat16 for the bench model); the
+multichannel frontend runs in float32 whatever it is, as in JAX.
 
 Dropout and SpecAug are on while the model is training and the caller
 passes a `torch.Generator`, from which all their randomness is drawn (the
-FFN kernels' seeds included). The sinc (ROADMAP.md queue 1 item 6) and SSL
-(item 8) frontends, the multichannel frontend and the other encoder and
-decoder families are not ported yet.
+FFN kernels' seeds included).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from espnet_tpu_torch.models.branchformer import VARIANTS, BranchformerEncoder
 from espnet_tpu_torch.models.conformer import ConformerEncoder
+from espnet_tpu_torch.models.enh.beamformer import DNNWPE, DNNBeamformer
 from espnet_tpu_torch.models.layers import Dense
+from espnet_tpu_torch.models.longformer import LongformerEncoder
+from espnet_tpu_torch.models.rnn import RNNDecoder, VGGRNNEncoder
+from espnet_tpu_torch.models.s4_decoder import S4Decoder
+from espnet_tpu_torch.models.sinc import LightweightSincConvs
 from espnet_tpu_torch.models.streaming import ContextualBlockConformerEncoder
 from espnet_tpu_torch.models.transformer import (TransformerDecoder,
                                                  TransformerEncoder)
@@ -43,22 +53,38 @@ from espnet_tpu_torch.ops.losses import label_smoothing_loss, token_accuracy
 from espnet_tpu_torch.ops.masks import make_valid_mask
 from espnet_tpu_torch.ops.normalize import global_mvn, utterance_mvn
 from espnet_tpu_torch.ops.specaug import specaug
-from espnet_tpu_torch.ops.stft import frame_signal, log_mel_spectrogram
+from espnet_tpu_torch.ops.stft import (frame_signal, log_mel,
+                                       log_mel_spectrogram, stft,
+                                       stft_frames_lengths)
+from espnet_tpu_torch.utils import registry
 
 
 @dataclasses.dataclass(frozen=True)
 class ASRConfig:
-    """The fields of the JAX `ASRConfig` that this slice serves, with the
-    JAX defaults: a frontend (`input_type`: "raw" | "feats" |
-    "sliding_window" | "fused") with SpecAug and a normalisation
-    (`normalize`: "global_mvn" | "utterance_mvn" | "none"), an encoder
-    (`encoder_type`: "conformer" | "transformer" | "branchformer" |
-    "e_branchformer" | "contextual_block_conformer"), a CTC head and a
-    transformer decoder."""
+    """The fields of the JAX `ASRConfig` but its SSL and Whisper sections,
+    with the JAX defaults: a frontend (`input_type`: "raw" | "feats" |
+    "sliding_window" | "fused" | "sinc"; multichannel raw input with
+    `num_channels` > 1) with SpecAug and a normalisation (`normalize`:
+    "global_mvn" | "utterance_mvn" | "none"), an encoder (`encoder_type`:
+    "conformer" | "transformer" | "branchformer" | "e_branchformer" |
+    "contextual_block_conformer" | "longformer" | "vgg_blstm" | "vgg_lstm"
+    | a registered plugin), a CTC head and a decoder (`decoder_type`:
+    "transformer" | "rnn" | "s4" | a registered plugin)."""
 
     vocab_size: int
     input_type: str = "raw"
+    sinc_out_dim: int = 256  # LightweightSincConvs' output width
     fused_n_fft2: int = 0  # second resolution of "fused" (0 = 2 * n_fft)
+    # multichannel frontend: (B, N, C) raw input, optional DNN-WPE, then the
+    # mask-MVDR beamformer (or the reference channel), when num_channels > 1
+    num_channels: int = 1
+    use_wpe: bool = False
+    use_beamformer: bool = True
+    wpe_taps: int = 5
+    wpe_delay: int = 3
+    ref_channel: int = 0
+    frontend_hidden: int = 128
+    frontend_layers: int = 2
     fs: int = 16000
     n_fft: int = 512
     hop_length: int = 128
@@ -71,6 +97,8 @@ class ASRConfig:
     time_mask_width: Tuple[int, int] = (0, 40)
     normalize: str = "global_mvn"
     encoder_type: str = "conformer"
+    # longformer band half-width, in subsampled frames
+    attention_window: int = 100
     # streaming (contextual_block_conformer) geometry, in subsampled frames
     block_size: int = 40
     stream_hop_size: int = 16
@@ -86,8 +114,16 @@ class ASRConfig:
     # JAX checkpoints of the conformer hold one stacked `block` (convert.py)
     scan_encoder_layers: bool = False
     conformer_kernel_size: int = 31
+    decoder_type: str = "transformer"
     num_decoder_layers: int = 6
     decoder_d_ff: int = 2048
+    # the RNN decoder's attention (the v1 zoo) and scheduled sampling
+    rnn_att_type: str = "location"
+    sampling_probability: float = 0.0
+    # plugins: an encoder_type / decoder_type that is not built in is looked
+    # up in utils/registry.py and built from this dict
+    encoder_conf: Any = None
+    decoder_conf: Any = None
     ctc_weight: float = 0.3
     # InterCTC: auxiliary CTC on these 1-based encoder layers
     interctc_layer_idx: Tuple[int, ...] = ()
@@ -110,17 +146,22 @@ class ASRConfig:
 
 
 NORMALIZE = ("global_mvn", "utterance_mvn", "none")
-INPUT_TYPES = ("raw", "feats", "sliding_window", "fused")
-# frontends of the JAX package that the port lacks -> ROADMAP.md item
-UNPORTED_INPUT_TYPES = {"sinc": 6, "ssl": 8}
+INPUT_TYPES = ("raw", "feats", "sliding_window", "fused", "sinc")
+# parts of the JAX package that the port lacks -> ROADMAP.md queue 1 item
+UNPORTED_INPUT_TYPES = {"ssl": 8}
+UNPORTED_ENCODERS = {"wav2vec2": 8, "whisper": 8}
+UNPORTED_DECODERS = {"whisper": 8}
 MERGE_KERNEL = 3  # the JAX BranchformerEncoder's default; no config field
 
 
 def feature_dim(c: ASRConfig) -> int:
     """The width of the frontend's features: the encoder's input width and
     the global MVN's (the JAX `GlobalMVN(feat_dim)`): `win_length` (400
-    unset) samples for "sliding_window", 2 x n_mels for "fused", else n_mels
-    (precomputed "feats" must be n_mels wide)."""
+    unset) samples for "sliding_window", 2 x n_mels for "fused",
+    `sinc_out_dim` for "sinc", else n_mels (precomputed "feats" must be
+    n_mels wide)."""
+    if c.input_type == "sinc":
+        return c.sinc_out_dim
     if c.input_type == "sliding_window":
         return c.win_length or 400
     if c.input_type == "fused":
@@ -151,7 +192,9 @@ def build_encoder(c: ASRConfig,
     frontend's (`feature_dim`). `encoder_options` are further keyword
     arguments of the encoder's constructor that the JAX `ASRConfig` has no
     field for: the conformer's kernel routes `fused_conv` and
-    `fused_conv_split`."""
+    `fused_conv_split`. The VGG-RNN encoders' units and projections are
+    both `d_model`, as the JAX model ties them. Any other `encoder_type`
+    is a plugin of `utils/registry.py`, built from `encoder_conf` alone."""
     opts = dict(encoder_options or {})
     n_feats = feature_dim(c)
     capture = tuple(c.interctc_layer_idx)
@@ -179,16 +222,65 @@ def build_encoder(c: ASRConfig,
             c.conformer_kernel_size, c.dropout_rate, c.subsampling_factor,
             c.block_size, c.stream_hop_size, c.look_ahead, dtype=c.dtype,
             **opts)
-    raise NotImplementedError(
-        f"encoder_type {c.encoder_type!r} is not ported (conformer, "
-        f"transformer, {', '.join(VARIANTS)}, contextual_block_conformer)")
+    if c.encoder_type == "longformer":
+        return LongformerEncoder(
+            n_feats, c.d_model, c.num_heads, c.d_ff, c.num_encoder_layers,
+            c.attention_window, c.conformer_kernel_size, c.dropout_rate,
+            c.subsampling_factor, c.dtype)
+    if c.encoder_type in ("vgg_blstm", "vgg_lstm"):
+        return VGGRNNEncoder(
+            n_feats, c.d_model, c.d_model, c.num_encoder_layers,
+            c.encoder_type == "vgg_blstm", c.dropout_rate, c.dtype)
+    if c.encoder_type in UNPORTED_ENCODERS:
+        raise NotImplementedError(
+            f"encoder_type {c.encoder_type!r} is not ported yet (ROADMAP.md "
+            f"queue 1 item {UNPORTED_ENCODERS[c.encoder_type]}: SSL and "
+            "Whisper)")
+    cls = registry.resolve("encoder", c.encoder_type,
+                           f"unknown encoder_type {c.encoder_type}")
+    return cls(**dict(c.encoder_conf or {}))
+
+
+def build_decoder(c: ASRConfig) -> Optional[nn.Module]:
+    """The decoder of `c.decoder_type` (None without one, ctc_weight 1):
+    the transformer, the v1 RNN decoder (embedding, units and the
+    attention's output all `d_model` wide, as the JAX model builds it), the
+    S4 decoder, or a plugin of `utils/registry.py` built from
+    `decoder_conf` alone."""
+    if c.ctc_weight >= 1.0:
+        return None
+    if c.decoder_type == "transformer":
+        return TransformerDecoder(c.vocab_size, c.d_model, c.num_heads,
+                                  c.decoder_d_ff, c.num_decoder_layers,
+                                  c.dtype, c.dropout_rate)
+    if c.decoder_type == "rnn":
+        return RNNDecoder(
+            c.vocab_size, encoder_dim=c.d_model, embed_dim=c.d_model,
+            hidden=c.d_model, num_layers=c.num_decoder_layers,
+            att_type=c.rnn_att_type,
+            sampling_probability=c.sampling_probability,
+            dropout_rate=c.dropout_rate, dtype=c.dtype)
+    if c.decoder_type == "s4":
+        return S4Decoder(c.vocab_size, c.d_model, c.num_heads,
+                         c.decoder_d_ff, c.num_decoder_layers,
+                         dropout_rate=c.dropout_rate, dtype=c.dtype)
+    if c.decoder_type in UNPORTED_DECODERS:
+        raise NotImplementedError(
+            f"decoder_type {c.decoder_type!r} is not ported yet (ROADMAP.md "
+            f"queue 1 item {UNPORTED_DECODERS[c.decoder_type]}: SSL and "
+            "Whisper)")
+    cls = registry.resolve("decoder", c.decoder_type,
+                           f"unknown decoder_type {c.decoder_type}")
+    return cls(**dict(c.decoder_conf or {}))
 
 
 class ASRModel(nn.Module):
-    """Frontend + encoder + CTC head (ctc_weight > 0) + transformer decoder
-    (ctc_weight < 1). `encoder_options` go to `build_encoder`. A model
-    without a decoder has `decoder` None, one without a CTC head `ctc_head`
-    None, so their state dicts hold exactly the JAX model's leaves."""
+    """Frontend + encoder + CTC head (ctc_weight > 0) + decoder (ctc_weight
+    < 1). `encoder_options` go to `build_encoder`. A model without a
+    decoder has `decoder` None, one without a CTC head `ctc_head` None, so
+    their state dicts hold exactly the JAX model's leaves; the multichannel
+    frontend's modules are `frontend_wpe` and `frontend_beamformer`, the
+    sinc frontend `sinc_frontend`, as JAX names them."""
 
     def __init__(self, config: ASRConfig,
                  encoder_options: Optional[Dict] = None):
@@ -201,7 +293,8 @@ class ASRModel(nn.Module):
         if c.input_type in UNPORTED_INPUT_TYPES:
             raise NotImplementedError(
                 f"input_type {c.input_type!r} is not ported yet (ROADMAP.md "
-                f"queue 1 item {UNPORTED_INPUT_TYPES[c.input_type]})")
+                f"queue 1 item {UNPORTED_INPUT_TYPES[c.input_type]}: SSL and "
+                "Whisper)")
         if c.input_type not in INPUT_TYPES:
             raise ValueError(f"input_type {c.input_type!r} not in "
                              f"{INPUT_TYPES}")
@@ -223,12 +316,23 @@ class ASRModel(nn.Module):
         if c.normalize == "global_mvn":
             self.mvn = GlobalMVN(feature_dim(c))
         self.encoder = build_encoder(c, self.encoder_options)
-        self.decoder = (TransformerDecoder(
-            c.vocab_size, c.d_model, c.num_heads, c.decoder_d_ff,
-            c.num_decoder_layers, c.dtype, c.dropout_rate)
-            if c.ctc_weight < 1.0 else None)
+        self.decoder = build_decoder(c)
         self.ctc_head = (Dense(c.d_model, c.vocab_size, dtype=c.dtype)
                          if c.ctc_weight > 0.0 else None)
+        if self.multichannel:
+            n_freq = c.n_fft // 2 + 1
+            if c.use_wpe:
+                self.frontend_wpe = DNNWPE(n_freq, c.wpe_taps, c.wpe_delay,
+                                           c.frontend_hidden, 1)
+            if c.use_beamformer:
+                self.frontend_beamformer = DNNBeamformer(
+                    n_freq, c.frontend_hidden, c.frontend_layers,
+                    c.ref_channel)
+        if c.input_type == "sinc":
+            self.sinc_frontend = LightweightSincConvs(
+                fs=c.fs, win_length=c.win_length or 400,
+                hop_length=c.hop_length, out_dim=c.sinc_out_dim,
+                dropout_rate=c.dropout_rate, dtype=c.dtype)
         # False: the plain versions even on the card (chip_smoke.py compares)
         self.use_kernels = True
 
@@ -241,11 +345,43 @@ class ASRModel(nn.Module):
             if hasattr(module, "use_kernel"):
                 module.use_kernel = enabled
 
-    def frontend(self, speech, speech_lengths, generator=None):
-        """speech (B, N) waveforms, or (B, T, D) features for "feats" ->
-        (normalised features (B, T, feature_dim), lengths)."""
+    @property
+    def multichannel(self) -> bool:
+        return self.config.num_channels > 1 and self.config.input_type == "raw"
+
+    def multichannel_frontend(self, speech, speech_lengths):
+        """(B, N, C) waveforms -> (log-mel (B, T, n_mels), lengths): the STFT
+        of every channel, optional DNN-WPE, the mask-MVDR beamformer (or the
+        reference channel), power, log-mel; in float32."""
         c = self.config
-        if c.input_type == "raw":
+        b, n, ch = speech.shape
+        flat = speech.float().transpose(1, 2).reshape(b * ch, n)
+        real, imag = stft(flat, c.n_fft, c.hop_length, c.win_length)
+        t, f = real.shape[1], real.shape[2]
+        y = torch.complex(real, imag).reshape(b, ch, t, f).permute(0, 3, 1, 2)
+        if c.use_wpe:
+            y, _ = self.frontend_wpe(y)  # (B, F, C, T)
+        spec = (self.frontend_beamformer(y)[0] if c.use_beamformer
+                else y[:, :, c.ref_channel])  # (B, F, T)
+        p = (spec.real ** 2 + spec.imag ** 2).transpose(1, 2)
+        feats = log_mel(p, c.fs, c.n_fft, c.n_mels)
+        feat_lengths = stft_frames_lengths(speech_lengths, c.n_fft,
+                                           c.hop_length)
+        mask = make_valid_mask(feat_lengths, feats.shape[1])
+        return feats * mask[:, :, None].to(feats.dtype), feat_lengths
+
+    def frontend(self, speech, speech_lengths, generator=None):
+        """speech (B, N) waveforms ((B, N, C) multichannel), or (B, T, D)
+        features for "feats" -> (normalised features (B, T, feature_dim),
+        lengths)."""
+        c = self.config
+        if self.multichannel:
+            feats, feat_lengths = self.multichannel_frontend(speech,
+                                                             speech_lengths)
+        elif c.input_type == "sinc":
+            feats, feat_lengths = self.sinc_frontend(speech, speech_lengths,
+                                                     generator)
+        elif c.input_type == "raw":
             feats, feat_lengths = log_mel_spectrogram(
                 speech, speech_lengths, c.fs, c.n_fft, c.hop_length,
                 c.win_length, c.n_mels)
@@ -299,6 +435,19 @@ class ASRModel(nn.Module):
         out = self.encode_with_intermediates(speech, speech_lengths,
                                              generator)
         return out[0], out[1]
+
+    def encode_chunk(self, speech, speech_lengths, carry):
+        """The v1 chunk-streaming encode (`decode/streaming_v1.py`): the
+        frontend, then the unidirectional VGG-LSTM resuming from `carry`.
+        Returns (enc, enc_lengths, new carry)."""
+        if self.config.encoder_type != "vgg_lstm":
+            raise ValueError("encode_chunk needs encoder_type=vgg_lstm")
+        feats, feat_lengths = self.frontend(speech, speech_lengths)
+        return self.encoder(feats, feat_lengths, None, carry=carry,
+                            return_carry=True)
+
+    def encoder_carry(self, batch: int, device=None):
+        return self.encoder.init_carry(batch, device)
 
     def forward(self, speech, speech_lengths, text, text_lengths,
                 generator: Optional[torch.Generator] = None
@@ -366,8 +515,18 @@ class ASRModel(nn.Module):
         return self.decoder.score_step(tokens_step, pos, memory,
                                        memory_lengths, cache)
 
-    def decoder_init_cache(self, batch, max_len, device=None):
-        return self.decoder.init_cache(batch, max_len, device)
+    def decoder_init_cache(self, batch, max_len, memory=None,
+                           memory_lengths=None):
+        """The decoder's empty beam cache for `batch` hypotheses, on the
+        memory's device (the parameters' without a memory); the RNN
+        decoder's depends on the memory (its attention's first alignment)
+        and needs it, as in JAX."""
+        if self.config.decoder_type == "rnn":
+            return self.decoder.score_memory_cache(batch, memory,
+                                                   memory_lengths)
+        device = (memory.device if memory is not None
+                  else next(self.parameters()).device)
+        return self.decoder.init_cache(batch, max_len, device=device)
 
 
 def add_sos_eos(text, text_lengths, sos: int, eos: int):
@@ -388,8 +547,18 @@ def add_sos_eos(text, text_lengths, sos: int, eos: int):
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter from `generator`, in place: Xavier-uniform
     weights, N(0, 1) embeddings, zero biases and position biases, unit
-    LayerNorm scales (the JAX package's initialisers, drawn from torch)."""
+    LayerNorm scales (the JAX package's initialisers, drawn from torch);
+    a module with an `init_random_` of its own (the S4 layer, the sinc
+    filters) fills its parameters itself."""
+    own = set()
+    for mod_name, mod in model.named_modules():
+        if hasattr(mod, "init_random_") and mod is not model:
+            mod.init_random_(generator)
+            own.update(f"{mod_name}.{n}" for n, _ in
+                       mod.named_parameters(recurse=False))
     for name, prm in model.named_parameters():
+        if name in own:
+            continue
         owner = name.split(".")[-2]
         if name.endswith((".bias", "pos_bias_u", "pos_bias_v")):
             prm.zero_()

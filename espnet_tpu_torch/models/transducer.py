@@ -21,13 +21,10 @@ and leaves them out, and its converter drops that collection). An
 (the JAX model builds a transformer for any other value).
 
 Parameters are float32; `TransducerConfig.dtype` is the compute dtype. The
-LSTM cell is flax's `OptimizedLSTMCell` written out: per gate an input
-kernel without bias (`ii`, `if`, `ig`, `io`) and a recurrent kernel with
-bias (`hi`, ...), gate order i, f, g, o, sigmoid gates, tanh candidate, no
-forget-bias offset, zero initial carry (c, h). Its pre-activations are
-formed in the compute dtype (as flax does), the gates and the carry in
-float32. Dropout and SpecAug draw from the caller's `torch.Generator` in
-training, as in the ASR model.
+LSTM cell is flax's `OptimizedLSTMCell` written out (`models.layers.
+LSTMCell`, importable from here too), from a zero carry (c, h). Dropout
+and SpecAug draw from the caller's `torch.Generator` in training, as in the
+ASR model.
 """
 
 from __future__ import annotations
@@ -39,7 +36,7 @@ import torch
 from torch import nn
 
 from espnet_tpu_torch.models.conformer import ConformerEncoder
-from espnet_tpu_torch.models.layers import Dense
+from espnet_tpu_torch.models.layers import Dense, LSTMCell, lstm_sequence
 from espnet_tpu_torch.models.transformer import TransformerEncoder
 from espnet_tpu_torch.ops.ctc import ctc_loss
 from espnet_tpu_torch.ops.dropout import Dropout
@@ -90,41 +87,6 @@ class TransducerConfig:
 
 
 ENCODER_TYPES = ("conformer", "transformer")
-GATES = ("i", "f", "g", "o")
-
-
-class LSTMCell(nn.Module):
-    """flax `OptimizedLSTMCell`: i = sigmoid(W_ii x + W_hi h + b_hi), f, o
-    alike, g = tanh(...), c' = f c + i g, h' = o tanh(c')."""
-
-    def __init__(self, d_in: int, hidden: int, dtype=torch.float32):
-        super().__init__()
-        self.hidden = hidden
-        self.dtype = dtype
-        for g in GATES:
-            self.add_module(f"i{g}", Dense(d_in, hidden, bias=False,
-                                           dtype=dtype))
-            self.add_module(f"h{g}", Dense(hidden, hidden, dtype=dtype))
-
-    def input_proj(self, x):
-        """(..., d_in) -> (..., 4H): the four input kernels at once."""
-        w = torch.cat([getattr(self, f"i{g}").weight for g in GATES])
-        return nn.functional.linear(x.to(self.dtype), w.to(self.dtype))
-
-    def step(self, carry, x_proj):
-        """carry (c, h) float32 (B, H), x_proj (B, 4H) -> new carry."""
-        c, h = carry
-        dt = self.dtype
-        w = torch.cat([getattr(self, f"h{g}").weight for g in GATES])
-        bias = torch.cat([getattr(self, f"h{g}").bias for g in GATES])
-        pre = (nn.functional.linear(h.to(dt), w.to(dt), bias.to(dt))
-               + x_proj).float()
-        i, f, g, o = pre.chunk(4, dim=-1)
-        new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        new_h = torch.sigmoid(o) * torch.tanh(new_c)
-        return new_c, new_h
-
-
 class PredictionNetwork(nn.Module):
     """LSTM label-history encoder (`asr_transducer/decoder/rnn_decoder.py`):
     embedding, flax-rule dropout on it (training), `layers` LSTM cells."""
@@ -173,13 +135,7 @@ class PredictionNetwork(nn.Module):
         x = self.dropout(self._embed(torch.cat([start, tokens.long()], 1)),
                          generator)
         for cell in self.cells():
-            proj = cell.input_proj(x)  # (B, U+1, 4H)
-            carry = (torch.zeros(b, self.hidden, device=x.device),) * 2
-            outs = []
-            for k in range(u + 1):
-                carry = cell.step(carry, proj[:, k])
-                outs.append(carry[1])
-            x = torch.stack(outs, 1).to(self.dtype)
+            x = lstm_sequence(cell, x)[0].to(self.dtype)
         return x
 
 

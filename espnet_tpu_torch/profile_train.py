@@ -2,12 +2,14 @@
 
     python -m espnet_tpu_torch.profile_train [--batch 64] [--secs 15]
         [--encoder NAME]  (a configuration of espnet_tpu_torch.configs,
-                           or "transducer")
+                           "longformer", "vgg_blstm_rnn" or "transducer")
 
 Builds the bench model (full width and depth, bf16 compute, dropout 0.1,
 SpecAug, random weights from a seed) with the encoder of the chosen
 configuration of `espnet_tpu_torch.configs`, or with `--encoder transducer`
-the RNN-T `configs.transducer_conformer`; runs one warm-up train step
+the RNN-T `configs.transducer_conformer` (`longformer` and `vgg_blstm_rnn`:
+`configs.longformer_conformer`, `configs.vgg_blstm_rnn`); runs one warm-up
+train step
 through
 `make_train_step`, then one step under `torch.profiler` and one step timed
 by the host clock alone. Prints the card's name and power limit, the step's
@@ -26,7 +28,11 @@ import numpy as np
 import torch
 
 from espnet_tpu_torch.configs import (ENCODERS, bench_config,
-                                      encoder_options, transducer_conformer)
+                                      encoder_options, longformer_conformer,
+                                      transducer_conformer, vgg_blstm_rnn)
+
+# whole models by name, beside the encoders of `ENCODERS`
+MODELS = {"longformer": longformer_conformer, "vgg_blstm_rnn": vgg_blstm_rnn}
 from espnet_tpu_torch.models.asr import ASRModel, init_random_
 from espnet_tpu_torch.models.transducer import TransducerASRModel
 from espnet_tpu_torch.train.optim import build_optimizer
@@ -52,7 +58,8 @@ def main() -> None:
     ap.add_argument("--labels", type=int, default=40)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--encoder", default="conformer",
-                    choices=sorted(ENCODERS) + ["transducer"])
+                    choices=sorted(ENCODERS) + sorted(MODELS)
+                    + ["transducer"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train needs a CUDA card")
@@ -65,6 +72,9 @@ def main() -> None:
     if args.encoder == "transducer":
         cfg = transducer_conformer(torch.bfloat16)
         model = TransducerASRModel(cfg)
+    elif args.encoder in MODELS:
+        cfg = MODELS[args.encoder](torch.bfloat16)
+        model = ASRModel(cfg)
     else:
         cfg = bench_config(torch.bfloat16, args.encoder)
         model = ASRModel(cfg, encoder_options(args.encoder))

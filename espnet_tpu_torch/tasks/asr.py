@@ -5,19 +5,18 @@ The sections, their fields and defaults are the JAX package's, so a command
 line or a config.yaml means the same run in both. `ASRModelSection` carries
 every field of the JAX `ASRConfig`; `build_model` maps it onto the port's
 `ASRConfig` (`dtype` "float32" or "bfloat16" becomes the torch dtype only
-there) and raises `NotImplementedError`, naming its ROADMAP.md item, for a
-field value that selects a part not ported yet: the sinc and SSL
-frontends, the multichannel frontend, the SSL and Whisper sections, another
-decoder and the plugin `*_conf` sections (`UNPORTED_FIELDS`; the model
-refuses the frontends, `models.asr.UNPORTED_INPUT_TYPES`), and the encoder
-types of `UNPORTED_ENCODERS`.
-Fields that only matter under such a value (`sinc_out_dim`, the
-multichannel geometry `use_wpe` to `frontend_layers`, the streaming and
-longformer geometry `attention_window` to `look_ahead`, the RNN decoder's
-`rnn_att_type` and `sampling_probability`, `ssl_freeze`) are inert
-otherwise, as in JAX, and so is `frontend_precision`, the TPU's matmul
-precision for the frontend (the port's frontend runs its matmuls in
-float32). `remat_encoder` is inert for the branchformers, as in JAX.
+there) and raises `NotImplementedError`, naming its ROADMAP.md item (item
+8, SSL and Whisper), for a field value that selects a part not ported
+yet: the `ssl` and `whisper` sections (`UNPORTED_FIELDS`), `input_type
+ssl` (`models.asr.UNPORTED_INPUT_TYPES`), `encoder_type` wav2vec2 and
+whisper (`UNPORTED_ENCODERS`) and `decoder_type whisper`
+(`models.asr.UNPORTED_DECODERS`). The plugin sections `encoder_conf` and
+`decoder_conf` are dicts in a config.yaml; given on the command line
+(`--model.encoder_conf '{"d_model": 16}'`) the string is read as a YAML
+flow map. `ssl_freeze` is inert, as in JAX without an SSL section, and so
+is `frontend_precision`, the TPU's matmul precision for the frontend (the
+port's frontend runs its matmuls in float32). `remat_encoder` is inert for
+the branchformers, as in JAX.
 """
 
 from __future__ import annotations
@@ -34,7 +33,8 @@ from espnet_tpu_torch.data.tokenizer import (TokenIDConverter,
                                              build_token_list,
                                              build_tokenizer)
 from espnet_tpu_torch.device import resolve_device
-from espnet_tpu_torch.models.asr import ASRConfig, ASRModel
+from espnet_tpu_torch.models.asr import (UNPORTED_DECODERS, UNPORTED_ENCODERS,
+                                         ASRConfig, ASRModel)
 from espnet_tpu_torch.tasks.abs_task import AbsTask, OptimConfig, RunConfig
 from espnet_tpu_torch.train.collect_stats import (collect_stats, load_stats,
                                                   mvn_variables)
@@ -140,16 +140,10 @@ class ASRModelSection:
 # a value other than the JAX default selects a part not ported yet:
 # field -> (default, ROADMAP.md queue 1 item)
 UNPORTED_FIELDS = {
-    "num_channels": (1, 6),
     "ssl": (None, 8),
     "whisper": (None, 8),
-    "decoder_type": ("transformer", 6),
-    "encoder_conf": (None, 6),
-    "decoder_conf": (None, 6),
 }
-# encoder types of the JAX package that the port lacks -> ROADMAP item
-UNPORTED_ENCODERS = {"longformer": 6, "vgg_blstm": 6, "wav2vec2": 8,
-                     "whisper": 8}
+PLUGIN_SECTIONS = ("encoder_conf", "decoder_conf")
 DTYPES = ("float32", "bfloat16")
 
 
@@ -236,12 +230,14 @@ class ASRTask(AbsTask):
             if value != default:
                 raise NotImplementedError(
                     f"--model.{name} {value!r} is not ported yet (ROADMAP.md "
-                    f"queue 1 item {item})")
-        if model_cfg.encoder_type in UNPORTED_ENCODERS:
-            raise NotImplementedError(
-                f"--model.encoder_type {model_cfg.encoder_type} is not "
-                f"ported yet (ROADMAP.md queue 1 item "
-                f"{UNPORTED_ENCODERS[model_cfg.encoder_type]})")
+                    f"queue 1 item {item}: SSL and Whisper)")
+        for name, table in (("encoder_type", UNPORTED_ENCODERS),
+                            ("decoder_type", UNPORTED_DECODERS)):
+            value = getattr(model_cfg, name)
+            if value in table:
+                raise NotImplementedError(
+                    f"--model.{name} {value} is not ported yet (ROADMAP.md "
+                    f"queue 1 item {table[value]}: SSL and Whisper)")
         dtype = str(model_cfg.dtype).split(".")[-1]
         if dtype not in DTYPES:
             raise ValueError(f"--model.dtype {model_cfg.dtype!r} not in "
@@ -251,6 +247,10 @@ class ASRTask(AbsTask):
             if f.name in ("vocab_size", "dtype"):
                 continue
             value = getattr(model_cfg, f.name)
+            if f.name in PLUGIN_SECTIONS and isinstance(value, str):
+                from espnet_tpu_torch.utils.config import loads_yaml
+
+                value = loads_yaml(value)
             kw[f.name] = tuple(value) if isinstance(value, list) else value
         return ASRModel(ASRConfig(vocab_size=vocab_size,
                                   dtype=getattr(torch, dtype), **kw))

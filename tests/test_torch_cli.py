@@ -299,14 +299,14 @@ def test_unported_inference_flags_raise(runs, extra, item):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--model.input_type", "sinc"], 6),
-    (["--model.num_channels", "2"], 6),
+    (["--model.ssl", "{hidden_size: 8}"], 8),
+    (["--model.whisper", "{n_mels: 8}"], 8),
     (["--model.input_type", "ssl"], 8),
     (["--model.encoder_type", "wav2vec2"], 8),
-    (["--model.decoder_type", "rnn"], 6),
-    (["--model.encoder_type", "longformer"], 6),
-], ids=["sinc", "multichannel", "ssl", "wav2vec2", "rnn_decoder",
-        "longformer"])
+    (["--model.decoder_type", "whisper"], 8),
+    (["--model.encoder_type", "whisper"], 8),
+], ids=["ssl_section", "whisper_section", "ssl", "wav2vec2",
+        "whisper_decoder", "whisper_encoder"])
 def test_unported_train_options_raise(runs, tmp_path, extra, item):
     ws = runs[0]
     argv = _argv(ws, "unused") + ["--run.output_dir", str(tmp_path / "x"),
