@@ -168,13 +168,43 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    timed; (e) `bin.asr_align` on synth_hard's 300 test utterances in a
    subprocess with its launch log, its `segments` equal to the plain
    route's;
-13. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
+13. asr-multi: Mask-CTC, multi-encoder and multi-speaker ASR and the
+   neural LM at full width (the JAX configs' defaults, vocab 5000, random
+   weights from seed 0; `espnet_tpu_torch.configs`): (a) `fused_ffn`
+   forward and backward at the LM's rows (M=64*257, F=1024) and the HAN
+   decoder's (M=64*41), the pre-norm FFN forward and backward at the
+   three encoders' training rows (M=64*T'; the Mask-CTC conformer's
+   F=2048, the asr_mix conformer's and the mulenc transformers' F=1024;
+   swish 0.5, relu 1.0), rel-pos attention forward and backward at the
+   conformers' T', flash attention at the mulenc encoders' T' and the MLM
+   decoder's (B=64, T=40, full and ragged lengths), float32 and bf16, and
+   `ctc_loss_from_log_probs` (B=64, T'=469, V=5000, U=40): its gradient
+   with respect to the log-probs against its plain lattice's (each valid
+   frame's sum -1, an infeasible utterance's 0), and through log_softmax
+   against torch's ctc_loss; (b)
+   `maskctc_conformer`, `mulenc_transformer` (each request as 2 streams,
+   the clean wave and a noisier copy; beam 10, CTC 0.3) and
+   `asr_mix_conformer` (2-speaker mixtures of the requests; greedy CTC a
+   branch): serve the 4 requests in float32 with the kernel route's
+   results equal to the plain route's and the encoder output within
+   1e-3, a float32 train step with kernels against plain, 3 bf16 steps at
+   B=64 x 15 s with 40 labels (ms/step, audio-s/s, peak GiB), each with
+   its exact launches (the MLM decoder's flash attention a layer for each
+   infilling call; the HAN decoder's `fused_ffn` a layer a search step;
+   the S^2 CTC pairs a step); (c) `transformer_lm` (6 x 256, FFN 1024): a
+   float32 step with kernels against plain, 3 bf16 steps at B=64 x 256
+   tokens; then `bin.lm_train` (5 epochs on synth_hard's test text, its
+   token list) and `bin.lm_calc_perplexity` in subprocesses with their
+   launch logs, and `bin.asr_inference` on synth_hard's 300 test
+   utterances without and with that LM (weight 0.3): WER and RTF of each,
+   launches exact (`fused_ffn` 6 a call of the LM's score_step);
+14. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
    lattice pairs float32; launches from the 3 timed train steps of the
    configuration whose path holds the kernel: the conformer's, the
    transformer's for flash attention, the E-Branchformer's for
    `fused_ffn`, the two conv routes' for theirs, the transducer's for its
    lattice pair);
-14. last line: {"ok": true, "device": {...}}.
+15. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -203,6 +233,10 @@ CTC_TOLERANCE = (1e-3, 1e-5)
 # 2.4e-4, and that rounding becomes the occupancies' relative error (in
 # torch's computation as much as in the port's)
 CTC_LOSS_RTOL, CTC_GRAD_ATOL = 1e-5, 5e-3
+# a valid frame's occupancy sums to 1 up to that same rounding of alpha +
+# beta - log Z (it shifts all of a frame's states alike); a softmax term
+# left in the log-prob gradient moves the sum by 1
+CTC_OCC_SUM_ATOL = 1e-2
 # the lattice's float32 vector work per state and frame: 3 exp, 1 log,
 # 2 max, 3 subtractions, 3 additions (log-add-exp of three and the emission)
 CTC_OPS_PER_STATE = 12
@@ -1044,13 +1078,23 @@ def serve_shapes(cfg, lengths):
 
 def build_model(cfg, options=None):
     """The port's model of `cfg`: the transducer for a TransducerConfig,
-    else the joint CTC/attention ASRModel."""
+    Mask-CTC, multi-encoder or multi-speaker ASR for theirs, else the joint
+    CTC/attention ASRModel."""
     from espnet_tpu_torch.models.asr import ASRModel
+    from espnet_tpu_torch.models.asr_mix import ASRMixConfig, ASRMixModel
+    from espnet_tpu_torch.models.maskctc import MaskCTCConfig, MaskCTCModel
+    from espnet_tpu_torch.models.mulenc import ASRMulEncModel, MulEncConfig
     from espnet_tpu_torch.models.transducer import (TransducerASRModel,
                                                     TransducerConfig)
 
     if isinstance(cfg, TransducerConfig):
         return TransducerASRModel(cfg, options)
+    if isinstance(cfg, MaskCTCConfig):
+        return MaskCTCModel(cfg, options)
+    if isinstance(cfg, MulEncConfig):
+        return ASRMulEncModel(cfg)
+    if isinstance(cfg, ASRMixConfig):
+        return ASRMixModel(cfg)
     return ASRModel(cfg, options)
 
 
@@ -1415,18 +1459,42 @@ def check_cli_ffn(torch, mcfg, utts):
     check_ffn_rows(torch, mcfg, utts * tp, f"cli M={utts}x{tp}")
 
 
-def check_ffn_rows(torch, mcfg, m, label):
+# relu's derivative jumps at 0: where a pre-activation lies this close to
+# it, float32 rounding in the kernel's sums or the plain version's puts it
+# on either side, and the row's gradient moves with it (both are right to
+# float32); the backward check holds every other row to its limit
+RELU_KINK_BAND = 1e-6
+
+
+def off_relu_kink(torch, args, gout):
+    """`gout` with a zero cotangent on the rows of the pre-norm FFN's input
+    whose pre-activation (LN(x) in x's dtype @ W1 + b1, in float64) lies
+    within RELU_KINK_BAND of 0, and the number of those rows."""
+    from espnet_tpu_torch.ops.ffn_common import LN_EPS
+
+    x, lns, lnb, w1, b1 = args[:5]
+    xn = torch.nn.functional.layer_norm(x.float(), (x.shape[-1],), lns,
+                                        lnb, LN_EPS).to(x.dtype)
+    h = xn.double() @ w1.double() + b1.double()
+    rows = (h.abs() < RELU_KINK_BAND).any(dim=1)
+    return torch.where(rows[:, None], torch.zeros_like(gout), gout), int(
+        rows.sum())
+
+
+def check_ffn_rows(torch, mcfg, m, label, activation="swish",
+                   residual_scale=0.5):
     """The pre-norm FFN forward and backward against their plain versions
-    at the model's D and F and `m` rows, as the macaron FFNs call them
-    (swish, residual scale 0.5, the model's dropout), in float32 and
-    bfloat16."""
+    at the model's D and F and `m` rows, as the model's layers call them
+    (the macaron FFNs: swish, residual scale 0.5; the transformer layers:
+    relu, 1.0; the model's dropout), in float32 and bfloat16."""
     from espnet_tpu_torch.ops.prenorm_ffn import (prenorm_ffn,
                                                   prenorm_ffn_plain)
 
     d, f = mcfg.d_model, mcfg.d_ff
-    kw = {"activation": "swish", "residual_scale": 0.5,
+    kw = {"activation": activation, "residual_scale": residual_scale,
           "drop_rate": mcfg.dropout_rate, "seeds": (20240601, -77)}
-    label = f"{label} D={d} F={f} swish s=0.5 dropout {mcfg.dropout_rate}"
+    label = (f"{label} D={d} F={f} {activation} s={residual_scale} dropout "
+             f"{mcfg.dropout_rate}")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         es = 4 if dtype == torch.float32 else 2
@@ -1437,7 +1505,11 @@ def check_ffn_rows(torch, mcfg, m, label):
                          kw, iters=10)
         gout = torch.randn(m, d, generator=torch.Generator().manual_seed(
             22)).to("cuda", dtype)
-        check_grads(torch, "prenorm_ffn_bwd", dn, label,
+        blabel = label
+        if activation == "relu":
+            gout, kinked = off_relu_kink(torch, args, gout)
+            blabel = f"{label}, {kinked} rows at the kink held out"
+        check_grads(torch, "prenorm_ffn_bwd", dn, blabel,
                     lambda *a: prenorm_ffn(*a, **kw),
                     lambda *a: prenorm_ffn_plain(*a, **kw), args, 7, gout,
                     10.0 * m * d * f, (3 * m * d + 4 * d * f) * es
@@ -3138,6 +3210,645 @@ def phase_asr_families(torch, np, smi):
     log("asr-families", f"phase {time.perf_counter() - t0:.1f}s")
 
 
+# the asr-multi phase: Mask-CTC, multi-encoder and multi-speaker ASR and the
+# transformer LM at full width (random weights from seed 0; the JAX
+# packages' defaults, configs.py), each case with its exact kernel
+# launches; then the LM's CLIs and shallow fusion on the JAX-trained
+# synth_hard experiment
+MULTI_SCORE_RTOL = 1e-4
+MASKCTC_ITERATIONS = 10
+MULENC_LAYERS, MIX_LAYERS = 4, 4 + 2 * 4  # encoder layers of a stream; of
+# the shared and branch stacks
+LM_LAYERS = 6
+LM_BATCH, LM_TOKENS = 64, 256
+# the LM CLIs on synth_hard's test text (300 lines, its character tokens):
+# a smoke test of training, not an evaluation
+LM_CLI_ARGS = ("--run.max_epoch 5 --run.log_interval 1 "
+               "--optim.schedule constant --optim.lr 0.001")
+LM_FUSION_WEIGHT = 0.3
+
+
+def multi_inputs(np, kind):
+    """The 4 requests as the case's model takes them: mulenc, each request
+    as 2 streams (the clean wave and a noisier copy; (B, N, 2), lengths
+    (B, 2)); asr_mix, each request mixed with the next one at 0.7 (the
+    longer length); else the waveforms."""
+    speech, lengths = requests(np)
+    if kind == "mulenc":
+        noise = np.random.RandomState(7).randn(*speech.shape) * 0.05
+        valid = np.arange(speech.shape[1])[None, :] < lengths[:, None]
+        noisy = (speech + noise * valid).astype(np.float32)
+        return (np.stack([speech, noisy], axis=2),
+                np.stack([lengths, lengths], axis=1))
+    if kind == "asr_mix":
+        mix = speech.copy()
+        nxt = np.roll(np.arange(len(lengths)), -1)
+        mix += 0.7 * speech[nxt]
+        return mix, np.maximum(lengths, lengths[nxt])
+    return speech, lengths
+
+
+def multi_train_batch(np, kind, b, seconds, u, vocab, seed):
+    """train_batch's waveforms and labels in the case's layout: two streams
+    with their (B, 2) lengths for mulenc; two speakers' labels (B, 2, U)
+    with (B, 2) lengths for asr_mix."""
+    batch = train_batch(np, b, seconds, u, vocab, seed)
+    if kind == "mulenc":
+        sp = batch["speech"]
+        noisy = sp + 0.05 * np.random.RandomState(seed + 1).randn(*sp.shape)
+        batch["speech"] = np.stack([sp, noisy.astype(np.float32)], axis=2)
+        batch["speech_lengths"] = np.stack([batch["speech_lengths"]] * 2, 1)
+    elif kind == "asr_mix":
+        other = np.random.RandomState(seed + 1).randint(1, vocab - 1, (b, u))
+        batch["text"] = np.stack([batch["text"], other.astype(np.int32)], 1)
+        batch["text_lengths"] = np.stack(
+            [batch["text_lengths"], np.maximum(batch["text_lengths"] - 3, 1)],
+            1)
+    return batch
+
+
+def multi_serve(torch, np, name, cfg, run, encode, per_encode, per_call,
+                counted, smi, device="cuda"):
+    """Serve the case's 4 requests in float32 through `run(model)` (a list
+    of comparable results: token ids, or (ids, score)); the launches exact
+    (one encode, `per_call` for each call of the model's `counted` method);
+    the kernel route's results equal to the plain route's (scores within
+    MULTI_SCORE_RTOL) and `encode(model)` ((out, valid)) within
+    ENCODER_FP32_TOL. Returns the wall seconds."""
+    import dataclasses
+
+    from espnet_tpu_torch.models.asr import init_random_
+
+    if device != "cuda":
+        per_encode, per_call = {}, {}
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    model = init_random_(build_model(cfg), torch.Generator().manual_seed(0))
+    model = model.to(device).eval()
+    with torch.no_grad():
+        run(model)  # warm-up
+    sync(torch, device)
+    calls = []
+    if counted:
+        method = getattr(model, counted)
+
+        def counting(*a, **k):
+            calls.append(1)
+            return method(*a, **k)
+
+        setattr(model, counted, counting)
+    wrappers = reset_counts()
+    t = time.perf_counter()
+    with torch.no_grad():
+        got = run(model)
+    sync(torch, device)
+    wall = time.perf_counter() - t
+    counts = {n: fn.launches for n, fn in wrappers.items()}
+    if counted:
+        delattr(model, counted)
+    want = expected_counts(per_encode, 1)
+    for k, v in per_call.items():
+        want[k] += v * len(calls)
+    if counts != want:
+        raise AssertionError(f"{name}: serving launched {counts}, expected "
+                             f"{want} ({len(calls)} {counted} calls)")
+    with torch.no_grad():
+        model.set_use_kernels(False)
+        plain = run(model)
+        enc_p, valid = encode(model)
+        model.set_use_kernels(True)
+        enc_k, _ = encode(model)
+    dev = float(((enc_k - enc_p).abs() * valid).max())
+    same, worst = True, 0.0
+    for g, p in zip(got, plain):
+        if isinstance(g, tuple):
+            same &= g[0] == p[0]
+            worst = max(worst, abs(g[1] - p[1]) / max(1.0, abs(p[1])))
+        else:
+            same &= g == p
+    audio = float(sum(REQUEST_SECONDS))
+    log("asr-multi", f"{name} serve float32: wall {wall:.3f}s, RTF "
+        f"{wall / audio:.5f} [{smi}]; results equal to the plain route's "
+        f"{same}, worst relative score dev {worst:.2e} (limit "
+        f"{MULTI_SCORE_RTOL}); encoder output kernels vs plain max |dev| "
+        f"{dev:.3e} (limit {ENCODER_FP32_TOL}); {len(calls)} {counted} "
+        f"calls; launches exact {({k: v for k, v in counts.items() if v})}")
+    if not same or worst > MULTI_SCORE_RTOL or dev > ENCODER_FP32_TOL:
+        raise AssertionError(f"{name}: the kernel route's serve differs from "
+                             "the plain route's")
+    return wall
+
+
+def multi_train(torch, np, name, cfg, kind, per_step, smi, need_stats,
+                device="cuda"):
+    """A float32 train step with kernels against plain on the requests, then
+    TRAIN_TIMED_STEPS bf16 steps at B=64 x 15 s, U=40, exact launches."""
+    if device != "cuda":
+        per_step = {}
+    pb = multi_train_batch(np, kind, len(REQUEST_SECONDS), REQUEST_SECONDS,
+                           20, cfg.vocab_size, 2)
+    phase_train_parity(torch, np, cfg, device=device,
+                       tag=f"train-parity[{name}]", batch=pb)
+    batch = multi_train_batch(np, kind, TRAIN_BATCH,
+                              [TRAIN_SECONDS] * TRAIN_BATCH, TRAIN_LABELS,
+                              cfg.vocab_size, 0)
+    launches, step_s, peak = phase_train(
+        torch, np, cfg, device=device, tag=f"train[{name}]", batch=batch,
+        need_stats=need_stats)
+    check_case_launches(name, f"{TRAIN_TIMED_STEPS} train steps", launches,
+                        per_step, TRAIN_TIMED_STEPS)
+    log("asr-multi", f"{name} train {cfg.dtype} B={TRAIN_BATCH} x "
+        f"{TRAIN_SECONDS} s: {step_s * 1e3:.1f} ms/step, "
+        f"{TRAIN_BATCH * TRAIN_SECONDS / step_s:.1f} audio-s/s, peak "
+        f"{peak:.2f} GiB [{smi}]; launches exact")
+
+
+def multi_kernels(torch, np):
+    """The kernels at the shapes only these paths give them, float32 and
+    bf16, against their plain versions: the pre-norm FFN forward and
+    backward at the training rows (M=64*T') of the Mask-CTC conformer
+    (F=2048) and the asr_mix one (F=1024; both swish, residual scale 0.5)
+    and of the mulenc transformer encoders (F=1024, relu, 1.0); rel-pos
+    attention forward and backward at the conformers' T', flash attention
+    at the mulenc encoders' T' and at the MLM decoder's training shape
+    (B=64, T=40: it takes the bare labels) with the batch's full lengths
+    and with ragged ones; `fused_ffn` forward and backward at the LM's
+    rows (M=64*257, F=1024, relu, dropout 0.1) and the HAN decoder's
+    (M=64*41); and in float32 the new `ctc_loss_from_log_probs` (the
+    lattice pair with the occupancy as the gradient) at the multi-speaker
+    shape (B=64, T'=469, V=5000, U=40): its loss and its gradient with
+    respect to the log-probs against its plain lattice (each valid frame's
+    gradient sums to -1, an infeasible utterance's is 0), and through
+    log_softmax against torch's ctc_loss."""
+    import torch.nn.functional as F
+
+    from espnet_tpu_torch.configs import (asr_mix_conformer,
+                                          maskctc_conformer,
+                                          mulenc_transformer)
+    from espnet_tpu_torch.models.subsampling import subsampled_length
+    from espnet_tpu_torch.ops.ctc import ctc_loss_from_log_probs
+    from espnet_tpu_torch.ops.relpos_attention import (
+        relpos_attention, relpos_attention_plain)
+    from espnet_tpu_torch.ops.stft import stft_frames_lengths
+    from espnet_tpu_torch.ops.ffn import fused_ffn, fused_ffn_plain
+    from espnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_plain)
+
+    b, u = TRAIN_BATCH, TRAIN_LABELS
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for role, rows in (("lm", b * (LM_TOKENS + 1)),
+                           ("mulenc decoder", b * (u + 1))):
+            args, (flops, nbytes), (bflops, bbytes) = fused_ffn_case(
+                torch, rows, dtype, 21, f=1024)
+            kw = {"activation": "relu", "drop_rate": 0.1, "seed": 2718}
+            label = f"{role} M={rows} D=256 F=1024 relu dropout 0.1"
+            with torch.no_grad():
+                check_kernel(torch, "fused_ffn", fused_ffn, fused_ffn_plain,
+                             args, flops, nbytes, dn, label, kw, iters=5)
+            gout = torch.randn(rows, 256, generator=torch.Generator()
+                               .manual_seed(22)).to("cuda", dtype)
+            check_grads(torch, "fused_ffn_bwd", dn, label,
+                        lambda *a: fused_ffn(*a, **kw),
+                        lambda *a: fused_ffn_plain(*a, **kw), args, 5, gout,
+                        bflops, bbytes, iters=5)
+        for lengths, how in (([u] * b, "full labels"),
+                             ([u - (i % 9) for i in range(b)], "ragged")):
+            args, flops, nbytes, _ = flash_case(torch, b, u, dtype, lengths,
+                                                23)
+            with torch.no_grad():
+                check_kernel(torch, "flash_attention", flash_attention,
+                             flash_attention_plain, args, flops, nbytes, dn,
+                             f"maskctc MLM decoder B={b} H=4 T={u} D=64 "
+                             f"{how}", iters=10)
+    def train_frames(mcfg):
+        frames = stft_frames_lengths(
+            torch.tensor([int(TRAIN_SECONDS * SAMPLE_RATE)]), mcfg.n_fft,
+            mcfg.hop_length)
+        return int(subsampled_length(frames, mcfg.subsampling_factor)[0])
+
+    for mcfg, name, act, scale in (
+            (maskctc_conformer(torch.bfloat16), "maskctc conformer",
+             "swish", 0.5),
+            (asr_mix_conformer(torch.bfloat16), "asr_mix conformer",
+             "swish", 0.5),
+            (mulenc_transformer(torch.bfloat16), "mulenc transformer",
+             "relu", 1.0)):
+        tp = train_frames(mcfg)
+        check_ffn_rows(torch, mcfg, b * tp, f"{name} M={b}x{tp}", act, scale)
+    # the encoders' attention at their own T' (every utterance 15 s long):
+    # rel-pos in the Mask-CTC and asr_mix conformers, flash in the mulenc
+    # transformers
+    tr = train_frames(maskctc_conformer(torch.bfloat16))
+    if tr != train_frames(asr_mix_conformer(torch.bfloat16)):
+        raise AssertionError("asr-multi: the conformers' T' differ")
+    tf = train_frames(mulenc_transformer(torch.bfloat16))
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        es = 4 if dtype == torch.float32 else 2
+        args, flops, nbytes = relpos_case(torch, b, tr, dtype, [tr] * b, 25)
+        label = f"maskctc/asr_mix encoders B={b} H=4 T={tr} D=64"
+        with torch.no_grad():
+            check_kernel(torch, "relpos_attention", relpos_attention,
+                         relpos_attention_plain, args, flops, nbytes, dn,
+                         label, iters=5)
+        gout = torch.randn(b, 4, tr, 64, generator=torch.Generator()
+                           .manual_seed(26)).to("cuda", dtype)
+        check_grads(torch, "relpos_attention_bwd", dn, label,
+                    relpos_attention, relpos_attention_plain, args, 6, gout,
+                    16.0 * b * 4 * tr * tr * 64,
+                    (7 * b * 4 * tr * 64 + 2 * 4 * (2 * tr - 1) * 64) * es
+                    + b * tr * 4 + b * 4 * tr * 12, iters=5)
+        args, flops, nbytes, _ = flash_case(torch, b, tf, dtype, [tf] * b, 27)
+        with torch.no_grad():
+            check_kernel(torch, "flash_attention", flash_attention,
+                         flash_attention_plain, args, flops, nbytes, dn,
+                         f"mulenc encoders B={b} H=4 T={tf} D=64", iters=5)
+    t, v = 469, 5000
+    logits, labels, in_lens, lab_lens, _, _ = ctc_case(torch, np, b, t, u, v,
+                                                        24)
+    def through_logits(loss_fn):
+        """(per-utterance loss, d logits) of loss_fn(log_softmax(logits))."""
+        x = logits.clone().requires_grad_(True)
+        loss = loss_fn(torch.log_softmax(x, -1))
+        loss.sum().backward()
+        return loss.detach(), x.grad
+
+    lk, gk = through_logits(lambda lp: ctc_loss_from_log_probs(
+        lp, labels, in_lens, lab_lens))
+    lpl, gp = through_logits(lambda lp: ctc_loss_from_log_probs(
+        lp, labels, in_lens, lab_lens, use_kernels=False))
+    ll, gl = through_logits(lambda lp: F.ctc_loss(
+        lp.transpose(0, 1), labels, in_lens, lab_lens, blank=0,
+        reduction="none", zero_infinity=True))
+    loss_dev = float(((lk - lpl).abs() / lpl.abs()).max())
+    grad_dev = float((gk - gp).abs().max())
+    lib_dev = float(((lk - ll).abs() / ll.abs()).max())
+    lib_grad = float((gk - gl).abs().max())
+    lp = torch.log_softmax(logits, -1)
+    # d log-probs directly: a softmax term left in the gradient would
+    # vanish through log_softmax above, so hold it here, with the last
+    # utterance cut too short for its labels (loss and gradient 0)
+    short = in_lens.clone()
+    short[-1] = lab_lens[-1] // 2
+
+    def direct(use):
+        x = lp.clone().requires_grad_(True)
+        loss = ctc_loss_from_log_probs(x, labels, short, lab_lens,
+                                       use_kernels=use)
+        loss.sum().backward()
+        return loss.detach(), x.grad
+
+    dk_loss, dk = direct(True)
+    dp_loss, dp = direct(False)
+    lp_dev = float((dk - dp).abs().max())
+    lp_loss_dev = float(((dk_loss - dp_loss).abs()
+                         / dp_loss.abs().clamp(min=1.0)).max())
+    valid = (torch.arange(t, device=lp.device)[None, :]
+             < short[:, None]).float()
+    valid[-1] = 0.0  # infeasible: no frame carries occupancy
+    sum_dev = float((dk.sum(-1) + valid).abs().max())
+    infeasible = float(dk_loss[-1].abs()) + float(dk[-1].abs().max())
+    log("asr-multi", f"ctc_loss_from_log_probs d log-probs (one infeasible "
+        f"utterance): kernel pair vs plain lattice max |dev| {lp_dev:.2e} "
+        f"(limit {CTC_GRAD_ATOL}), loss relative {lp_loss_dev:.2e} (limit "
+        f"{CTC_LOSS_RTOL}); each frame's gradient sum against -1 (valid) "
+        f"or 0 max |dev| {sum_dev:.2e} (limit {CTC_OCC_SUM_ATOL}); "
+        f"infeasible loss + |grad| "
+        f"{infeasible:.1e}")
+    if (lp_dev > CTC_GRAD_ATOL or sum_dev > CTC_OCC_SUM_ATOL or infeasible
+            or lp_loss_dev > CTC_LOSS_RTOL):
+        raise AssertionError("ctc_loss_from_log_probs: its gradient with "
+                             "respect to the log-probs disagrees with the "
+                             "plain lattice's or is not -occupancy")
+
+    def step(use):
+        x = lp.clone().requires_grad_(True)
+        ctc_loss_from_log_probs(x, labels, in_lens, lab_lens,
+                                use_kernels=use).sum().backward()
+
+    ms = time_ms(torch, lambda: step(True), 10)
+    plain_ms = time_ms(torch, lambda: step(False), 3)
+    dev_ms = device_ms(torch, lambda: step(True))
+    log("asr-multi", f"ctc_loss_from_log_probs B={b} T={t} V={v} U={u} "
+        f"float32, forward and backward: kernel pair vs plain lattice loss "
+        f"relative {loss_dev:.2e} (limit {CTC_LOSS_RTOL}), d logits (through "
+        f"log_softmax) max |dev| {grad_dev:.2e} (limit {CTC_GRAD_ATOL}); vs "
+        f"torch.nn.functional.ctc_loss loss {lib_dev:.2e}, gradient "
+        f"{lib_grad:.2e}; {ms:.4f} ms (device "
+        f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms), plain "
+        f"{plain_ms:.4f} ms")
+    if max(loss_dev, lib_dev) > CTC_LOSS_RTOL or max(
+            grad_dev, lib_grad) > CTC_GRAD_ATOL:
+        raise AssertionError("ctc_loss_from_log_probs disagrees with its "
+                             "plain version or torch's ctc_loss")
+
+
+def multi_lm_train(torch, np, smi, device="cuda"):
+    """The transformer LM: a float32 step with kernels against plain, then
+    TRAIN_TIMED_STEPS bf16 steps at B=64 x 256 tokens (fused_ffn forward
+    and backward, one a layer; causal attention plain)."""
+    from espnet_tpu_torch.configs import LM_VOCAB, transformer_lm
+    from espnet_tpu_torch.models.asr import init_random_
+    from espnet_tpu_torch.tasks.lm import LM_BATCH_KEYS, LMTask
+    from espnet_tpu_torch.train.optim import build_optimizer
+    from espnet_tpu_torch.train.steps import TrainState, make_train_step
+
+    rng = np.random.RandomState(0)
+
+    def batch(b):
+        return {"text": torch.from_numpy(rng.randint(
+                    1, LM_VOCAB - 1, (b, LM_TOKENS))).to(device),
+                "text_lengths": torch.from_numpy(
+                    LM_TOKENS - rng.randint(0, 32, b)).to(device)}
+
+    mc = transformer_lm(dropout_rate=0.0)
+    model = init_random_(LMTask.build_model(mc, LM_VOCAB),
+                         torch.Generator().manual_seed(1)).to(device).train()
+    pb = batch(4)
+    res = {}
+    for use in (True, False):
+        model.set_use_kernels(use)
+        loss, _ = model(pb["text"], pb["text_lengths"])
+        res[use] = (float(loss.detach()), torch.autograd.grad(
+            loss, list(model.parameters())))
+    model.set_use_kernels(True)
+    (lk, gk), (lp, gp) = res[True], res[False]
+    total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in gp)))
+    whole = float(torch.sqrt(sum(((a.double() - b.double()) ** 2).sum()
+                                 for a, b in zip(gk, gp)))) / total
+    log("asr-multi", f"train-parity[transformer_lm] float32 B=4 x "
+        f"{LM_TOKENS} tokens: loss kernels {lk:.6f} vs plain {lp:.6f}; "
+        f"whole gradient relative L2 {whole:.2e} (limit "
+        f"{TRAIN_FP32_GRAD_REL_L2})")
+    if abs(lk - lp) / abs(lp) > TRAIN_FP32_LOSS_RTOL or \
+            whole > TRAIN_FP32_GRAD_REL_L2:
+        raise AssertionError("transformer_lm: the float32 step with kernels "
+                             "deviates from the plain one")
+    model = init_random_(LMTask.build_model(transformer_lm(), LM_VOCAB,
+                                            torch.bfloat16),
+                         torch.Generator().manual_seed(0))
+    tx = build_optimizer("fused_adam", lr=1e-3, schedule="warmuplr",
+                         warmup_steps=25000, d_model=mc.d_model)
+    step = make_train_step(model, tx, device=device, batch_keys=LM_BATCH_KEYS)
+    state = TrainState.create(model, tx)
+    data = batch(LM_BATCH)
+    gen = torch.Generator().manual_seed(0)
+    state, _ = step(state, data, gen)  # warm-up
+    sync(torch, device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    wrappers = reset_counts()
+    t = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        state, stats = step(state, data, gen)
+        if not (np.isfinite(float(stats["loss"])) and float(
+                stats["skipped"]) == 0.0):
+            raise AssertionError(f"transformer_lm: step {stats}")
+    sync(torch, device)
+    step_s = (time.perf_counter() - t) / TRAIN_TIMED_STEPS
+    counts = {n: fn.launches for n, fn in wrappers.items()}
+    per = ({"fused_ffn": LM_LAYERS, "fused_ffn_bwd": LM_LAYERS}
+           if device == "cuda" else {})
+    check_case_launches("transformer_lm", "train steps", counts, per,
+                        TRAIN_TIMED_STEPS)
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device == "cuda" else float("nan"))
+    tokens = float(data["text_lengths"].sum()) + LM_BATCH
+    log("asr-multi", f"transformer_lm train bf16 B={LM_BATCH} x {LM_TOKENS} "
+        f"tokens: {step_s * 1e3:.1f} ms/step, {tokens / step_s:.0f} "
+        f"tokens/s, peak {peak:.2f} GiB, ppl {float(stats['ppl']):.1f} "
+        f"[{smi}]; launches exact")
+
+
+def lm_cli_batches(np, data_dir, token_list, batch_size, quantum):
+    """The LM task's batches of `data_dir`'s text (its sampler's)."""
+    from espnet_tpu_torch.data.sampler import build_batches
+    from espnet_tpu_torch.data.tokenizer import (TokenIDConverter,
+                                                 build_tokenizer)
+    from espnet_tpu_torch.tasks.lm import TextDataset
+
+    ds = TextDataset(f"{data_dir}/text", build_tokenizer("char"),
+                     TokenIDConverter.from_file(token_list))
+    return build_batches({"text": ds.text_lengths()}, batch_size=batch_size,
+                         length_quantum=quantum, text_quantum=quantum,
+                         input_field="text")
+
+
+def multi_lm_cli(torch, np, smi, device="cuda"):
+    """bin.lm_train on synth_hard's test text with its token list and
+    bin.lm_calc_perplexity, subprocesses with their launch logs; then
+    bin.asr_inference on synth_hard's 300 test utterances without and with
+    that LM (--lm_exp_dir, --lm_weight 0.3): WER and RTF of each, the
+    encoder's launches exact and `fused_ffn` 6 a call of the LM's
+    score_step."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from espnet_tpu_torch.bin import asr_inference
+    from espnet_tpu_torch.models.lm import TransformerLM
+    from espnet_tpu_torch.ops.launches import LAUNCH_LOG_ENV
+    from espnet_tpu_torch.tasks.asr import ASRTask
+    from espnet_tpu_torch.tasks.lm import LMTask
+
+    ws = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
+    try:
+        log_path = ws / "launches.jsonl"
+        env = dict(os.environ, **{LAUNCH_LOG_ENV: str(log_path)})
+        tokens = f"{SYNTH}/exp/tokens/tokens.txt"
+        data = f"{SYNTH}/data/test"
+        exp = ws / "lm"
+        calls = [("lm_train", LM_CLI_ARGS.split() + [
+            "--data.train_dir", data, "--data.valid_dir", data,
+            "--data.token_list", tokens, "--run.output_dir", str(exp)]),
+            ("lm_calc_perplexity", ["--exp_dir", str(exp), "--data_dir",
+                                    data, "--output_dir", str(ws / "ppl")])]
+        walls = []
+        for cli, argv in calls:
+            t = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"espnet_tpu_torch.bin.{cli}", *argv,
+                 "--device", device], cwd=Path(__file__).resolve().parent,
+                env=env, capture_output=True, text=True, timeout=600)
+            walls.append(time.perf_counter() - t)
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:] + proc.stderr[-8000:], flush=True)
+                raise AssertionError(f"asr-multi: {cli} exited "
+                                     f"{proc.returncode}")
+        logged = [json.loads(ln) for ln in log_path.read_text().splitlines()]
+        if [c["cli"] for c in logged] != [c for c, _ in calls]:
+            raise AssertionError(f"asr-multi: CLI calls {logged}")
+        cfg = LMTask.load_config(exp)
+        epochs = cfg["run"].max_epoch
+        n = len(lm_cli_batches(np, data, tokens, cfg["data"].batch_size,
+                               cfg["data"].text_quantum))
+        n_ppl = -(-len(Path(data, "text").read_text().splitlines()) // 32)
+        per = LM_LAYERS if device == "cuda" else 0
+        want = expected_counts({"fused_ffn": per * 2 * epochs,
+                                "fused_ffn_bwd": per * epochs}, n)
+        check_launches("lm_train", logged[0]["launches"], want)
+        check_launches("lm_calc_perplexity", logged[1]["launches"],
+                       expected_counts({"fused_ffn": per}, n_ppl))
+        ppl = (ws / "ppl" / "ppl").read_text().strip()
+        log("asr-multi", f"bin.lm_train ({epochs} x {n} batches on "
+            f"synth_hard's test text) {walls[0]:.1f}s, bin.lm_calc_perplexity "
+            f"{walls[1]:.1f}s with process start: perplexity {ppl} [{smi}]; "
+            f"launches exact")
+        steps = []
+        score_step = TransformerLM.score_step
+
+        def counting(self, *a, **k):
+            steps.append(1)
+            return score_step(self, *a, **k)
+
+        acfg = ASRTask.load_config(SYNTH_EXP)
+        tok = ASRTask.build_tokenizer(acfg["data"], Path(SYNTH_EXP))
+        conv = ASRTask.build_token_list(acfg["data"], Path(SYNTH_EXP), tok)
+        ds = ASRTask.build_dataset(acfg["data"], data, tok, conv,
+                                   train=False)
+        n_batches = len(cli_batches(ds, acfg["data"], 30))
+        layers = acfg["model"].num_encoder_layers
+        results = {}
+        for tag, extra in (("without LM", []),
+                           ("with the LM", ["--lm_exp_dir", str(exp),
+                                            "--lm_weight",
+                                            str(LM_FUSION_WEIGHT)])):
+            out = ws / f"decode_{len(results)}"
+            TransformerLM.score_step = counting
+            steps.clear()
+            wrappers = reset_counts()
+            try:
+                asr_inference.main(["--exp_dir", SYNTH_EXP, "--data_dir",
+                                    data, "--output_dir", str(out),
+                                    "--params", SYNTH_PARAMS, *SYNTH_DECODE,
+                                    "--device", device, *extra])
+            finally:
+                TransformerLM.score_step = score_step
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            want = expected_counts(
+                {"relpos_attention": layers, "prenorm_ffn": 2 * layers}
+                if device == "cuda" else {}, n_batches)
+            want["fused_ffn"] = per * len(steps)
+            check_launches(f"asr_inference {tag}", counts, want)
+            results[tag] = ((out / "score_wer.txt").read_text().strip()
+                            .splitlines()[0],
+                            (out / "rtf.txt").read_text().strip(),
+                            len(steps))
+        if results["with the LM"][2] == 0:
+            raise AssertionError("asr-multi: the LM was never called")
+        for tag, (wer, rtf, n_steps) in results.items():
+            log("asr-multi", f"bin.asr_inference synth_hard's {len(ds)} "
+                f"test utterances {tag} (beam 5, CTC 0.3, LM weight "
+                f"{LM_FUSION_WEIGHT if n_steps else 0}): {wer}; {rtf} "
+                f"[{smi}]; {n_steps} LM steps; launches exact")
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+
+
+def phase_asr_multi(torch, np, smi):
+    """Mask-CTC, multi-encoder and multi-speaker ASR and the transformer
+    LM at full width: for each, serve the 4 requests in float32 (the kernel
+    route against the plain route), a float32 train step with kernels
+    against plain and 3 bf16 steps at B=64 x 15 s (the LM: x 256 tokens),
+    exact launches; the kernels at these paths' own shapes; then the LM
+    CLIs and shallow fusion on synth_hard."""
+    from espnet_tpu_torch.bin.asr_mix_inference import greedy_paths
+    from espnet_tpu_torch.bin.asr_mulenc_inference import Speech2TextMulEnc
+    from espnet_tpu_torch.configs import (asr_mix_conformer,
+                                          maskctc_conformer,
+                                          mulenc_transformer)
+    from espnet_tpu_torch.models.maskctc import MaskCTCInference
+
+    t0 = time.perf_counter()
+    multi_kernels(torch, np)
+
+    def tensors(kind):
+        speech, lengths = multi_inputs(np, kind)
+        return (torch.from_numpy(speech).cuda(),
+                torch.from_numpy(lengths).cuda())
+
+    # (1) Mask-CTC: the encoder once, the MLM decoder's flash attention a
+    # layer for each infilling call
+    sp, ln = tensors("maskctc")
+
+    def maskctc_run(model):
+        return MaskCTCInference(model, n_iterations=MASKCTC_ITERATIONS)(
+            sp.cpu().numpy(), ln.cpu().numpy())
+
+    def plain_encode(model):
+        """(encoder output, its valid frames broadcastable to it)."""
+        enc, olens = model.encode(sp, ln)
+        valid = torch.arange(enc.shape[-2], device=enc.device) < olens[
+            ..., None]
+        while valid.ndim < enc.ndim - 1:  # asr_mix: (B, S, T', D), (B,)
+            valid = valid[:, None]
+        return enc, valid[..., None]
+
+    cfg = maskctc_conformer(torch.bfloat16)
+    multi_serve(torch, np, "maskctc_conformer", cfg, maskctc_run,
+                plain_encode, CONFORMER[0],
+                {"flash_attention": cfg.num_decoder_layers}, "mlm_logits",
+                smi)
+    multi_train(torch, np, "maskctc_conformer", cfg, "maskctc",
+                {**CONFORMER[1], "flash_attention": cfg.num_decoder_layers},
+                smi, ("loss_ctc", "loss_mlm", "acc_mlm"))
+
+    # (2) mulenc: two transformer stacks (flash attention and the pre-norm
+    # FFN a layer), the HAN decoder's fused_ffn a layer a search step
+    sp, ln = tensors("mulenc")
+
+    def mulenc_run(model):
+        yseq, ylen, score = Speech2TextMulEnc(
+            model, None, beam_size=10, ctc_weight=0.3,
+            max_steps=40).decode_batch(sp, ln)
+        return [(yseq[i, 0, :ylen[i, 0]].tolist(), float(score[i, 0]))
+                for i in range(yseq.shape[0])]
+
+    cfg = mulenc_transformer(torch.bfloat16)
+    enc_layers = cfg.num_encoders * MULENC_LAYERS
+    multi_serve(torch, np, "mulenc_transformer", cfg, mulenc_run,
+                plain_encode, {"flash_attention": enc_layers,
+                               "prenorm_ffn": enc_layers},
+                {"fused_ffn": cfg.num_decoder_layers},
+                "decoder_score_step", smi)
+    multi_train(torch, np, "mulenc_transformer", cfg, "mulenc",
+                {"flash_attention": enc_layers, "prenorm_ffn": enc_layers,
+                 "prenorm_ffn_bwd": enc_layers,
+                 "fused_ffn": cfg.num_decoder_layers,
+                 "fused_ffn_bwd": cfg.num_decoder_layers,
+                 "ctc_alphas": cfg.num_encoders,
+                 "ctc_gamma": cfg.num_encoders},
+                smi, ("loss_ctc1", "loss_ctc2", "loss_att"))
+
+    # (3) asr_mix: 12 conformer blocks (4 shared, 4 a branch); the S x S
+    # CTC pairs a step
+    sp, ln = tensors("asr_mix")
+
+    def mix_run(model):
+        paths, elens = greedy_paths(model, sp, ln)
+        return [paths[i, :, :elens[i]].tolist()
+                for i in range(paths.shape[0])]
+
+    cfg = asr_mix_conformer(torch.bfloat16)
+    pairs = cfg.num_spk ** 2
+    multi_serve(torch, np, "asr_mix_conformer", cfg, mix_run, plain_encode,
+                {"relpos_attention": MIX_LAYERS,
+                 "prenorm_ffn": 2 * MIX_LAYERS}, {}, None, smi)
+    multi_train(torch, np, "asr_mix_conformer", cfg, "asr_mix",
+                {"relpos_attention": MIX_LAYERS,
+                 "relpos_attention_bwd": MIX_LAYERS,
+                 "prenorm_ffn": 2 * MIX_LAYERS,
+                 "prenorm_ffn_bwd": 2 * MIX_LAYERS,
+                 "ctc_alphas": pairs, "ctc_gamma": pairs},
+                smi, ("loss_ctc", "loss_att", "acc"))
+
+    # (4) the transformer LM, its CLIs and shallow fusion
+    multi_lm_train(torch, np, smi)
+    multi_lm_cli(torch, np, smi)
+    log("asr-multi", f"phase {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3163,6 +3874,7 @@ def main() -> int:
     phase_streaming(torch, np, smi)
     rnnt_results, launches["transducer"] = phase_transducer(torch, np, smi)
     phase_asr_families(torch, np, smi)
+    phase_asr_multi(torch, np, smi)
     results.update(rnnt_results)
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

@@ -8,10 +8,13 @@ espnet_tpu/bin/asr_inference.py). Usage:
 The parser is the JAX CLI's, plus `--device` (default cuda: the card, raising
 without one). The experiment directory may come from either package. Writes
 `text`, `nbest.jsonl`, `rtf.txt` and, with a reference `text`,
-`score_wer.txt` and `score_cer.txt`. Not ported yet, and raising
-`NotImplementedError` when asked for (ROADMAP.md queue 1 item 7): `--search
-timesync`, `--lm_exp_dir`, `--word_lm_exp_dir`, `--ngram_file`, and a
-non-zero `--lm_weight` or `--ngram_weight`. A CTC-only model (no decoder)
+`score_wer.txt` and `score_cer.txt`. `--lm_exp_dir` with `--lm_weight` > 0
+fuses a neural LM trained by `bin.lm_train` (either package's experiment
+directory; built over this model's token list, float32) into the search,
+as in JAX; without `--lm_exp_dir` the weight does nothing, as in JAX. Not
+ported yet, and raising `NotImplementedError` when asked for (ROADMAP.md
+queue 1 item 7): `--search timesync`, `--word_lm_exp_dir`, `--ngram_file`
+and a non-zero `--ngram_weight`. A CTC-only model (no decoder)
 raises a ValueError, and so does a `--ctc_weight` > 0 for an attention-only
 model (no CTC head), where the JAX CLI fails. With
 ESPNET_TPU_TORCH_LAUNCH_LOG set, the kernels' launch counts are appended to
@@ -30,8 +33,8 @@ import numpy as np
 
 logger = logging.getLogger("espnet_tpu")
 
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 7: LM and n-gram " \
-             "fusion, time-synchronous search)"
+NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 7: the n-gram, " \
+             "the word LM and the time-synchronous search)"
 
 
 def get_parser():
@@ -108,16 +111,31 @@ def load_experiment(exp: Path, data_dir, params=None):
     return model, data, ds, tokenizer, converter
 
 
+def load_lm(lm_exp: Path, vocab_size: int):
+    """The bare LM of an LM experiment directory (either package's), built
+    over `vocab_size` tokens (the ASR model's token list, as JAX builds
+    it), its parameters loaded."""
+    from espnet_tpu_torch.convert import load_jax_params
+    from espnet_tpu_torch.tasks.lm import LMTask
+    from espnet_tpu_torch.train.msgpack_io import load_tree
+
+    cfg = LMTask.load_config(lm_exp)
+    model = LMTask.build_model(cfg["model"], vocab_size)
+    params_file = pick_params_file(lm_exp)
+    logger.info("loading LM params: %s", params_file)
+    load_jax_params(model, load_tree(params_file))
+    return model.lm
+
+
 def _refuse_unported(args) -> None:
     asked = []
     if args.search == "timesync":
         asked.append("--search timesync")
-    for flag in ("lm_exp_dir", "word_lm_exp_dir", "ngram_file"):
+    for flag in ("word_lm_exp_dir", "ngram_file"):
         if getattr(args, flag):
             asked.append(f"--{flag}")
-    for flag in ("lm_weight", "ngram_weight"):
-        if getattr(args, flag):
-            asked.append(f"--{flag} {getattr(args, flag)}")
+    if args.ngram_weight:
+        asked.append(f"--ngram_weight {args.ngram_weight}")
     if asked:
         raise NotImplementedError(f"{', '.join(asked)} {NOT_PORTED}")
 
@@ -149,12 +167,16 @@ def main(argv=None):
         length_quantum=data.length_quantum, text_quantum=data.text_quantum,
     )
     it = EpochIterator(ds, batches, shuffle=False, prefetch=2)
+    lm_model = None
+    if args.lm_exp_dir and args.lm_weight > 0:
+        lm_model = load_lm(Path(args.lm_exp_dir), len(converter))
 
     s2t = Speech2Text(
         model, device=device, beam_size=args.beam_size,
         ctc_weight=args.ctc_weight, penalty=args.penalty,
         maxlenratio=args.maxlenratio, minlenratio=args.minlenratio,
         max_steps=args.max_steps, tokenizer=tokenizer, converter=converter,
+        lm_model=lm_model, lm_weight=args.lm_weight,
     )
 
     hyps_text = {}

@@ -36,12 +36,40 @@ filters: the JAX `RNNDecoder` defaults, ESPnet v1's), CTC weight 0.3,
 vocab 5000, utterance MVN; 16,312,578 parameters. `FAMILIES` adds the S4
 decoder, the sinc frontend and the multichannel frontend (with and
 without WPE) to bench.py's conformer, as overrides of `bench_config`.
+
+    maskctc_conformer(torch.bfloat16)
+
+gives the `MaskCTCConfig` of Mask-CTC: the `ASRConfig` defaults that it
+inherits, which are bench.py's 12 x 256 conformer (4 heads, FFN 2048,
+kernel 31) with a 6 x 2048 MLM decoder over vocab 5000 + <mask>, utterance
+MVN as the other configurations;
+
+    mulenc_transformer(torch.bfloat16)
+
+the `MulEncConfig` defaults: two streams of 4 x 256 transformer encoders
+(4 heads, FFN 1024), a 4 x 1024 HAN decoder, CTC weight 0.3;
+
+    asr_mix_conformer(torch.bfloat16)
+
+the `ASRMixConfig` defaults: two speakers, 4 shared + 2 x 4 branch conformer
+blocks (d 256, 4 heads, FFN 1024, kernel 15), a 4 x 1024 decoder, CTC
+weight 0.5; and
+
+    transformer_lm()
+
+the `LMModelConfig` defaults, a 6 x 256 transformer LM with FFN 1024, built
+over `LM_VOCAB` tokens by `tasks.lm.LMTask.build_model` (which takes the
+compute dtype). All use vocab 5000 and random weights from a seed.
 """
 
 from __future__ import annotations
 
 from espnet_tpu_torch.models.asr import ASRConfig
+from espnet_tpu_torch.models.asr_mix import ASRMixConfig
+from espnet_tpu_torch.models.maskctc import MaskCTCConfig
+from espnet_tpu_torch.models.mulenc import MulEncConfig
 from espnet_tpu_torch.models.transducer import TransducerConfig
+from espnet_tpu_torch.tasks.lm import LMModelConfig
 
 BENCH = dict(
     vocab_size=5000, n_mels=80, d_model=256, num_heads=4, d_ff=2048,
@@ -128,3 +156,32 @@ FAMILIES = {
     "multichannel": {"num_channels": 2},
     "multichannel_wpe": {"num_channels": 2, "use_wpe": True},
 }
+
+
+def maskctc_conformer(dtype, **overrides) -> MaskCTCConfig:
+    """Mask-CTC with the JAX `ASRConfig` defaults (bench.py's widths) and
+    utterance MVN."""
+    fields = {"vocab_size": BENCH["vocab_size"], "dtype": dtype,
+              "normalize": "utterance_mvn", **overrides}
+    return MaskCTCConfig(**fields)
+
+
+def mulenc_transformer(dtype, **overrides) -> MulEncConfig:
+    """The JAX `MulEncConfig` defaults with vocab 5000."""
+    return MulEncConfig(**{"vocab_size": BENCH["vocab_size"], "dtype": dtype,
+                           **overrides})
+
+
+def asr_mix_conformer(dtype, **overrides) -> ASRMixConfig:
+    """The JAX `ASRMixConfig` defaults with vocab 5000."""
+    return ASRMixConfig(**{"vocab_size": BENCH["vocab_size"], "dtype": dtype,
+                           **overrides})
+
+
+LM_VOCAB = BENCH["vocab_size"]
+
+
+def transformer_lm(**overrides) -> LMModelConfig:
+    """The JAX `LMModelConfig` defaults (a 6 x 256 transformer LM, FFN
+    1024)."""
+    return LMModelConfig(**overrides)

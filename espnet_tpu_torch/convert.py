@@ -259,13 +259,15 @@ def model_params(model: torch.nn.Module) -> Dict[str, Dict]:
 def load_jax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
     """Load a JAX param tree, or the variables dict {"params", "mvn"} of a
     global-MVN model, into `model`; raises on any key left unused on either
-    side, or on a shape that does not match. The transducer drops the `mvn`
-    collection: it has no global-MVN buffers, and the JAX model never reads
-    the stats that its task passes it."""
+    side, or on a shape that does not match. The transducer and Mask-CTC
+    drop the `mvn` collection: they have no global-MVN buffers, and the JAX
+    models never read the stats that their tasks pass them."""
+    from espnet_tpu_torch.models.maskctc import MaskCTCModel
     from espnet_tpu_torch.models.transducer import TransducerASRModel
 
     tree, mvn = _split_variables(params)
-    if mvn is not None and isinstance(model, TransducerASRModel):
+    if mvn is not None and isinstance(model, (TransducerASRModel,
+                                              MaskCTCModel)):
         params = tree
     sd = jax_params_to_state_dict(params)
     own = model.state_dict()

@@ -6,8 +6,9 @@ joint CTC/attention batched beam search over all utterances at once and
 returns each utterance's n-best token ids and scores, and, given a tokenizer
 and a token converter, the best hypothesis's tokens and text. Runs on the
 CUDA card unless the caller passes device="cpu"; it never falls back on its
-own. Not ported yet: language models and n-gram scorers (ROADMAP.md queue 1
-item 7) and meshes.
+own. A neural LM (`lm_model`, `models/lm.py`) joins the search by shallow
+fusion with `lm_weight` > 0, ahead of any `extra_scorers`, as in JAX. Not
+ported yet: the n-gram scorer (ROADMAP.md queue 1 item 7) and meshes.
 
 The search needs the model's attention decoder, and its CTC head unless
 `ctc_weight` is 0: a CTC-only model (`ctc_weight` 1.0 in training) or a
@@ -28,7 +29,8 @@ import torch
 
 from espnet_tpu_torch.decode.beam_search import (BeamSearchConfig,
                                                  batched_beam_search)
-from espnet_tpu_torch.decode.scorers import Scorer, combine_scorers
+from espnet_tpu_torch.decode.scorers import (Scorer, combine_scorers,
+                                             lm_scorer)
 from espnet_tpu_torch.device import resolve_device
 from espnet_tpu_torch.models.asr import ASRModel
 
@@ -51,12 +53,16 @@ class Speech2Text:
                  maxlenratio: float = 0.0, minlenratio: float = 0.0,
                  max_steps: int = 0,
                  extra_scorers: Optional[Sequence[Scorer]] = None,
-                 tokenizer=None, converter=None):
+                 tokenizer=None, converter=None, lm_model=None,
+                 lm_weight: float = 0.0):
         """`device`: "cuda" (the default; None means the same) or "cpu";
         `model` is moved there. `tokenizer` and `converter`
         (`data/tokenizer.py`) turn the best token ids into tokens and text.
         `max_steps` > 0 caps the label length on top of the encoder length.
-        `extra_scorers`: weighted full scorers added to the search."""
+        `extra_scorers`: weighted full scorers added to the search.
+        `lm_model`: a neural LM over the same token list (its parameters
+        loaded), fused with `lm_weight` when that is > 0; it is moved to
+        `device` too."""
         if getattr(model, "decoder", None) is None:
             raise ValueError(
                 "the model has no attention decoder (trained with ctc_weight "
@@ -78,6 +84,9 @@ class Speech2Text:
         self.tokenizer = tokenizer
         self.converter = converter
         self.extra_scorers = list(extra_scorers or ())
+        self.lm_model = (lm_model.to(self.device).eval()
+                         if lm_model is not None else None)
+        self.lm_weight = lm_weight
         self.sos = cfg.sos_id
         self.eos = cfg.eos_id
         self.vocab_size = cfg.vocab_size
@@ -115,8 +124,12 @@ class Speech2Text:
         def att_score_fn(tokens, pos, cache):
             return model.decoder_score_step(tokens, pos, mem, mem_lens, cache)
 
-        lm_score_fn, lm_cache = combine_scorers(self.extra_scorers, b * w,
-                                                steps + 1, enc.device)
+        slot = []
+        if self.lm_model is not None and self.lm_weight > 0:
+            slot.append(lm_scorer(self.lm_model, self.lm_weight))
+        slot.extend(self.extra_scorers)
+        lm_score_fn, lm_cache = combine_scorers(slot, b * w, steps + 1,
+                                                enc.device)
         # the scorers' weights apply inside the combined fn
         cfg = dataclasses.replace(
             self.cfg, lm_weight=1.0 if lm_score_fn is not None else 0.0)

@@ -1,5 +1,6 @@
-"""Weighted full scorers for the batched beam search (port of the parts of
-espnet_tpu/decode/scorers.py that `Speech2Text` uses without an LM).
+"""Weighted full scorers for the batched beam search (port of
+espnet_tpu/decode/scorers.py but its n-gram adapter, which waits for
+`lm/ngram.py`).
 
 A scorer is a pair of functions over fixed-shape caches:
 
@@ -8,6 +9,7 @@ A scorer is a pair of functions over fixed-shape caches:
 
 `combine_scorers` folds weighted scorers into the search's single extra
 slot: their weighted sum, with a tuple of their caches as its cache.
+`lm_scorer` makes a neural LM (`models/lm.py`) one of them.
 """
 
 from __future__ import annotations
@@ -47,6 +49,19 @@ def combine_scorers(scorers: Sequence[Scorer], n: int, steps: int,
         return total, tuple(new)
 
     return score_fn, caches
+
+
+def lm_scorer(lm_model, weight: float) -> Scorer:
+    """A neural LM (`models/lm.py` `TransformerLM` or `RNNLM`: its
+    `init_cache` and `score_step`) as a weighted scorer."""
+
+    def init_cache(n, steps, device):
+        return lm_model.init_cache(n, steps, device=device)
+
+    def score_step(tokens, pos, cache):
+        return lm_model.score_step(tokens, pos, cache)
+
+    return Scorer(weight, init_cache, score_step, name="lm")
 
 
 def length_bonus_scorer(vocab_size: int, weight: float) -> Scorer:

@@ -40,7 +40,7 @@ from torch import nn
 from espnet_tpu_torch.models.branchformer import VARIANTS, BranchformerEncoder
 from espnet_tpu_torch.models.conformer import ConformerEncoder
 from espnet_tpu_torch.models.enh.beamformer import DNNWPE, DNNBeamformer
-from espnet_tpu_torch.models.layers import Dense
+from espnet_tpu_torch.models.layers import Dense, KernelRouted
 from espnet_tpu_torch.models.longformer import LongformerEncoder
 from espnet_tpu_torch.models.rnn import RNNDecoder, VGGRNNEncoder
 from espnet_tpu_torch.models.s4_decoder import S4Decoder
@@ -274,7 +274,42 @@ def build_decoder(c: ASRConfig) -> Optional[nn.Module]:
     return cls(**dict(c.decoder_conf or {}))
 
 
-class ASRModel(nn.Module):
+class ASRBase(KernelRouted):
+    """What the ASR models share: the generator that training with dropout
+    or SpecAug needs, the CTC head's log-posteriors, and the frontend of
+    the JAX Mask-CTC, mulenc and asr_mix models."""
+
+    def require_generator(self, generator) -> None:
+        c = self.config
+        if (self.training and generator is None
+                and (c.dropout_rate > 0.0 or c.use_specaug)):
+            raise ValueError("training with dropout or SpecAug needs a "
+                             "torch.Generator")
+
+    def ctc_log_probs(self, encoder_out):
+        return torch.log_softmax(self.ctc_head(encoder_out).float(), dim=-1)
+
+    def task_frontend(self, speech, speech_lengths, generator=None,
+                      win_length=None, features: bool = False):
+        """The JAX models' `_frontend`: log-mel of the waveforms
+        (`features`: precomputed features, passed through), SpecAug with
+        its default masks while training, utterance MVN when
+        `config.normalize` says so (they read no global-MVN stats)."""
+        c = self.config
+        if features:
+            feats, flens = speech, speech_lengths
+        else:
+            feats, flens = log_mel_spectrogram(
+                speech, speech_lengths, c.fs, c.n_fft, c.hop_length,
+                win_length, c.n_mels)
+        if c.use_specaug and self.training and generator is not None:
+            feats = specaug(generator, feats, flens)
+        if c.normalize == "utterance_mvn":
+            feats = utterance_mvn(feats, flens)
+        return feats, flens
+
+
+class ASRModel(ASRBase):
     """Frontend + encoder + CTC head (ctc_weight > 0) + decoder (ctc_weight
     < 1). `encoder_options` go to `build_encoder`. A model without a
     decoder has `decoder` None, one without a CTC head `ctc_head` None, so
@@ -333,17 +368,6 @@ class ASRModel(nn.Module):
                 fs=c.fs, win_length=c.win_length or 400,
                 hop_length=c.hop_length, out_dim=c.sinc_out_dim,
                 dropout_rate=c.dropout_rate, dtype=c.dtype)
-        # False: the plain versions even on the card (chip_smoke.py compares)
-        self.use_kernels = True
-
-    def set_use_kernels(self, enabled: bool) -> None:
-        """Route the encoder and the CTC loss through the CUDA kernels
-        (default) or, when False, through their plain versions even on the
-        card: every submodule with a `use_kernel` switch follows."""
-        self.use_kernels = enabled
-        for module in self.modules():
-            if hasattr(module, "use_kernel"):
-                module.use_kernel = enabled
 
     @property
     def multichannel(self) -> bool:
@@ -459,10 +483,7 @@ class ASRModel(nn.Module):
         training mode `generator` drives dropout and SpecAug and is required
         when either is configured."""
         c = self.config
-        if (self.training and generator is None
-                and (c.dropout_rate > 0.0 or c.use_specaug)):
-            raise ValueError("training with dropout or SpecAug needs a "
-                             "torch.Generator")
+        self.require_generator(generator)
         enc, enc_lengths, inters = self.encode_with_intermediates(
             speech, speech_lengths, generator)
         text = text.long()
@@ -506,9 +527,6 @@ class ASRModel(nn.Module):
         loss = c.ctc_weight * loss_ctc + (1.0 - c.ctc_weight) * loss_att
         stats["loss"] = loss
         return loss, stats
-
-    def ctc_log_probs(self, encoder_out):
-        return torch.log_softmax(self.ctc_head(encoder_out).float(), dim=-1)
 
     def decoder_score_step(self, tokens_step, pos, memory, memory_lengths,
                            cache):

@@ -5,7 +5,8 @@ dtype (bfloat16 for the bench model) inside each flax layer; these layers
 (Dense, Conv1d, LayerNorm) do the same. LayerNorm normalises in float32 with eps 1e-6 (flax's
 default, not torch's 1e-5) and returns the compute dtype.
 
-`LSTMCell` is flax's `OptimizedLSTMCell` written out, shared by the
+`KernelRouted` is the base of the port's models: one switch between the
+CUDA kernels and their plain versions. `LSTMCell` is flax's `OptimizedLSTMCell` written out, shared by the
 transducer's prediction network, the v1 RNN encoder and decoder and the
 beamformer's mask estimator: per gate an input kernel without bias (`ii`,
 `if`, `ig`, `io`) and a recurrent kernel with bias (`hi`, ...), gate order
@@ -26,6 +27,21 @@ import torch
 from torch import nn
 
 LN_EPS = 1e-6
+
+
+class KernelRouted(nn.Module):
+    """A model whose kernel wrappers can all take their plain versions:
+    `use_kernels` (True by default) routes its losses, `set_use_kernels`
+    also every submodule with a `use_kernel` switch (chip_smoke.py holds
+    the two routes against each other on the card)."""
+
+    use_kernels = True
+
+    def set_use_kernels(self, enabled: bool) -> None:
+        self.use_kernels = enabled
+        for module in self.modules():
+            if hasattr(module, "use_kernel"):
+                module.use_kernel = enabled
 
 
 class Dense(nn.Linear):

@@ -35,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from espnet_tpu_torch.models.asr import ASRBase
 from espnet_tpu_torch.models.conformer import ConformerEncoder
 from espnet_tpu_torch.models.layers import Dense, LSTMCell, lstm_sequence
 from espnet_tpu_torch.models.transformer import TransformerEncoder
@@ -166,7 +167,7 @@ class JointNetwork(nn.Module):
         return dense(self.lin_out, torch.tanh(h))
 
 
-class TransducerASRModel(nn.Module):
+class TransducerASRModel(ASRBase):
     """Frontend + encoder + prediction network + joint (+ ctc_head with
     ctc_weight > 0, aux_mlp with aux_transducer_weight > 0, lm_head with
     lm_loss_weight > 0), with the JAX model's parameter names.
@@ -214,16 +215,6 @@ class TransducerASRModel(nn.Module):
                         if c.aux_transducer_weight > 0 else None)
         self.lm_head = (Dense(c.decoder_hidden, c.vocab_size, dtype=c.dtype)
                         if c.lm_loss_weight > 0 else None)
-        # False: the plain versions even on the card (chip_smoke.py compares)
-        self.use_kernels = True
-
-    def set_use_kernels(self, enabled: bool) -> None:
-        """Route the encoder and the losses through the CUDA kernels
-        (default) or their plain versions even on the card."""
-        self.use_kernels = enabled
-        for module in self.modules():
-            if hasattr(module, "use_kernel"):
-                module.use_kernel = enabled
 
     def frontend(self, speech, speech_lengths, generator=None):
         c = self.config
@@ -263,10 +254,7 @@ class TransducerASRModel(nn.Module):
         In training mode `generator` drives dropout and SpecAug and is
         required when either is configured."""
         c = self.config
-        if (self.training and generator is None
-                and (c.dropout_rate > 0.0 or c.use_specaug)):
-            raise ValueError("training with dropout or SpecAug needs a "
-                             "torch.Generator")
+        self.require_generator(generator)
         enc, enc_lengths, inters = self.encode_with_intermediates(
             speech, speech_lengths, generator)
         text = text.long()

@@ -207,7 +207,54 @@ class TransformerDecoderLayer(nn.Module):
         return x
 
 
-class TransformerDecoder(nn.Module):
+class TokenStack(nn.Module):
+    """What the token decoders and the transformer LM share: `embed` at
+    `dtype`, `layer{i}` for i < num_layers, the sequence input (scaled
+    embedding plus sinusoidal positions, dropped out), the causal bias, and
+    the incremental step's per-layer k/v cache with its input at `pos`. The
+    subclass sets `embed`, `d_model`, `num_heads`, `num_layers`, `dtype`,
+    `dropout`, `final_norm` and `out_proj`."""
+
+    def layers(self) -> list:
+        return [getattr(self, f"layer{i}") for i in range(self.num_layers)]
+
+    def _embed(self, tokens):
+        return nn.functional.embedding(tokens.long(),
+                                       self.embed.weight.to(self.dtype))
+
+    def _embed_sequence(self, tokens, generator=None):
+        return self.dropout(add_positional_encoding(self._embed(tokens)),
+                            generator)
+
+    @staticmethod
+    def _causal_bias(token_lengths, u: int):
+        """(B, 1, U, U): key padding and the causal mask."""
+        valid = make_valid_mask(token_lengths, u)
+        causal = subsequent_mask(u, token_lengths.device)
+        return attention_bias(valid[:, None, None, :] & causal[None, None])
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> list:
+        """Empty per-layer KV caches, (batch, H, max_len, Dk) each."""
+        dk = self.d_model // self.num_heads
+        shape = (batch, self.num_heads, max_len, dk)
+        return [{"k": torch.zeros(shape, dtype=self.dtype, device=device),
+                 "v": torch.zeros(shape, dtype=self.dtype, device=device)}
+                for _ in range(self.num_layers)]
+
+    def _embed_step(self, tokens_step, pos: int, cache):
+        """(N,) tokens at position `pos` -> their (N, 1, D) input."""
+        x = self._embed(tokens_step[:, None])
+        t_all = cache[0]["k"].shape[2]
+        pe = torch.from_numpy(sinusoidal_table(t_all, self.d_model)[pos])
+        return x * math.sqrt(self.d_model) + pe.to(x.device, x.dtype)
+
+    def _step_log_probs(self, x):
+        """(N, 1, D) -> float32 log-probs (N, V)."""
+        logits = self.out_proj(self.final_norm(x))[:, 0]
+        return torch.log_softmax(logits.float(), dim=-1)
+
+
+class TransformerDecoder(TokenStack):
     """Autoregressive transformer decoder with output projection."""
 
     def __init__(self, vocab_size: int, d_model: int = 256,
@@ -227,50 +274,25 @@ class TransformerDecoder(nn.Module):
         self.out_proj = Dense(d_model, vocab_size, dtype=dtype)
         self.dropout = FastDropout(dropout_rate)
 
-    def layers(self) -> List[TransformerDecoderLayer]:
-        return [getattr(self, f"layer{i}") for i in range(self.num_layers)]
-
-    def _embed(self, tokens):
-        return nn.functional.embedding(tokens, self.embed.weight.to(self.dtype))
-
     def forward(self, tokens, token_lengths, memory, memory_lengths,
                 generator=None):
         """Teacher-forced decode. tokens: (B, U) int -> logits (B, U, V)."""
-        u = tokens.shape[1]
-        x = self.dropout(add_positional_encoding(self._embed(tokens)),
-                         generator)
-        tgt_valid = make_valid_mask(token_lengths, u)
-        causal = subsequent_mask(u, tokens.device)
-        self_bias = attention_bias(tgt_valid[:, None, None, :]
-                                   & causal[None, None])
+        x = self._embed_sequence(tokens, generator)
+        self_bias = self._causal_bias(token_lengths, tokens.shape[1])
         mem_bias = attention_bias(
             make_valid_mask(memory_lengths, memory.shape[1])[:, None, None, :])
         for layer in self.layers():
             x = layer(x, self_bias, memory, mem_bias, generator=generator)
         return self.out_proj(self.final_norm(x))
 
-    def init_cache(self, batch: int, max_len: int, device=None) -> list:
-        """Empty per-layer KV caches, (batch, H, max_len, Dk) each."""
-        dk = self.d_model // self.num_heads
-        shape = (batch, self.num_heads, max_len, dk)
-        return [{"k": torch.zeros(shape, dtype=self.dtype, device=device),
-                 "v": torch.zeros(shape, dtype=self.dtype, device=device)}
-                for _ in range(self.num_layers)]
-
     def score_step(self, tokens_step, pos: int, memory, memory_lengths, cache):
         """One incremental step: tokens_step (N,) at position `pos` ->
         (log-probs (N, V) float32, new cache)."""
-        x = self._embed(tokens_step[:, None])
-        t_all = cache[0]["k"].shape[2]
-        pe = torch.from_numpy(sinusoidal_table(t_all, self.d_model)[pos])
-        x = x * math.sqrt(self.d_model)
-        x = x + pe.to(x.device, x.dtype)
+        x = self._embed_step(tokens_step, pos, cache)
         mem_bias = attention_bias(
             make_valid_mask(memory_lengths, memory.shape[1])[:, None, None, :])
         new_caches = []
         for layer, layer_cache in zip(self.layers(), cache):
             x, nc = layer(x, None, memory, mem_bias, layer_cache, pos)
             new_caches.append(nc)
-        logits = self.out_proj(self.final_norm(x))[:, 0]
-        return torch.log_softmax(logits.float(), dim=-1), new_caches
-
+        return self._step_log_probs(x), new_caches

@@ -14,6 +14,13 @@ keeps the forward's alphas for the backward instead of recomputing them
 (the JAX package uses a one-hot matmul, in bf16 for bf16 logits).
 zero_infinity: an utterance with no feasible alignment gives loss 0 and a
 zero gradient. Blank is `blank_id` (0 for the ASR models).
+
+`ctc_loss_from_log_probs` (port of the JAX function of that name) takes
+float32 log-probabilities that the caller has already normalised (the
+multi-encoder and multi-speaker models fuse or permute them first): the
+same lattice pair, and a gradient with no softmax term,
+
+    d log_probs = -occ          (masked past each utterance's length)
 """
 
 from __future__ import annotations
@@ -69,6 +76,18 @@ def _emissions(logits, ext, lse):
     return (gathered - lse[:, :, None]).transpose(0, 1).contiguous()
 
 
+def _occupancy_btv(gamma, ext, v: int):
+    """(T, B, S) state log-posteriors -> their occupancies spread onto the
+    vocabulary, (B, T, V) float32 (a scatter-add over the S states)."""
+    occ = torch.exp(gamma.clamp(max=0.0))
+    occ = torch.where(torch.isfinite(gamma), occ, torch.zeros_like(occ))
+    occ_bts = occ.transpose(0, 1)  # (B, T, S)
+    b, t, s = occ_bts.shape
+    occ_btv = torch.zeros(b, t, v, dtype=torch.float32, device=gamma.device)
+    occ_btv.scatter_add_(2, ext[:, None, :].expand(b, t, s), occ_bts)
+    return occ_bts, occ_btv
+
+
 class _CTCFromLogits(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels, input_lengths, label_lengths, blank_id,
@@ -98,15 +117,9 @@ class _CTCFromLogits(torch.autograd.Function):
         (logits, ext, skip, input_lengths, label_lengths, lse, log_z,
          feasible, emit, alphas) = ctx.saved_tensors
         gamma = ctx.gamma_fn(emit, skip, input_lengths, label_lengths, alphas)
-        gamma = gamma - log_z[None, :, None]
-        occ = torch.exp(gamma.clamp(max=0.0))
-        occ = torch.where(torch.isfinite(gamma), occ, torch.zeros_like(occ))
-        occ_bts = occ.transpose(0, 1)  # (B, T, S)
         b, t, v = logits.shape
-        occ_btv = torch.zeros(b, t, v, dtype=torch.float32,
-                              device=logits.device)
-        occ_btv.scatter_add_(2, ext[:, None, :].expand(b, t, ext.shape[1]),
-                             occ_bts)
+        occ_bts, occ_btv = _occupancy_btv(gamma - log_z[None, :, None], ext,
+                                          v)
         occ_total = occ_bts.sum(dim=-1)  # (B, T)
         softmax = torch.exp(logits.float() - lse[:, :, None])
         t_mask = (torch.arange(t, device=logits.device)[None, :]
@@ -118,6 +131,58 @@ class _CTCFromLogits(torch.autograd.Function):
         dlogits = softmax * scale[:, :, None] - occ_btv * (
             g_occ[:, None, None] * t_mask[:, :, None])
         return dlogits.to(logits.dtype), None, None, None, None, None
+
+
+class _CTCFromLogProbs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, log_probs, labels, input_lengths, label_lengths,
+                blank_id, use_kernels):
+        labels = labels.long()
+        input_lengths = input_lengths.long()
+        label_lengths = label_lengths.long()
+        ext = extended_labels(labels, blank_id)
+        skip = transition_mask(ext)
+        b, t, _ = log_probs.shape
+        emit = log_probs.float().gather(
+            2, ext[:, None, :].expand(b, t, ext.shape[1])
+        ).transpose(0, 1).contiguous()  # (T, B, S)
+        ctx.gamma_fn = ctc_gamma if use_kernels else ctc_gamma_plain
+        alphas_fn = ctc_alphas if use_kernels else ctc_alphas_plain
+        alphas, alpha_last = alphas_fn(emit, skip, input_lengths)
+        log_z = final_log_z(alpha_last, label_lengths)
+        feasible = input_lengths >= (label_lengths
+                                     + min_frames(labels, label_lengths))
+        loss = torch.where(feasible & (log_z > NEG_INF / 2), -log_z,
+                           torch.zeros_like(log_z))
+        ctx.v = log_probs.shape[-1]
+        ctx.dtype = log_probs.dtype
+        ctx.save_for_backward(ext, skip, input_lengths, label_lengths, log_z,
+                              feasible, emit, alphas)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        (ext, skip, input_lengths, label_lengths, log_z, feasible, emit,
+         alphas) = ctx.saved_tensors
+        gamma = ctx.gamma_fn(emit, skip, input_lengths, label_lengths, alphas)
+        _, occ_btv = _occupancy_btv(gamma - log_z[None, :, None], ext, ctx.v)
+        t = occ_btv.shape[1]
+        t_mask = (torch.arange(t, device=g.device)[None, :]
+                  < input_lengths[:, None])
+        g = torch.where(feasible, g.float(), torch.zeros_like(g).float())
+        grad = -occ_btv * (t_mask.float() * g[:, None])[:, :, None]
+        return grad.to(ctx.dtype), None, None, None, None, None
+
+
+def ctc_loss_from_log_probs(log_probs, labels, input_lengths, label_lengths,
+                            blank_id: int = 0, use_kernels: bool = True):
+    """Per-utterance CTC negative log-likelihood (B,) from (B, T, V)
+    log-softmax outputs, zero_infinity as `ctc_loss_from_logits`; its
+    gradient is minus the occupancies, 0 past each input length.
+    use_kernels=False takes the lattice's plain versions even on the
+    card."""
+    return _CTCFromLogProbs.apply(log_probs, labels, input_lengths,
+                                  label_lengths, blank_id, use_kernels)
 
 
 def ctc_loss_from_logits(logits, labels, input_lengths, label_lengths,

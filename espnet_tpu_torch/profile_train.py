@@ -2,13 +2,17 @@
 
     python -m espnet_tpu_torch.profile_train [--batch 64] [--secs 15]
         [--encoder NAME]  (a configuration of espnet_tpu_torch.configs,
-                           "longformer", "vgg_blstm_rnn" or "transducer")
+                           "longformer", "vgg_blstm_rnn", "transducer",
+                           "maskctc_conformer", "mulenc_transformer" or
+                           "asr_mix_conformer")
 
 Builds the bench model (full width and depth, bf16 compute, dropout 0.1,
 SpecAug, random weights from a seed) with the encoder of the chosen
 configuration of `espnet_tpu_torch.configs`, or with `--encoder transducer`
 the RNN-T `configs.transducer_conformer` (`longformer` and `vgg_blstm_rnn`:
-`configs.longformer_conformer`, `configs.vgg_blstm_rnn`); runs one warm-up
+`configs.longformer_conformer`, `configs.vgg_blstm_rnn`; the Mask-CTC,
+multi-encoder and multi-speaker models of the configurations of their
+names, with two streams, or two speakers' labels); runs one warm-up
 train step
 through
 `make_train_step`, then one step under `torch.profiler` and one step timed
@@ -27,19 +31,33 @@ import time
 import numpy as np
 import torch
 
-from espnet_tpu_torch.configs import (ENCODERS, bench_config,
-                                      encoder_options, longformer_conformer,
+from espnet_tpu_torch.configs import (ENCODERS, asr_mix_conformer,
+                                      bench_config, encoder_options,
+                                      longformer_conformer,
+                                      maskctc_conformer, mulenc_transformer,
                                       transducer_conformer, vgg_blstm_rnn)
+from espnet_tpu_torch.models.asr import ASRModel, init_random_
+from espnet_tpu_torch.models.asr_mix import ASRMixModel
+from espnet_tpu_torch.models.maskctc import MaskCTCModel
+from espnet_tpu_torch.models.mulenc import ASRMulEncModel
+from espnet_tpu_torch.models.transducer import TransducerASRModel
 
 # whole models by name, beside the encoders of `ENCODERS`
 MODELS = {"longformer": longformer_conformer, "vgg_blstm_rnn": vgg_blstm_rnn}
-from espnet_tpu_torch.models.asr import ASRModel, init_random_
-from espnet_tpu_torch.models.transducer import TransducerASRModel
+# the other ASR tasks' models: name -> (configuration, model class)
+TASK_MODELS = {
+    "maskctc_conformer": (maskctc_conformer, MaskCTCModel),
+    "mulenc_transformer": (mulenc_transformer, ASRMulEncModel),
+    "asr_mix_conformer": (asr_mix_conformer, ASRMixModel),
+}
 from espnet_tpu_torch.train.optim import build_optimizer
 from espnet_tpu_torch.train.steps import TrainState, make_train_step
 
 
-def _batch(b: int, secs: float, u: int, vocab: int, device):
+def _batch(b: int, secs: float, u: int, vocab: int, device, name=""):
+    """Noise waveforms and random labels; two streams of them (B, N, 2)
+    with (B, 2) lengths for mulenc, two speakers' labels (B, 2, U) with
+    (B, 2) lengths for asr_mix."""
     rng = np.random.RandomState(0)
     n = int(secs * 16000)
     batch = {
@@ -48,6 +66,12 @@ def _batch(b: int, secs: float, u: int, vocab: int, device):
         "text": rng.randint(1, vocab - 1, (b, u)).astype(np.int32),
         "text_lengths": np.full((b,), u, np.int32),
     }
+    if name.startswith("mulenc"):
+        batch["speech"] = np.stack([batch["speech"]] * 2, axis=2)
+        batch["speech_lengths"] = np.full((b, 2), n, np.int32)
+    elif name.startswith("asr_mix"):
+        batch["text"] = np.stack([batch["text"]] * 2, axis=1)
+        batch["text_lengths"] = np.full((b, 2), u, np.int32)
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
@@ -59,7 +83,7 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--encoder", default="conformer",
                     choices=sorted(ENCODERS) + sorted(MODELS)
-                    + ["transducer"])
+                    + ["transducer"] + sorted(TASK_MODELS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train needs a CUDA card")
@@ -72,6 +96,10 @@ def main() -> None:
     if args.encoder == "transducer":
         cfg = transducer_conformer(torch.bfloat16)
         model = TransducerASRModel(cfg)
+    elif args.encoder in TASK_MODELS:
+        make_cfg, cls = TASK_MODELS[args.encoder]
+        cfg = make_cfg(torch.bfloat16)
+        model = cls(cfg)
     elif args.encoder in MODELS:
         cfg = MODELS[args.encoder](torch.bfloat16)
         model = ASRModel(cfg)
@@ -84,7 +112,7 @@ def main() -> None:
     step = make_train_step(model, tx, device="cuda")
     state = TrainState.create(model, tx)
     batch = _batch(args.batch, args.secs, args.labels, cfg.vocab_size,
-                   "cuda")
+                   "cuda", args.encoder)
     gen = torch.Generator().manual_seed(0)
     state, _ = step(state, batch, gen)  # warm-up: builds the kernels
     torch.cuda.synchronize()

@@ -13,7 +13,7 @@ Stage map (reference asr.sh line refs):
   3  format/validate data dirs                               asr.sh:526
   4  remove long/short utterances                            asr.sh:652
   5  token list / BPE model                                  asr.sh:730
-  6  LM training (optional; not ported)                      asr.sh:829
+  6  LM training (optional)                                  asr.sh:829
   7  n-gram training (optional; not ported)                  asr.sh:1009
   8  ASR collect-stats                                       asr.sh:1021
   9  ASR training                                            asr.sh:1133
@@ -23,10 +23,13 @@ Stage map (reference asr.sh line refs):
 
 Completion markers `.stage<N>.done` under the experiment dir make re-runs
 resume where they stopped. The files and directories are the JAX recipe's.
-`device` ("cuda", the card, or "cpu") is passed to the CLIs that run the
-model (`asr_train`, `asr_inference`) as their `--device`; it is never
-written into a config. `use_lm` and `use_ngram` raise NotImplementedError
-before any stage runs (ROADMAP.md queue 1 item 7).
+`device` ("cuda", the card, or "cpu") is passed to the CLIs that run a
+model (`asr_train`, `lm_train`, `asr_inference`) as their `--device`; it is
+never written into a config. `use_lm` trains the neural LM in stage 6
+(`bin.lm_train` on the training text with the recipe's token list and
+`lm_args`) and passes `--lm_exp_dir` to decoding, as JAX does: the fusion
+weight comes from `decode_args` (`--lm_weight`). `use_ngram` raises
+NotImplementedError before any stage runs (ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -43,8 +46,7 @@ from typing import List, Sequence
 
 logger = logging.getLogger("espnet_tpu")
 
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 7: LM and n-gram " \
-             "fusion)"
+NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 7: the n-gram)"
 
 
 @dataclasses.dataclass
@@ -86,11 +88,8 @@ def _run_cli(module: str, args: Sequence[str]) -> None:
 
 class Recipe:
     def __init__(self, cfg: RecipeConfig, device: str = "cuda"):
-        asked = [f for f in ("use_lm", "use_ngram") if getattr(cfg, f)]
-        if asked:
-            raise NotImplementedError(
-                f"{', '.join('--recipe.' + f + ' true' for f in asked)} "
-                f"{NOT_PORTED}")
+        if cfg.use_ngram:
+            raise NotImplementedError(f"--recipe.use_ngram true {NOT_PORTED}")
         self.cfg = cfg
         self.device = device
         self.exp = Path(cfg.expdir)
@@ -213,7 +212,14 @@ class Recipe:
         ])
 
     def stage6_lm(self):
-        """Inert: `use_lm` is refused before any stage runs."""
+        if not self.cfg.use_lm:
+            return
+        _run_cli("espnet_tpu_torch.bin.lm_train", [
+            "--run.output_dir", str(self.exp / "lm"),
+            "--data.train_dir", str(self.train_dir()),
+            "--data.valid_dir", str(self.data / self.cfg.valid_set),
+            "--data.token_list", str(self.exp / "tokens" / "tokens.txt"),
+        ] + shlex.split(self.cfg.lm_args) + ["--device", self.device])
 
     def stage7_ngram(self):
         """Inert: `use_ngram` is refused before any stage runs."""
@@ -249,6 +255,8 @@ class Recipe:
                 "--data_dir", str(self.data / name),
                 "--output_dir", str(out),
             ] + shlex.split(self.cfg.decode_args) + ["--device", self.device]
+            if self.cfg.use_lm:
+                args += ["--lm_exp_dir", str(self.exp / "lm")]
             _run_cli("espnet_tpu_torch.bin.asr_inference", args)
 
     def stage11_score(self):

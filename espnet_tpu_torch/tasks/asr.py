@@ -147,6 +147,28 @@ PLUGIN_SECTIONS = ("encoder_conf", "decoder_conf")
 DTYPES = ("float32", "bfloat16")
 
 
+def torch_dtype(name):
+    """A model section's named `dtype` ("float32" | "bfloat16", or a
+    dtype's repr) as the torch dtype."""
+    import torch
+
+    dtype = str(name).split(".")[-1]
+    if dtype not in DTYPES:
+        raise ValueError(f"--model.dtype {name!r} not in {DTYPES}")
+    return getattr(torch, dtype)
+
+
+def model_kwargs(section, config_cls) -> Dict[str, Any]:
+    """The fields of the model configuration `config_cls` but vocab_size
+    and dtype, read from a model section (YAML lists as tuples)."""
+    kw = {}
+    for f in dataclasses.fields(config_cls):
+        if f.name not in ("vocab_size", "dtype"):
+            value = getattr(section, f.name)
+            kw[f.name] = tuple(value) if isinstance(value, list) else value
+    return kw
+
+
 class ASRTask(AbsTask):
     name = "asr"
     sections = {
@@ -221,8 +243,6 @@ class ASRTask(AbsTask):
     @classmethod
     def build_model(cls, model_cfg: ASRModelSection,
                     vocab_size: int) -> ASRModel:
-        import torch
-
         for name, (default, item) in UNPORTED_FIELDS.items():
             value = getattr(model_cfg, name)
             if isinstance(value, list):
@@ -238,22 +258,14 @@ class ASRTask(AbsTask):
                 raise NotImplementedError(
                     f"--model.{name} {value} is not ported yet (ROADMAP.md "
                     f"queue 1 item {table[value]}: SSL and Whisper)")
-        dtype = str(model_cfg.dtype).split(".")[-1]
-        if dtype not in DTYPES:
-            raise ValueError(f"--model.dtype {model_cfg.dtype!r} not in "
-                             f"{DTYPES}")
-        kw = {}
-        for f in dataclasses.fields(ASRConfig):
-            if f.name in ("vocab_size", "dtype"):
-                continue
-            value = getattr(model_cfg, f.name)
-            if f.name in PLUGIN_SECTIONS and isinstance(value, str):
+        kw = model_kwargs(model_cfg, ASRConfig)
+        for name in PLUGIN_SECTIONS:
+            if isinstance(kw[name], str):
                 from espnet_tpu_torch.utils.config import loads_yaml
 
-                value = loads_yaml(value)
-            kw[f.name] = tuple(value) if isinstance(value, list) else value
+                kw[name] = loads_yaml(kw[name])
         return ASRModel(ASRConfig(vocab_size=vocab_size,
-                                  dtype=getattr(torch, dtype), **kw))
+                                  dtype=torch_dtype(model_cfg.dtype), **kw))
 
     # --- run -------------------------------------------------------------
     @classmethod

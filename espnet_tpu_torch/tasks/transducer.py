@@ -16,7 +16,8 @@ import dataclasses
 from espnet_tpu_torch.models.transducer import (TransducerASRModel,
                                                 TransducerConfig)
 from espnet_tpu_torch.tasks.abs_task import OptimConfig, RunConfig
-from espnet_tpu_torch.tasks.asr import DTYPES, ASRDataConfig, ASRTask
+from espnet_tpu_torch.tasks.asr import (ASRDataConfig, ASRTask,
+                                        model_kwargs, torch_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,17 +42,6 @@ class TransducerTask(ASRTask):
     @classmethod
     def build_model(cls, model_cfg: TransducerModelSection,
                     vocab_size: int) -> TransducerASRModel:
-        import torch
-
-        dtype = str(model_cfg.dtype).split(".")[-1]
-        if dtype not in DTYPES:
-            raise ValueError(f"--model.dtype {model_cfg.dtype!r} not in "
-                             f"{DTYPES}")
-        kw = {}
-        for f in dataclasses.fields(TransducerConfig):
-            if f.name in ("vocab_size", "dtype"):
-                continue
-            value = getattr(model_cfg, f.name)
-            kw[f.name] = tuple(value) if isinstance(value, list) else value
         return TransducerASRModel(TransducerConfig(
-            vocab_size=vocab_size, dtype=getattr(torch, dtype), **kw))
+            vocab_size=vocab_size, dtype=torch_dtype(model_cfg.dtype),
+            **model_kwargs(model_cfg, TransducerConfig)))

@@ -9,7 +9,9 @@ of `state.params`, one float32 vector that the update changes in place.
 (the largest divisor of B not above accum_steps), runs forward and backward
 on each in turn, and averages their gradients and stats before one update,
 as the JAX package's micro-batch scan does. All randomness (dropout, SpecAug,
-the FFN kernels' seeds) comes from `generator`.
+the FFN kernels' seeds) comes from `generator`. `batch_keys` names the
+batch fields that the model takes, in order (the ASR models' `BATCH_KEYS`
+by default; the JAX steps' `batch_arg_names`).
 """
 
 from __future__ import annotations
@@ -42,13 +44,14 @@ class TrainState:
         return cls(step=0, params=flat, opt_state=optimizer.init(flat))
 
 
-def _to_device(batch, device) -> Dict[str, torch.Tensor]:
+def _to_device(batch, device, keys=BATCH_KEYS) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(batch[k]).to(device, non_blocking=True)
-            for k in BATCH_KEYS}
+            for k in keys}
 
 
 def make_train_step(model: nn.Module, optimizer: FlatOptimizer,
-                    device="cuda", accum_steps: int = 1) -> Callable:
+                    device="cuda", accum_steps: int = 1,
+                    batch_keys: Tuple[str, ...] = BATCH_KEYS) -> Callable:
     """Move `model` to `device` (the CUDA card unless "cpu" is asked for;
     raises without a card) and return its train step. Create the state with
     `TrainState.create(model, optimizer)` afterwards."""
@@ -66,8 +69,8 @@ def make_train_step(model: nn.Module, optimizer: FlatOptimizer,
         if state.params.device != dev:
             raise ValueError(f"state on {state.params.device}, step on {dev}")
         model.train()
-        data = _to_device(batch, dev)
-        b = data[BATCH_KEYS[0]].shape[0]
+        data = _to_device(batch, dev, batch_keys)
+        b = data[batch_keys[0]].shape[0]
         n_micro = max(1, min(accum_steps, b))
         while b % n_micro:
             n_micro -= 1
@@ -76,7 +79,7 @@ def make_train_step(model: nn.Module, optimizer: FlatOptimizer,
             p.grad = None
         totals: Dict[str, torch.Tensor] = {}
         for i in range(n_micro):
-            mb = [data[k][i * size:(i + 1) * size] for k in BATCH_KEYS]
+            mb = [data[k][i * size:(i + 1) * size] for k in batch_keys]
             loss, stats = model(*mb, generator=generator)
             loss.backward()
             for k, v in stats.items():
@@ -96,7 +99,8 @@ def make_train_step(model: nn.Module, optimizer: FlatOptimizer,
     return train_step
 
 
-def make_eval_step(model: nn.Module, device="cuda") -> Callable:
+def make_eval_step(model: nn.Module, device="cuda",
+                   batch_keys: Tuple[str, ...] = BATCH_KEYS) -> Callable:
     """eval_step(state, batch) -> stats of the deterministic forward (no
     dropout, no SpecAug, no gradient)."""
     dev = resolve_device(device)
@@ -107,8 +111,8 @@ def make_eval_step(model: nn.Module, device="cuda") -> Callable:
         was_training = model.training
         model.eval()
         try:
-            data = _to_device(batch, dev)
-            _, stats = model(*(data[k] for k in BATCH_KEYS))
+            data = _to_device(batch, dev, batch_keys)
+            _, stats = model(*(data[k] for k in batch_keys))
         finally:
             model.train(was_training)
         return {k: v.float() for k, v in stats.items()}

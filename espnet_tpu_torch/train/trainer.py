@@ -65,8 +65,11 @@ class TrainerOptions:
 
 class Trainer:
     def __init__(self, model, tx, out_dir,
-                 options: TrainerOptions = TrainerOptions(), device="cuda"):
+                 options: TrainerOptions = TrainerOptions(), device="cuda",
+                 batch_arg_names: Tuple[str, ...] = BATCH_KEYS):
         self.model = model
+        # the batch fields the model takes, in order
+        self.batch_arg_names = tuple(batch_arg_names)
         self.tx = tx
         self.options = options
         self.out_dir = Path(out_dir)
@@ -106,8 +109,10 @@ class Trainer:
                 model.mvn.inv_std.copy_(torch.from_numpy(
                     np.asarray(mvn["inv_std"], np.float32)))
         self.train_step = make_train_step(model, self.tx, self.device,
-                                          accum_steps=self.options.accum_grad)
-        self.eval_step = make_eval_step(model, self.device)
+                                          accum_steps=self.options.accum_grad,
+                                          batch_keys=self.batch_arg_names)
+        self.eval_step = make_eval_step(model, self.device,
+                                        batch_keys=self.batch_arg_names)
         return TrainState.create(model, self.tx)
 
     def _flush(self, sub: SubReporter, pending: List, t_win: float) -> None:
@@ -129,6 +134,7 @@ class Trainer:
     def run(self, state: TrainState, train_iter, valid_iter=None,
             hooks: Iterable[Callable] = ()) -> TrainState:
         opts = self.options
+        names = self.batch_arg_names
         start_epoch = 1
         if opts.resume and self.ckpt.has_checkpoint():
             state, last_epoch, rep_state, gen_state = self.ckpt.load_state(
@@ -152,11 +158,11 @@ class Trainer:
                 if i == 1:
                     from espnet_tpu_torch.utils.typecheck import check_batch
 
-                    check_batch(batch, BATCH_KEYS)
+                    check_batch(batch, names)
                 if opts.profile_steps and epoch == start_epoch:
                     profiler = self._profile(i, profiler)
                 state, stats = self.train_step(state, batch, self.generator)
-                pending.append((stats, len(batch[BATCH_KEYS[0]])))
+                pending.append((stats, len(batch[names[0]])))
                 if i % opts.log_interval == 0:
                     self._flush(sub, pending, t_win)
                     t_win = time.perf_counter()
@@ -179,7 +185,7 @@ class Trainer:
                     keys = list(stats)
                     row = torch.stack([stats[k] for k in keys]).cpu().tolist()
                     sub.register(dict(zip(keys, row)),
-                                 weight=len(batch[BATCH_KEYS[0]]))
+                                 weight=len(batch[names[0]]))
                 valid_stats = self.reporter.finish_phase(sub)
                 self.tb.log_epoch(epoch, "valid", valid_stats)
                 self.wandb.log_epoch(epoch, "valid", valid_stats)

@@ -283,19 +283,32 @@ def test_jax_resume_state_is_refused(runs, tmp_path):
 
 @pytest.mark.parametrize("extra, item", [
     (["--search", "timesync"], 7),
-    (["--lm_exp_dir", "lm"], 7),
     (["--word_lm_exp_dir", "wlm"], 7),
     (["--ngram_file", "x.arpa"], 7),
-    (["--lm_weight", "0.3"], 7),
     (["--ngram_weight", "0.3"], 7),
-], ids=["timesync", "lm_exp_dir", "word_lm_exp_dir", "ngram_file",
-        "lm_weight", "ngram_weight"])
+], ids=["timesync", "word_lm_exp_dir", "ngram_file", "ngram_weight"])
 def test_unported_inference_flags_raise(runs, extra, item):
     ws = runs[0]
     with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
         tinference.main(["--exp_dir", str(ws / "texp"), "--data_dir",
                          str(ws / "valid"), "--output_dir",
                          str(ws / "unused"), "--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--lm_exp_dir", "lm", "--lm_weight", "0.3"],
+    ["--lm_weight", "0.3"],
+], ids=["lm_exp_dir", "lm_weight"])
+def test_neural_lm_inference_flags_pass_the_check(runs, extra):
+    """The neural LM's flags are ported: they pass the check that refuses
+    the unported ones (a missing LM directory then fails where it is read;
+    tests/test_torch_multi_cli.py decodes with one)."""
+    ws = runs[0]
+    argv = ["--exp_dir", str(ws / "texp"), "--data_dir", str(ws / "valid"),
+            "--output_dir", str(ws / "unused"), "--device", "cpu"] + extra
+    args = tinference.get_parser().parse_args(argv)
+    tinference._refuse_unported(args)
+    assert args.lm_weight == 0.3
 
 
 @pytest.mark.parametrize("extra, item", [

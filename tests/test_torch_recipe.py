@@ -110,13 +110,41 @@ def test_stages_8_to_12_train_decode_score_and_pack(ws, caplog):
                 == (exp / "asr" / name).read_bytes()), name
 
 
-@pytest.mark.parametrize("flag", ["use_lm", "use_ngram"])
-def test_lm_and_ngram_are_refused_before_any_stage(flag, tmp_path):
+def test_ngram_is_refused_before_any_stage(tmp_path):
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        run.main(_args(tmp_path, [f"--recipe.{flag}", "true",
+        run.main(_args(tmp_path, ["--recipe.use_ngram", "true",
                                   "--device", "cpu"]))
     assert not (tmp_path / "data").exists()
     assert not (tmp_path / "exp").exists()
+
+
+def test_use_lm_runs_stage6_and_passes_the_lm_to_decoding(tmp_path,
+                                                          monkeypatch):
+    """Stage 6 runs `lm_train` and decoding gets `--lm_exp_dir`, as in the
+    JAX recipe (the commands are recorded here, not run)."""
+    from espnet_tpu_torch import recipe
+
+    calls = []
+    monkeypatch.setattr(recipe, "_run_cli",
+                        lambda module, args: calls.append((module, args)))
+    r = recipe.Recipe(recipe.RecipeConfig(
+        expdir=str(tmp_path / "exp"), datadir=str(tmp_path / "data"),
+        use_lm=True, lm_args="--model.num_layers 2",
+        decode_args="--lm_weight 0.3"), device="cpu")
+    r.stage6_lm()
+    r.stage10_decode()
+    (lm_mod, lm_args), (dec_mod, dec_args) = calls
+    assert lm_mod == "espnet_tpu_torch.bin.lm_train"
+    assert lm_args[lm_args.index("--run.output_dir") + 1] == str(
+        tmp_path / "exp" / "lm")
+    assert lm_args[lm_args.index("--data.token_list") + 1] == str(
+        tmp_path / "exp" / "tokens" / "tokens.txt")
+    assert "--model.num_layers" in lm_args and lm_args[-2:] == ["--device",
+                                                               "cpu"]
+    assert dec_mod == "espnet_tpu_torch.bin.asr_inference"
+    assert dec_args[dec_args.index("--lm_exp_dir") + 1] == str(
+        tmp_path / "exp" / "lm")
+    assert "--lm_weight" in dec_args
 
 
 @pytest.fixture(scope="module")
