@@ -159,11 +159,11 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    the kernel route's tokens equal to the plain route's and its encoder
    output within 1e-3, a float32 train step with kernels against plain,
    3 bf16 steps at B=64 x 15 s; (b) `configs.vgg_blstm_rnn` (v1
-   VGG-BLSTMP + AttLoc): the same serve, 3 bf16 steps at B=64 x 15 s;
+   VGG-BLSTMP + AttLoc): the same serve, 1 bf16 step at B=64 x 15 s;
    (c) the S4 decoder, sinc and multichannel (with and without DNN-WPE)
    frontends on the bench conformer at 2 layers (`configs.FAMILIES`):
    the same serve (the S4 decoder's `fused_ffn` 6 a decoder step, counted)
-   and one bf16 step at B=16 x 15 s; (d) `WindowStreamingASR` on the
+   and one bf16 step at B=16 x 15 s (the multichannel cases B=8); (d) `WindowStreamingASR` on the
    VGG-LSTM: one window equals the offline decode, then 0.512 s windows,
    timed; (e) `bin.asr_align` on synth_hard's 300 test utterances in a
    subprocess with its launch log, its `segments` equal to the plain
@@ -198,13 +198,40 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    launch logs, and `bin.asr_inference` on synth_hard's 300 test
    utterances without and with that LM (weight 0.3): WER and RTF of each,
    launches exact (`fused_ffn` 6 a call of the LM's score_step);
-14. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
+14. lm-fusion: the JAX-trained synth_hard conformer with LMs trained on
+   its training transcripts (`data/train/text`): `bin.ngram_train`
+   (3-gram) and `bin.lm_train` (a word RNN LM and a character RNN LM, 2 x
+   256, 3 epochs) with their held-out perplexities on the test
+   transcripts (`bin.lm_calc_perplexity`), then `bin.asr_inference` on
+   the first 100 test utterances (a fixed subset: the host searches) with
+   no LM, the n-gram, the look-ahead word LM, the multi-level LM, the
+   time-synchronous search and it with the n-gram (weights 0.3): WER, RTF
+   and LM score steps of each; float32 texts on the kernel route equal to
+   the plain route's, the n-gram decode's first 4 texts the ones the CPU
+   tests pin, launches exact;
+15. translation: flash attention forward at MT's training shape (B=64,
+   H=4, T=128 ragged 16-128, D=64) and the pre-norm FFN forward and
+   backward at its rows (M=64*128, F=2048, relu, 1.0) against their plain
+   versions in float32 and bf16; `mt_transformer` (the JAX `MTConfig`
+   defaults: a 6 x 256 token encoder, a 6 x 2048 decoder, vocab 5000 each
+   side) serving 16 sentences (beam 10, 64 steps) and
+   `st_conformer` (bench.py's conformer with the ST heads: a CTC head over
+   the source vocabulary, asr_weight 0.3, mtlalpha 1.0) serving the 4
+   requests (beam 10, 40 steps), each in float32 with the kernel route's
+   results equal to the plain route's, a float32 train step with kernels
+   against plain, 3 bf16 steps (MT at B=64 ragged pairs of 16-128 tokens;
+   ST at B=64 x 15 s, 40 target and 40 source labels), exact launches;
+   then in-process `bin.mt_train` / `bin.mt_inference`, `bin.st_train` /
+   `bin.st_inference` and `bin.slu_train` / `bin.slu_inference` on
+   synthetic corpora (and `slu_inference` on synth_hard's 100 utterances:
+   intent accuracy 1.0), each with its exact launches;
+16. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
    lattice pairs float32; launches from the 3 timed train steps of the
    configuration whose path holds the kernel: the conformer's, the
    transformer's for flash attention, the E-Branchformer's for
    `fused_ffn`, the two conv routes' for theirs, the transducer's for its
    lattice pair);
-15. last line: {"ok": true, "device": {...}}.
+17. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -261,6 +288,8 @@ TRAIN_GRAD_FLOOR = 1e-3
 # the bench's training geometry (bench.py): B utterances of 15 s, 40 labels
 TRAIN_BATCH, TRAIN_SECONDS, TRAIN_LABELS = 64, 15.0, 40
 TRAIN_TIMED_STEPS = 3
+# the ASR models' batch fields, in the order they take them
+BATCH_KEYS = ("speech", "speech_lengths", "text", "text_lengths")
 
 _T0 = time.perf_counter()
 
@@ -1078,15 +1107,21 @@ def serve_shapes(cfg, lengths):
 
 def build_model(cfg, options=None):
     """The port's model of `cfg`: the transducer for a TransducerConfig,
-    Mask-CTC, multi-encoder or multi-speaker ASR for theirs, else the joint
-    CTC/attention ASRModel."""
+    Mask-CTC, multi-encoder or multi-speaker ASR, MT or ST for theirs, else
+    the joint CTC/attention ASRModel."""
     from espnet_tpu_torch.models.asr import ASRModel
     from espnet_tpu_torch.models.asr_mix import ASRMixConfig, ASRMixModel
     from espnet_tpu_torch.models.maskctc import MaskCTCConfig, MaskCTCModel
+    from espnet_tpu_torch.models.mt import MTConfig, MTModel
     from espnet_tpu_torch.models.mulenc import ASRMulEncModel, MulEncConfig
+    from espnet_tpu_torch.models.st import STConfig, STModel
     from espnet_tpu_torch.models.transducer import (TransducerASRModel,
                                                     TransducerConfig)
 
+    if isinstance(cfg, MTConfig):
+        return MTModel(cfg)
+    if isinstance(cfg, STConfig):
+        return STModel(cfg)
     if isinstance(cfg, TransducerConfig):
         return TransducerASRModel(cfg, options)
     if isinstance(cfg, MaskCTCConfig):
@@ -1205,24 +1240,25 @@ def train_batch(np, b, seconds, u, vocab, seed):
 
 
 def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity",
-                       options=None, batch=None):
+                       options=None, batch=None, keys=BATCH_KEYS):
     """One float32 forward and backward of the full-width model with the
     kernels and with their plain versions (dropout and SpecAug off), on
-    the requests' waveforms with random labels or on `batch`."""
+    the requests' waveforms with random labels or on `batch` (the model
+    takes its fields `keys`)."""
     import dataclasses
 
     from espnet_tpu_torch.models.asr import init_random_
 
+    off = {"use_specaug": False} if hasattr(cfg, "use_specaug") else {}
     cfg = dataclasses.replace(cfg, dtype=torch.float32, dropout_rate=0.0,
-                              use_specaug=False)
+                              **off)
     model = init_random_(build_model(cfg, options),
                          torch.Generator().manual_seed(1))
     model = model.to(device).train()
     if batch is None:
         batch = train_batch(np, len(REQUEST_SECONDS), REQUEST_SECONDS, 20,
                             cfg.vocab_size, 2)
-    args = [torch.from_numpy(batch[k]).to(device) for k in
-            ("speech", "speech_lengths", "text", "text_lengths")]
+    args = [torch.from_numpy(batch[k]).to(device) for k in keys]
     names = [n for n, _ in model.named_parameters()]
     results = {}
     for use in (True, False):
@@ -1261,11 +1297,12 @@ def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity",
 def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
                 seconds=TRAIN_SECONDS, labels=TRAIN_LABELS,
                 steps=TRAIN_TIMED_STEPS, tag="train", options=None,
-                batch=None, need_stats=()):
+                batch=None, need_stats=(), keys=BATCH_KEYS):
     """The bench's training run through make_train_step: 1 warm-up step,
     then `steps` timed steps. `batch` replaces the bench's waveforms (e.g.
-    features); every step's stats must carry the keys `need_stats`. Returns
-    the launch counts of the timed steps, the seconds a step and the peak
+    features; the model takes its fields `keys`); every step's stats must
+    carry the keys `need_stats`. Returns the launch counts of the timed
+    steps, the seconds a step and the peak
     device memory in GiB. (device="cpu" with a small config rehearses the
     phase where there is no card: the wrappers then take their plain
     versions.)"""
@@ -1278,7 +1315,7 @@ def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
                          torch.Generator().manual_seed(0))
     tx = build_optimizer("fused_adam", lr=2e-3, schedule="warmuplr",
                          warmup_steps=25000, d_model=cfg.d_model)
-    step = make_train_step(model, tx, device=device)
+    step = make_train_step(model, tx, device=device, batch_keys=keys)
     state = TrainState.create(model, tx)
     if batch is None:
         batch = train_batch(np, batch_size, [seconds] * batch_size, labels,
@@ -1287,7 +1324,7 @@ def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
     gen = torch.Generator().manual_seed(0)
     log(tag, f"{sum(p.numel() for p in model.parameters())} parameters, "
         f"compute {cfg.dtype}, dropout {cfg.dropout_rate}, SpecAug "
-        f"{cfg.use_specaug}, B={batch_size} x {seconds} s, U={labels}; "
+        f"{getattr(cfg, 'use_specaug', False)}, B={batch_size} x {seconds} s, U={labels}; "
         f"set-up {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     state, stats = step(state, batch, gen)
@@ -2960,6 +2997,8 @@ def phase_transducer(torch, np, smi):
 # and CTC forced alignment
 FAMILY_LAYERS = 2
 FAMILY_BATCH = 16  # the 2-layer cases' B (x 15 s)
+MULTICHANNEL_BATCH = 8  # the multichannel cases' (3.5-5.9 s a step at 16)
+VGG_TIMED_STEPS = 1  # vgg_blstm_rnn's timed steps (2.0-2.7 s each)
 FAMILY_SCORE_RTOL = 1e-4
 FFN_PAIR = ("fused_ffn", "fused_ffn_bwd")
 
@@ -3170,9 +3209,10 @@ def family_align(torch, np, smi, device="cuda"):
 def phase_asr_families(torch, np, smi):
     """(a) the longformer at full width: serve, a float32 step with
     kernels against plain, 3 bf16 steps at B=64 x 15 s; (b) vgg_blstm_rnn:
-    serve and 3 bf16 steps at B=64; (c) the S4 decoder, sinc and
+    serve and 1 bf16 step at B=64; (c) the S4 decoder, sinc and
     multichannel (with and without WPE) models at 2 layers: serve and one
-    bf16 step at B=16; (d) v1 window streaming; (e) bin.asr_align."""
+    bf16 step at B=16 (multichannel B=8); (d) v1 window streaming; (e)
+    bin.asr_align."""
     from espnet_tpu_torch.configs import (FAMILIES, bench_config,
                                           longformer_conformer,
                                           vgg_blstm_rnn)
@@ -3189,7 +3229,7 @@ def phase_asr_families(torch, np, smi):
     family_serve(torch, np, "vgg_blstm_rnn", vgg_blstm_rnn(torch.float32),
                  {}, {}, smi)
     family_train(torch, np, "vgg_blstm_rnn", vgg_blstm_rnn(torch.bfloat16),
-                 CTC, TRAIN_BATCH, TRAIN_TIMED_STEPS, smi, parity=False)
+                 CTC, TRAIN_BATCH, VGG_TIMED_STEPS, smi, parity=False)
     # (c) the 2-layer conformer cases
     n = FAMILY_LAYERS
     conformer = ({"relpos_attention": n, "prenorm_ffn": 2 * n},
@@ -3202,7 +3242,9 @@ def phase_asr_families(torch, np, smi):
             per_step = {"fused_ffn": cfg.num_decoder_layers}
             train_step.update({k: cfg.num_decoder_layers for k in FFN_PAIR})
         family_serve(torch, np, name, cfg, conformer[0], per_step, smi)
-        family_train(torch, np, name, cfg, train_step, FAMILY_BATCH, 1, smi,
+        batch = (MULTICHANNEL_BATCH if cfg.num_channels > 1
+                 else FAMILY_BATCH)
+        family_train(torch, np, name, cfg, train_step, batch, 1, smi,
                      parity=False)
     family_window(torch, np, smi,
                   vgg_blstm_rnn(torch.float32, encoder_type="vgg_lstm"))
@@ -3268,13 +3310,16 @@ def multi_train_batch(np, kind, b, seconds, u, vocab, seed):
 
 
 def multi_serve(torch, np, name, cfg, run, encode, per_encode, per_call,
-                counted, smi, device="cuda"):
+                counted, smi, device="cuda", phase="asr-multi",
+                audio=None):
     """Serve the case's 4 requests in float32 through `run(model)` (a list
     of comparable results: token ids, or (ids, score)); the launches exact
     (one encode, `per_call` for each call of the model's `counted` method);
     the kernel route's results equal to the plain route's (scores within
     MULTI_SCORE_RTOL) and `encode(model)` ((out, valid)) within
-    ENCODER_FP32_TOL. Returns the wall seconds."""
+    ENCODER_FP32_TOL; `phase` tags the lines, `audio` is the seconds of
+    audio served (the requests' by default; 0: text). Returns the wall
+    seconds."""
     import dataclasses
 
     from espnet_tpu_torch.models.asr import init_random_
@@ -3325,13 +3370,13 @@ def multi_serve(torch, np, name, cfg, run, encode, per_encode, per_call,
             worst = max(worst, abs(g[1] - p[1]) / max(1.0, abs(p[1])))
         else:
             same &= g == p
-    audio = float(sum(REQUEST_SECONDS))
-    log("asr-multi", f"{name} serve float32: wall {wall:.3f}s, RTF "
-        f"{wall / audio:.5f} [{smi}]; results equal to the plain route's "
-        f"{same}, worst relative score dev {worst:.2e} (limit "
+    audio = float(sum(REQUEST_SECONDS)) if audio is None else audio
+    rtf = f"RTF {wall / audio:.5f}" if audio else "text input"
+    log(phase, f"{name} serve float32: wall {wall:.3f}s, {rtf} [{smi}]; "
+        f"results equal to the plain route's {same}, worst relative score dev {worst:.2e} (limit "
         f"{MULTI_SCORE_RTOL}); encoder output kernels vs plain max |dev| "
-        f"{dev:.3e} (limit {ENCODER_FP32_TOL}); {len(calls)} {counted} "
-        f"calls; launches exact {({k: v for k, v in counts.items() if v})}")
+        f"{dev:.3e} (limit {ENCODER_FP32_TOL}); "
+        f"{f'{len(calls)} {counted} calls; ' if counted else ''}launches exact {({k: v for k, v in counts.items() if v})}")
     if not same or worst > MULTI_SCORE_RTOL or dev > ENCODER_FP32_TOL:
         raise AssertionError(f"{name}: the kernel route's serve differs from "
                              "the plain route's")
@@ -3849,6 +3894,584 @@ def phase_asr_multi(torch, np, smi):
     log("asr-multi", f"phase {time.perf_counter() - t0:.1f}s")
 
 
+# the lm-fusion phase: the JAX-trained synth_hard conformer decoded with the
+# n-gram, the word LMs and the time-synchronous search; every LM trained on
+# its training transcripts (data/train/text), perplexities held out on its
+# test transcripts
+FUSION_SUBSET = 100  # the first 100 sorted test utterances: the host search
+# of every case and both routes stay within the phase's budget
+FUSION_PINNED = 4  # the first 4: tests/test_torch_ngram.py pins their
+# n-gram texts (the reference transcripts) on the CPU
+FUSION_WEIGHT = 0.3  # the n-gram's and the word LM's fusion weight
+NGRAM_ORDER = 3
+FUSION_LM_ARGS = ("--run.max_epoch 3 --run.log_interval 1000 "
+                  "--model.lm_type rnn --model.d_model 256 "
+                  "--model.num_layers 2 --model.dropout_rate 0.0 "
+                  "--optim.schedule constant --optim.lr 0.002 "
+                  "--data.batch_size 32")
+FUSION_CASES = {  # case: asr_inference flags ({ngram}, {wlm}, {clm})
+    "label_sync": "",
+    "ngram": "--ngram_file {ngram} --ngram_weight 0.3",
+    "lookahead": "--word_lm_exp_dir {wlm} --lm_weight 0.3",
+    "multilevel": "--word_lm_exp_dir {wlm} --lm_exp_dir {clm} "
+                  "--lm_weight 0.3",
+    "timesync": "--search timesync",
+    "timesync_ngram": "--search timesync --ngram_file {ngram} "
+                      "--ngram_weight 0.3",
+}
+FUSED = ("ngram", "lookahead", "multilevel", "timesync_ngram")
+
+
+def fusion_decode(ws, case, argv, plain, want, device="cuda"):
+    """bin.asr_inference with `argv`, on the kernel route or the plain one
+    (the model's kernels switched off once it is loaded): (texts, the WER
+    line, the RTF line, the LM score steps: calls of the search's combined
+    scorer, or of the n-gram's prefix scorer in the time-synchronous
+    search); the launches must be `want` (none on the plain route)."""
+    from espnet_tpu_torch.bin import asr_inference
+    from espnet_tpu_torch.decode import asr_inference as s2t_module
+    from espnet_tpu_torch.lm.ngram import DenseNgramScorer
+
+    steps = []
+    load = asr_inference.load_experiment
+    combine = s2t_module.combine_scorers
+    prefix_scorer = DenseNgramScorer.prefix_scorer
+
+    def plain_load(*a, **k):
+        out = load(*a, **k)
+        out[0].set_use_kernels(False)
+        return out
+
+    def counting_combine(*a, **k):
+        fn, cache = combine(*a, **k)
+        if fn is None:
+            return fn, cache
+
+        def counted(*x):
+            steps.append(1)
+            return fn(*x)
+
+        return counted, cache
+
+    def counting_prefix_scorer(self):
+        lm_score = prefix_scorer(self)
+
+        def counted(*a):
+            steps.append(1)
+            return lm_score(*a)
+
+        return counted
+
+    route = "plain" if plain else "kernels"
+    out = ws / f"decode_{case}_{route}"
+    if plain:
+        asr_inference.load_experiment = plain_load
+    s2t_module.combine_scorers = counting_combine
+    DenseNgramScorer.prefix_scorer = counting_prefix_scorer
+    wrappers = reset_counts()
+    try:
+        hyps = asr_inference.main(argv + ["--output_dir", str(out),
+                                          "--device", device])
+    finally:
+        asr_inference.load_experiment = load
+        s2t_module.combine_scorers = combine
+        DenseNgramScorer.prefix_scorer = prefix_scorer
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    check_launches(f"lm-fusion {case} {route}", counts,
+                   expected_counts({}, 0) if plain or device != "cuda"
+                   else want)
+    return (hyps, (out / "score_wer.txt").read_text().splitlines()[0],
+            (out / "rtf.txt").read_text().strip(), len(steps))
+
+
+def ngram_perplexity(np, arpa, tokenizer, texts):
+    """Per-token perplexity of the n-gram on `texts` (</s> counted)."""
+    from espnet_tpu_torch.lm.ngram import NgramModel
+
+    model = NgramModel.load_arpa(arpa)
+    logp, n = 0.0, 0
+    for text in texts:
+        toks = tokenizer.text2tokens(text)
+        logp += model.sentence_logp(toks)
+        n += len(toks) + 1
+    return float(10.0 ** (-logp / n))
+
+
+def phase_lm_fusion(torch, np, smi, device="cuda", lm_args=FUSION_LM_ARGS,
+                    subset=FUSION_SUBSET):
+    """The n-gram, the word LMs and the time-synchronous search on the
+    JAX-trained synth_hard conformer: `bin.ngram_train` (3-gram) and
+    `bin.lm_train` (a word RNN LM, a character RNN LM) on its training
+    transcripts with their held-out perplexities on the test transcripts,
+    then `bin.asr_inference` on the first `subset` test utterances in
+    each FUSION_CASES case (beam 5, CTC 0.3, 60 steps, weights 0.3), on
+    the kernel route and, but for the unfused label-synchronous baseline,
+    on the plain route: float32 texts equal on both routes, the n-gram's
+    pinned texts the reference transcripts, launches exact; WER, RTF and
+    LM score steps printed. (device="cpu" with smaller `lm_args` and
+    `subset` rehearses the phase without a card.)"""
+    import shlex
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from espnet_tpu_torch.bin import lm_calc_perplexity, lm_train, ngram_train
+    from espnet_tpu_torch.data.fileio import (read_2column_text,
+                                              write_2column_text)
+    from espnet_tpu_torch.tasks.asr import ASRTask
+
+    t0 = time.perf_counter()
+    train = f"{SYNTH}/data/train"
+    if not Path(train, "text").exists():
+        raise FileNotFoundError(f"lm-fusion: the checkout lacks {train}/text")
+    ws = Path(tempfile.mkdtemp(prefix="chip_smoke_fusion_"))
+    try:
+        keys = sorted(read_2column_text(f"{SYNTH}/data/test/wav.scp"))[
+            :subset]
+        for f in ("wav.scp", "text"):
+            rows = read_2column_text(f"{SYNTH}/data/test/{f}")
+            write_2column_text(ws / "test" / f, {k: rows[k] for k in keys})
+        arpa = ws / f"{NGRAM_ORDER}gram.arpa"
+        t = time.perf_counter()
+        ngram_train.main(["--data_dir", train, "--exp_dir", SYNTH_EXP,
+                          "--output", str(arpa), "--order",
+                          str(NGRAM_ORDER)])
+        cfg = ASRTask.load_config(SYNTH_EXP)
+        tok = ASRTask.build_tokenizer(cfg["data"], Path(SYNTH_EXP))
+        held_out = list(read_2column_text(f"{SYNTH}/data/test/text")
+                        .values())
+        ppl = {"ngram": ngram_perplexity(np, arpa, tok, held_out)}
+        log("lm-fusion", f"bin.ngram_train {NGRAM_ORDER}-gram on "
+            f"{train}/text: {time.perf_counter() - t:.1f}s, held-out "
+            f"perplexity {ppl['ngram']:.4f} a character token")
+        for name, extra in (("word", ["--data.token_type", "word"]),
+                            ("char", ["--data.token_list",
+                                      f"{SYNTH}/exp/tokens/tokens.txt"])):
+            wrappers = reset_counts()
+            t = time.perf_counter()
+            _, trainer, _, _, conv = lm_train.main(
+                shlex.split(lm_args) + extra + [
+                    "--data.train_dir", train, "--run.output_dir",
+                    str(ws / f"{name}_lm"), "--device", device])
+            wall = time.perf_counter() - t
+            check_launches(f"lm-fusion {name} lm_train",
+                           {k: fn.launches for k, fn in wrappers.items()},
+                           expected_counts({}, 0))
+            ppl[name] = lm_calc_perplexity.main([
+                "--exp_dir", str(ws / f"{name}_lm"), "--data_dir",
+                f"{SYNTH}/data/test", "--output_dir",
+                str(ws / f"{name}_ppl"), "--device", device])
+            losses = [round(trainer.reporter.epochs[e]["train"]["loss"], 4)
+                      for e in sorted(trainer.reporter.epochs)]
+            log("lm-fusion", f"bin.lm_train {name} RNN LM ({len(conv)} "
+                f"tokens) on {train}/text: {wall:.1f}s, train "
+                f"loss by epoch {losses}; held-out perplexity "
+                f"{ppl[name]:.4f} (bin.lm_calc_perplexity on the test "
+                f"transcripts) [{smi}]")
+        ds = ASRTask.build_dataset(cfg["data"], ws / "test", tok,
+                                   ASRTask.build_token_list(
+                                       cfg["data"], Path(SYNTH_EXP), tok),
+                                   train=False)
+        layers = cfg["model"].num_encoder_layers
+        want = expected_counts({"relpos_attention": layers,
+                                "prenorm_ffn": 2 * layers},
+                               len(cli_batches(ds, cfg["data"], 30)))
+        base = ["--exp_dir", SYNTH_EXP, "--params", SYNTH_PARAMS,
+                "--data_dir", str(ws / "test"), *SYNTH_DECODE]
+        refs = read_2column_text(f"{SYNTH}/exp/decode_test/text")
+        paths = {"ngram": arpa, "wlm": ws / "word_lm", "clm": ws / "char_lm"}
+        for case, flags in FUSION_CASES.items():
+            argv = base + shlex.split(flags.format(**paths))
+            hyps, wer, rtf, steps = fusion_decode(ws, case, argv, False,
+                                                  want, device)
+            same = "kernel route only"
+            if case != "label_sync":
+                plain = fusion_decode(ws, case, argv, True, want,
+                                      device)[0]
+                if plain != hyps:
+                    bad = [k for k in hyps if plain.get(k) != hyps[k]]
+                    raise AssertionError(
+                        f"lm-fusion {case}: float32 texts on the kernel "
+                        f"route differ from the plain route's on {bad[:3]}")
+                same = "texts equal on both routes"
+            if (steps > 0) != (case in FUSED):
+                raise AssertionError(f"lm-fusion {case}: {steps} LM steps")
+            if case == "ngram":
+                pinned = keys[:FUSION_PINNED]
+                if [hyps[k] for k in pinned] != [refs[k] for k in pinned]:
+                    raise AssertionError(
+                        "lm-fusion ngram: the pinned texts differ from the "
+                        "CPU port's")
+            shown = flags.format(ngram=arpa.name, wlm="word_lm",
+                                 clm="char_lm")
+            log("lm-fusion", f"{case} ({shown or 'no LM'}) on "
+                f"{len(hyps)} utterances: {wer}; {rtf}; {steps} LM score "
+                f"steps; {same}; launches exact [{smi}]")
+        log("lm-fusion", f"phase {time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+
+
+# the translation phase: MT, ST and SLU at the JAX configs' widths
+# (configs.mt_transformer, st_conformer; random weights from a seed)
+MT_SENTENCES, MT_BEAM, MT_STEPS = 16, 10, 64
+MT_BATCH, MT_MIN_TOKENS, MT_MAX_TOKENS = 64, 16, 128
+MT_LAYERS, ST_LAYERS = 6, 12
+ST_BEAM, ST_STEPS = 10, 40
+MT_BATCH_KEYS = ("src_text", "src_text_lengths", "text", "text_lengths")
+ST_BATCH_KEYS = BATCH_KEYS + ("src_text", "src_text_lengths")
+TRANSLATION_CLI_ARGS = ("--run.max_epoch 2 --run.log_interval 1000 "
+                        "--run.best_metric valid.loss.min "
+                        "--optim.schedule constant --optim.lr 0.001")
+MT_PER_ENCODE = {"flash_attention": MT_LAYERS, "prenorm_ffn": MT_LAYERS}
+MT_PER_STEP = {**MT_PER_ENCODE, "prenorm_ffn_bwd": MT_LAYERS}
+ST_PER_ENCODE = {"relpos_attention": ST_LAYERS,
+                 "prenorm_ffn": 2 * ST_LAYERS}
+ST_PER_STEP = {**ST_PER_ENCODE, "relpos_attention_bwd": ST_LAYERS,
+               "prenorm_ffn_bwd": 2 * ST_LAYERS, "ctc_alphas": 1,
+               "ctc_gamma": 1}
+
+
+def mt_batch(np, b, vocab, seed, src_vocab=None):
+    """Seeded ragged sentence pairs: source and target lengths uniform in
+    [MT_MIN_TOKENS, MT_MAX_TOKENS] (the first pair at the maximum)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for field, v in (("src_text", src_vocab or vocab), ("text", vocab)):
+        lens = rng.randint(MT_MIN_TOKENS, MT_MAX_TOKENS + 1, b)
+        lens[0] = MT_MAX_TOKENS
+        ids = rng.randint(1, v - 1, (b, MT_MAX_TOKENS))
+        ids[np.arange(MT_MAX_TOKENS)[None, :] >= lens[:, None]] = 0
+        out[field] = ids.astype(np.int32)
+        out[field + "_lengths"] = lens.astype(np.int32)
+    return out
+
+
+def st_batch(np, b, seconds, u, vocab, src_vocab, seed):
+    """train_batch's waveforms and labels with `u` source labels."""
+    batch = train_batch(np, b, seconds, u, vocab, seed)
+    rng = np.random.RandomState(seed + 1)
+    batch["src_text"] = rng.randint(1, src_vocab - 1, (b, u)).astype(
+        np.int32)
+    batch["src_text_lengths"] = np.full((b,), u, np.int32)
+    return batch
+
+
+def translation_kernels(torch, np):
+    """Flash attention forward at the MT encoder's training shape (B=64,
+    H=4, T_src=128, D=64, ragged lengths 16-128) and the pre-norm FFN
+    forward and backward at its rows (M=64*128, D=256, F=2048, relu,
+    residual 1.0, dropout 0.1), float32 and bf16, against their plain
+    versions."""
+    from espnet_tpu_torch.configs import mt_transformer
+    from espnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_plain)
+
+    lengths = mt_batch(np, MT_BATCH, 100, 3)["src_text_lengths"].tolist()
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        args, flops, nbytes, _ = flash_case(torch, MT_BATCH, MT_MAX_TOKENS,
+                                            dtype, lengths, 31)
+        with torch.no_grad():
+            check_kernel(torch, "flash_attention", flash_attention,
+                         flash_attention_plain, args, flops, nbytes, dn,
+                         f"mt encoder B={MT_BATCH} H=4 T={MT_MAX_TOKENS} "
+                         f"D=64 ragged {min(lengths)}-{max(lengths)}",
+                         iters=10)
+    check_ffn_rows(torch, mt_transformer(torch.bfloat16),
+                   MT_BATCH * MT_MAX_TOKENS,
+                   f"mt encoder M={MT_BATCH}x{MT_MAX_TOKENS}", "relu", 1.0)
+
+
+def translation_mt(torch, np, smi, device="cuda", cfg=None):
+    """mt_transformer: 16 sentences served (beam 10, 64 steps) in float32
+    with the kernel route against the plain route; a float32 train step
+    with kernels against plain; 1 + 3 bf16 steps at B=64 ragged pairs.
+    (device="cpu" with a small `cfg` rehearses it without a card.)"""
+    from espnet_tpu_torch.configs import mt_transformer
+    from espnet_tpu_torch.decode.asr_inference import Speech2Text
+
+    cfg = cfg or mt_transformer(torch.bfloat16)
+    on_card = device == "cuda"
+    serve = mt_batch(np, MT_SENTENCES, cfg.vocab_size, 5,
+                     cfg.src_vocab_size)
+    src = torch.from_numpy(serve["src_text"]).to(device)
+    slen = torch.from_numpy(serve["src_text_lengths"]).to(device)
+
+    def run(model):
+        yseq, ylen, score = Speech2Text(
+            model, device=device, beam_size=MT_BEAM, ctc_weight=0.0,
+            max_steps=MT_STEPS).decode_batch(src, slen)
+        return [(yseq[i, 0, :ylen[i, 0]].tolist(), float(score[i, 0]))
+                for i in range(yseq.shape[0])]
+
+    def encode(model):
+        enc, olens = model.encode(src, slen)
+        valid = torch.arange(enc.shape[1], device=enc.device)[None] < \
+            olens[:, None]
+        return enc, valid[..., None]
+
+    multi_serve(torch, np, "mt_transformer", cfg, run, encode,
+                MT_PER_ENCODE, {}, None, smi, device=device,
+                phase="translation", audio=0)
+    pb = mt_batch(np, 4, cfg.vocab_size, 6, cfg.src_vocab_size)
+    phase_train_parity(torch, np, cfg, device=device,
+                       tag="train-parity[mt_transformer]", batch=pb,
+                       keys=MT_BATCH_KEYS)
+    batch = mt_batch(np, MT_BATCH, cfg.vocab_size, 0, cfg.src_vocab_size)
+    launches, step_s, peak = phase_train(
+        torch, np, cfg, device=device, batch_size=MT_BATCH, seconds=0.0,
+        labels=MT_MAX_TOKENS, tag="train[mt_transformer]", batch=batch,
+        need_stats=("loss", "acc"), keys=MT_BATCH_KEYS)
+    check_case_launches("mt_transformer", f"{TRAIN_TIMED_STEPS} train "
+                        "steps", launches, MT_PER_STEP if on_card else {},
+                        TRAIN_TIMED_STEPS)
+    tokens = int(batch["src_text_lengths"].sum()
+                 + batch["text_lengths"].sum()) + MT_BATCH
+    log("translation", f"mt_transformer train bf16 B={MT_BATCH} pairs of "
+        f"{MT_MIN_TOKENS}-{MT_MAX_TOKENS} tokens: {step_s * 1e3:.1f} "
+        f"ms/step, {tokens / step_s:.0f} tokens/s, peak {peak:.2f} GiB "
+        f"[{smi}]; launches exact")
+
+
+def translation_st(torch, np, smi, device="cuda", cfg=None):
+    """st_conformer: the 4 requests served (beam 10, 40 steps, CTC weight
+    0) in float32, the kernel route against the plain route; a float32
+    train step with kernels against plain; 3 bf16 steps at B=64 x 15 s
+    with 40 target and 40 source labels. (device="cpu" with a small `cfg`
+    rehearses it without a card.)"""
+    from espnet_tpu_torch.configs import st_conformer
+    from espnet_tpu_torch.decode.asr_inference import Speech2Text
+
+    cfg = cfg or st_conformer(torch.bfloat16)
+    on_card = device == "cuda"
+    speech, lengths = requests(np)
+    sp = torch.from_numpy(speech).to(device)
+    ln = torch.from_numpy(lengths).to(device)
+
+    def run(model):
+        yseq, ylen, score = Speech2Text(
+            model, device=device, beam_size=ST_BEAM, ctc_weight=0.0,
+            max_steps=ST_STEPS).decode_batch(sp, ln)
+        return [(yseq[i, 0, :ylen[i, 0]].tolist(), float(score[i, 0]))
+                for i in range(yseq.shape[0])]
+
+    def encode(model):
+        enc, olens = model.encode(sp, ln)
+        valid = torch.arange(enc.shape[1], device=enc.device)[None] < \
+            olens[:, None]
+        return enc, valid[..., None]
+
+    multi_serve(torch, np, "st_conformer", cfg, run, encode, ST_PER_ENCODE,
+                {}, None, smi, device=device, phase="translation")
+    pb = st_batch(np, len(REQUEST_SECONDS), REQUEST_SECONDS, 20,
+                  cfg.vocab_size, cfg.src_vocab_size, 2)
+    phase_train_parity(torch, np, cfg, device=device,
+                       tag="train-parity[st_conformer]", batch=pb,
+                       keys=ST_BATCH_KEYS)
+    batch = st_batch(np, TRAIN_BATCH, [TRAIN_SECONDS] * TRAIN_BATCH,
+                     TRAIN_LABELS, cfg.vocab_size, cfg.src_vocab_size, 0)
+    launches, step_s, peak = phase_train(
+        torch, np, cfg, device=device, batch_size=TRAIN_BATCH,
+        seconds=TRAIN_SECONDS, labels=TRAIN_LABELS,
+        tag="train[st_conformer]", batch=batch,
+        need_stats=("loss_st", "loss_asr_ctc", "acc"), keys=ST_BATCH_KEYS)
+    check_case_launches("st_conformer", f"{TRAIN_TIMED_STEPS} train steps",
+                        launches, ST_PER_STEP if on_card else {},
+                        TRAIN_TIMED_STEPS)
+    log("translation", f"st_conformer train bf16 B={TRAIN_BATCH} x "
+        f"{TRAIN_SECONDS} s, {TRAIN_LABELS} target and source labels: "
+        f"{step_s * 1e3:.1f} ms/step, "
+        f"{TRAIN_BATCH * TRAIN_SECONDS / step_s:.1f} audio-s/s, peak "
+        f"{peak:.2f} GiB [{smi}]; launches exact")
+
+
+def counted_call(fn, argv):
+    """fn(argv) with the launch counters set to 0 first: (its result, the
+    counts, the wall seconds)."""
+    wrappers = reset_counts()
+    t = time.perf_counter()
+    out = fn(argv)
+    return (out, {k: w.launches for k, w in wrappers.items()},
+            time.perf_counter() - t)
+
+
+def translation_clis(torch, np, smi, device="cuda", model_args=()):
+    """Both CLIs of MT, ST and SLU in-process on synthetic corpora at the
+    CLIs' default widths: `mt_train` (2 epochs) then `mt_inference`;
+    `st_train` (2 epochs, utterance MVN) then `st_inference`; `slu_train`
+    (1 epoch, transcripts led by an intent word) then `slu_inference` on
+    its data and on synth_hard's FUSION_SUBSET test utterances, where the
+    intent accuracy must be 1.0. Each with its exact launches.
+    (device="cpu" with `model_args`, flags that shrink the MT, ST and SLU
+    models, rehearses it without a card.)"""
+    import shlex
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from espnet_tpu_torch.bin import (mt_inference, mt_train, slu_inference,
+                                      slu_train, st_inference, st_train)
+    from espnet_tpu_torch.data.fileio import (read_2column_text,
+                                              write_2column_text)
+    from espnet_tpu_torch.data.synth import (generate_corpus,
+                                             generate_mt_corpus,
+                                             generate_st_corpus)
+    from espnet_tpu_torch.data.tokenizer import TokenIDConverter
+    from espnet_tpu_torch.tasks.asr import ASRTask
+    from espnet_tpu_torch.tasks.mt import MTDataset, MTTask
+    from espnet_tpu_torch.tasks.st import STTask
+
+    ws = Path(tempfile.mkdtemp(prefix="chip_smoke_translation_"))
+    common = shlex.split(TRANSLATION_CLI_ARGS) + list(model_args)
+    dev = ["--device", device]
+
+    def per_batches(*parts):
+        """The launches of (per-call counts, calls) parts, summed (none
+        off the card)."""
+        want = expected_counts({}, 0)
+        for per, n in parts:
+            for k, v in per.items():
+                want[k] += v * n if device == "cuda" else 0
+        return want
+
+    try:
+        # MT: 256 + 32 sentence pairs (the target the source reversed)
+        generate_mt_corpus(ws / "mt_train", n_utts=256, max_words=6, seed=0)
+        generate_mt_corpus(ws / "mt_valid", n_utts=32, max_words=6, seed=1)
+        exp = ws / "mt_exp"
+        (_, trainer, _, tok, conv), counts, wall = counted_call(
+            mt_train.main, common + [
+                "--data.train_dir", str(ws / "mt_train"),
+                "--data.valid_dir", str(ws / "mt_valid"),
+                "--run.output_dir", str(exp), *dev])
+        data = MTTask.load_config(exp)["data"]
+        src_conv = TokenIDConverter.from_file(exp / "src_tokens.txt")
+        n_train, n_valid = (len(MTTask.make_batches(
+            MTDataset(ws / d, tok, conv, src_conv), data))
+            for d in ("mt_train", "mt_valid"))
+        epochs = len(trainer.epoch_seconds)
+        check_launches("mt_train", counts, per_batches(
+            (MT_PER_STEP, epochs * n_train),
+            (MT_PER_ENCODE, epochs * n_valid)))
+        log("translation", f"bin.mt_train: {epochs} epochs of {n_train} "
+            f"batches + {n_valid} validation, {wall:.1f}s; launches exact")
+        _, counts, wall = counted_call(mt_inference.main, [
+            "--exp_dir", str(exp), "--data_dir", str(ws / "mt_valid"),
+            "--output_dir", str(ws / "mt_dec"), *dev])
+        n_dec = -(-32 // 16)
+        check_launches("mt_inference", counts,
+                       per_batches((MT_PER_ENCODE, n_dec)))
+        log("translation", f"bin.mt_inference (beam 10, 64 steps) on 32 "
+            f"sentences: {wall:.1f}s, "
+            f"{(ws / 'mt_dec' / 'score_wer.txt').read_text().strip()}; "
+            f"launches exact [{smi}]")
+
+        # ST: 32 + 8 utterances (the translation the transcript reversed)
+        generate_st_corpus(ws / "st_train", n_utts=32, max_words=4, seed=0)
+        generate_st_corpus(ws / "st_valid", n_utts=8, max_words=4, seed=1)
+        exp = ws / "st_exp"
+        (_, trainer, _, tok, conv), counts, wall = counted_call(
+            st_train.main, common + [
+                "--data.train_dir", str(ws / "st_train"),
+                "--data.valid_dir", str(ws / "st_valid"),
+                "--data.batch_size", "8", "--model.normalize",
+                "utterance_mvn", "--run.output_dir", str(exp), *dev])
+        data = STTask.load_config(exp)["data"]
+        src_conv = STTask.src_token_list(exp)
+        n_train, n_valid = (len(STTask.make_batches(STTask.build_st_dataset(
+            data, ws / d, tok, conv, src_conv), data))
+            for d in ("st_train", "st_valid"))
+        epochs = len(trainer.epoch_seconds)
+        eval_step = {**ST_PER_ENCODE, "ctc_alphas": 1}
+        check_launches("st_train", counts, per_batches(
+            (ST_PER_STEP, epochs * n_train), (eval_step, epochs * n_valid)))
+        log("translation", f"bin.st_train: {epochs} epochs of {n_train} "
+            f"batches + {n_valid} validation, {wall:.1f}s; launches exact")
+        _, counts, wall = counted_call(st_inference.main, [
+            "--exp_dir", str(exp), "--data_dir", str(ws / "st_valid"),
+            "--output_dir", str(ws / "st_dec"), "--max_steps",
+            str(ST_STEPS), *dev])
+        ds = STTask.build_dataset(data, ws / "st_valid", tok, conv,
+                                  train=False)
+        check_launches("st_inference", counts, per_batches(
+            (ST_PER_ENCODE, len(cli_batches(ds, data, 8)))))
+        log("translation", f"bin.st_inference (beam 10, {ST_STEPS} steps) "
+            f"on 8 utterances: {wall:.1f}s, "
+            f"{(ws / 'st_dec' / 'score_wer.txt').read_text().strip()}; "
+            f"{(ws / 'st_dec' / 'rtf.txt').read_text().strip()}; launches "
+            f"exact [{smi}]")
+
+        # SLU: 16 utterances whose transcripts start with "play" or "stop"
+        generate_corpus(ws / "slu", n_utts=16, seed=2)
+        texts = read_2column_text(ws / "slu" / "text")
+        write_2column_text(ws / "slu" / "text", {
+            k: f"{'play' if i % 2 else 'stop'} {v}"
+            for i, (k, v) in enumerate(texts.items())})
+        exp = ws / "slu_exp"
+        (_, trainer, _, tok, conv), counts, wall = counted_call(
+            slu_train.main, [
+                "--run.max_epoch", "1", "--run.log_interval", "1000",
+                "--run.best_metric", "train.loss.min", "--data.batch_size",
+                "8", "--data.train_dir", str(ws / "slu"),
+                "--run.output_dir", str(exp), *list(model_args), *dev])
+        data = ASRTask.load_config(exp)["data"]
+        ds = ASRTask.build_dataset(data, ws / "slu", tok, conv)
+        batches = cli_batches(ds, data, data.batch_size)
+        want, _ = cli_expected(batches, [], 1, L)
+        check_launches("slu_train", counts,
+                       want if device == "cuda" else per_batches())
+        log("translation", f"bin.slu_train: 1 epoch of {len(batches)} "
+            f"batches with collect-stats, {wall:.1f}s; launches exact")
+        for name, exp_dir, data_dir, extra, layers in (
+                ("synthetic", exp, ws / "slu", [], L),
+                ("synth_hard", Path(SYNTH_EXP), None,
+                 ["--params", SYNTH_PARAMS], 6)):
+            if data_dir is None:
+                data_dir = ws / "synth_test"
+                keys = sorted(read_2column_text(
+                    f"{SYNTH}/data/test/wav.scp"))[:FUSION_SUBSET]
+                for f in ("wav.scp", "text"):
+                    rows = read_2column_text(f"{SYNTH}/data/test/{f}")
+                    write_2column_text(data_dir / f,
+                                       {k: rows[k] for k in keys})
+            out = ws / f"slu_dec_{name}"
+            _, counts, wall = counted_call(slu_inference.main, [
+                "--exp_dir", str(exp_dir), "--data_dir", str(data_dir),
+                "--output_dir", str(out), "--beam_size", "5",
+                "--max_steps", "60", "--batch_size", "30", *extra, *dev])
+            cfg = ASRTask.load_config(exp_dir)
+            dtok = ASRTask.build_tokenizer(cfg["data"], Path(exp_dir))
+            ds = ASRTask.build_dataset(
+                cfg["data"], data_dir, dtok, ASRTask.build_token_list(
+                    cfg["data"], Path(exp_dir), dtok), train=False)
+            check_launches(f"slu_inference {name}", counts, per_batches(
+                ({"relpos_attention": layers, "prenorm_ffn": 2 * layers},
+                 len(cli_batches(ds, cfg["data"], 30)))))
+            acc = (out / "intent_acc.txt").read_text().strip()
+            wer = (out / "score_wer.txt").read_text().strip()
+            if name == "synth_hard" and (acc != "1.0000"
+                                         or "| Err 0.0 |" not in wer):
+                raise AssertionError(f"slu_inference synth_hard: intent "
+                                     f"accuracy {acc}, {wer}")
+            log("translation", f"bin.slu_inference on {name} "
+                f"({len(ds)} utterances): intent accuracy {acc}, {wer}; "
+                f"{wall:.1f}s; launches exact [{smi}]")
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+
+
+def phase_translation(torch, np, smi):
+    """MT, ST and SLU: the kernels at MT's shapes, mt_transformer and
+    st_conformer served and trained, then their CLIs."""
+    t0 = time.perf_counter()
+    translation_kernels(torch, np)
+    translation_mt(torch, np, smi)
+    translation_st(torch, np, smi)
+    translation_clis(torch, np, smi)
+    log("translation", f"phase {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3875,6 +4498,8 @@ def main() -> int:
     rnnt_results, launches["transducer"] = phase_transducer(torch, np, smi)
     phase_asr_families(torch, np, smi)
     phase_asr_multi(torch, np, smi)
+    phase_lm_fusion(torch, np, smi)
+    phase_translation(torch, np, smi)
     results.update(rnnt_results)
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

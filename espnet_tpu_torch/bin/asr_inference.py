@@ -8,15 +8,29 @@ espnet_tpu/bin/asr_inference.py). Usage:
 The parser is the JAX CLI's, plus `--device` (default cuda: the card, raising
 without one). The experiment directory may come from either package. Writes
 `text`, `nbest.jsonl`, `rtf.txt` and, with a reference `text`,
-`score_wer.txt` and `score_cer.txt`. `--lm_exp_dir` with `--lm_weight` > 0
-fuses a neural LM trained by `bin.lm_train` (either package's experiment
-directory; built over this model's token list, float32) into the search,
-as in JAX; without `--lm_exp_dir` the weight does nothing, as in JAX. Not
-ported yet, and raising `NotImplementedError` when asked for (ROADMAP.md
-queue 1 item 7): `--search timesync`, `--word_lm_exp_dir`, `--ngram_file`
-and a non-zero `--ngram_weight`. A CTC-only model (no decoder)
-raises a ValueError, and so does a `--ctc_weight` > 0 for an attention-only
-model (no CTC head), where the JAX CLI fails. With
+`score_wer.txt` and `score_cer.txt`. Shallow fusion, as in JAX:
+
+* `--lm_exp_dir` with `--lm_weight` > 0 fuses a neural LM trained by
+  `bin.lm_train` (either package's experiment directory; built over this
+  model's token list, float32); without `--lm_exp_dir` the weight does
+  nothing;
+* `--ngram_file` (an ARPA file, `bin.ngram_train`) with `--ngram_weight`
+  > 0 fuses the n-gram's dense tables (`lm/ngram.py`); either flag alone
+  does nothing;
+* `--word_lm_exp_dir` (an `lm_type rnn` LM trained on words, its own
+  `tokens.txt`) with `--lm_weight` > 0 fuses a word LM into a character
+  search (`decode/extlm.py`): alone as `LookAheadWordLM` (`--oov_penalty`,
+  default 1e-4), with `--lm_exp_dir` (an `lm_type rnn` character LM) as
+  `MultiLevelLM` (`--subwordlm_weight`, `--oov_penalty` default 1.0), which
+  then consumes the character LM, so it is not fused a second time. A
+  non-rnn word or character LM raises a ValueError.
+
+`--search timesync` decodes with the frame-synchronous CTC prefix search
+(`decode/timesync.py`; `--beam_size`, and the n-gram when given a weight,
+which the JAX CLI cannot: ROADMAP.md queue 3). A CTC-only model (no
+decoder) raises a ValueError in the label-synchronous search, and so does
+a `--ctc_weight` > 0 for an attention-only model (no CTC head), where the
+JAX CLI fails. With
 ESPNET_TPU_TORCH_LAUNCH_LOG set, the kernels' launch counts are appended to
 that file at exit (`ops/launches.py`).
 """
@@ -33,10 +47,6 @@ import numpy as np
 
 logger = logging.getLogger("espnet_tpu")
 
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 7: the n-gram, " \
-             "the word LM and the time-synchronous search)"
-
-
 def get_parser():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--exp_dir", required=True)
@@ -48,7 +58,8 @@ def get_parser():
     p.add_argument("--search", choices=["label_sync", "timesync"],
                    default="label_sync",
                    help="label_sync = joint CTC/attention batched beam "
-                        "search; timesync is not ported")
+                        "search; timesync = frame-synchronous CTC prefix "
+                        "beam search")
     p.add_argument("--ctc_weight", type=float, default=0.3)
     p.add_argument("--lm_weight", type=float, default=0.0)
     p.add_argument("--lm_exp_dir", default=None)
@@ -83,10 +94,7 @@ def load_experiment(exp: Path, data_dir, params=None):
     the dataset of `data_dir`, tokenizer, token converter) of an experiment
     directory written by either package; `params` names the params file
     (default: `pick_params_file`)."""
-    from espnet_tpu_torch.convert import load_jax_params
     from espnet_tpu_torch.tasks.asr import ASRTask
-    from espnet_tpu_torch.train.collect_stats import load_stats, mvn_variables
-    from espnet_tpu_torch.train.msgpack_io import load_tree
 
     cfg = ASRTask.load_config(exp)
     data = cfg["data"]
@@ -95,20 +103,31 @@ def load_experiment(exp: Path, data_dir, params=None):
     model = ASRTask.build_model(cfg["model"], len(converter))
     ds = ASRTask.build_dataset(data, data_dir, tokenizer, converter,
                                train=False)
+    load_variables(model, exp, params)
+    return model, data, ds, tokenizer, converter
+
+
+def load_variables(model, exp: Path, params=None):
+    """Load into `model` the params file `params` (default:
+    `pick_params_file(exp)`) and, for global MVN, the experiment's
+    `stats/feats_stats.npz`; without stats, the identity statistics of
+    the JAX init, with which the JAX package decodes (and the ST task,
+    which collects none, trains)."""
+    from espnet_tpu_torch.convert import load_jax_params
+    from espnet_tpu_torch.train.collect_stats import load_stats, mvn_variables
+    from espnet_tpu_torch.train.msgpack_io import load_tree
+
     params_file = Path(params) if params else pick_params_file(exp)
     logger.info("loading params: %s", params_file)
     variables = {"params": load_tree(params_file)}
-    if model.config.normalize == "global_mvn":
+    if getattr(model.config, "normalize", None) == "global_mvn":
         stats_path = exp / "stats" / "feats_stats.npz"
-        # without stats the JAX package decodes with its init's identity
-        # statistics; so does the port
         dim = model.mvn.mean.numel()
         variables["mvn"] = (
             mvn_variables(load_stats(stats_path)) if stats_path.exists()
             else {"mvn": {"mean": np.zeros(dim, np.float32),
                           "inv_std": np.ones(dim, np.float32)}})
-    load_jax_params(model, variables)
-    return model, data, ds, tokenizer, converter
+    return load_jax_params(model, variables)
 
 
 def load_lm(lm_exp: Path, vocab_size: int):
@@ -127,24 +146,69 @@ def load_lm(lm_exp: Path, vocab_size: int):
     return model.lm
 
 
-def _refuse_unported(args) -> None:
-    asked = []
-    if args.search == "timesync":
-        asked.append("--search timesync")
-    for flag in ("word_lm_exp_dir", "ngram_file"):
-        if getattr(args, flag):
-            asked.append(f"--{flag}")
-    if args.ngram_weight:
-        asked.append(f"--ngram_weight {args.ngram_weight}")
-    if asked:
-        raise NotImplementedError(f"{', '.join(asked)} {NOT_PORTED}")
+def word_lm_scorer(args, converter, char_lm, char_lm_exp, device):
+    """The word LM of `--word_lm_exp_dir` as a weighted scorer (weight
+    `--lm_weight`): `MultiLevelLM` with the character LM `char_lm` (from
+    `char_lm_exp`), else `LookAheadWordLM`; both LMs on `device`."""
+    from espnet_tpu_torch.data.tokenizer import TokenIDConverter
+    from espnet_tpu_torch.decode.extlm import (LookAheadWordLM,
+                                               MultiLevelLM,
+                                               make_lexical_tree)
+    from espnet_tpu_torch.decode.scorers import Scorer
+    from espnet_tpu_torch.tasks.lm import LMTask
+
+    wexp = Path(args.word_lm_exp_dir)
+    if LMTask.load_config(wexp)["model"].lm_type != "rnn":
+        raise ValueError(
+            "--word_lm_exp_dir must be an lm_type=rnn LM: the word LM is "
+            "consulted at each hypothesis's word boundaries, so its cache "
+            "must be position-free")
+    word_conv = TokenIDConverter.from_file(wexp / "tokens.txt")
+    word_dict = {t: i for i, t in enumerate(word_conv.token_list)}
+    subword_dict = {t: i for i, t in enumerate(converter.token_list)}
+    word_eos = word_dict["<sos/eos>"]
+    word_unk = word_dict.get("<unk>", 1)
+    tree = make_lexical_tree(word_dict, subword_dict, word_unk)
+    wlm = load_lm(wexp, len(word_conv)).to(device).eval()
+
+    def step_fns(lm):
+        def cache_init(b, dev):
+            return lm.init_cache(b, device=dev)
+
+        def step(cache, tokens):
+            return lm.score_step(tokens, 0, cache)
+
+        return step, cache_init
+
+    space = subword_dict.get("<space>", -1)
+    eos_id = len(converter) - 1          # <sos/eos> is last
+    common = dict(tree=tree, word_eos=word_eos, word_unk=word_unk,
+                  space=space, eos=eos_id, subword_size=len(converter))
+    if char_lm is not None:
+        if LMTask.load_config(char_lm_exp)["model"].lm_type != "rnn":
+            raise ValueError("MultiLevelLM needs an lm_type=rnn character "
+                             "LM in --lm_exp_dir (position-free cache)")
+        scorer = MultiLevelLM(
+            *step_fns(wlm), *step_fns(char_lm.to(device).eval()),
+            subwordlm_weight=args.subwordlm_weight,
+            oov_penalty=(args.oov_penalty if args.oov_penalty is not None
+                         else 1.0), **common)
+        name = "multilevel_lm"
+    else:
+        scorer = LookAheadWordLM(
+            *step_fns(wlm), oov_penalty=(args.oov_penalty
+                                         if args.oov_penalty is not None
+                                         else 1e-4), **common)
+        name = "lookahead_word_lm"
+    return Scorer(args.lm_weight,
+                  lambda n, steps, dev: scorer.init_cache(n, dev),
+                  scorer.make_score_fn(), name=name)
 
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     args = get_parser().parse_args(argv)
-    _refuse_unported(args)
     from espnet_tpu_torch.ops.launches import log_at_exit
 
     log_at_exit("asr_inference")
@@ -170,14 +234,37 @@ def main(argv=None):
     lm_model = None
     if args.lm_exp_dir and args.lm_weight > 0:
         lm_model = load_lm(Path(args.lm_exp_dir), len(converter))
+    extra_scorers = []
+    if args.word_lm_exp_dir and args.lm_weight > 0:
+        extra_scorers.append(word_lm_scorer(
+            args, converter, lm_model,
+            Path(args.lm_exp_dir) if args.lm_exp_dir else None, device))
+        lm_model = None  # a character LM rides inside MultiLevelLM
+    ngram_scorer = None
+    if args.ngram_file and args.ngram_weight > 0:
+        from espnet_tpu_torch.lm.ngram import DenseNgramScorer, NgramModel
 
-    s2t = Speech2Text(
-        model, device=device, beam_size=args.beam_size,
-        ctc_weight=args.ctc_weight, penalty=args.penalty,
-        maxlenratio=args.maxlenratio, minlenratio=args.minlenratio,
-        max_steps=args.max_steps, tokenizer=tokenizer, converter=converter,
-        lm_model=lm_model, lm_weight=args.lm_weight,
-    )
+        logger.info("loading ngram: %s", args.ngram_file)
+        ngram_scorer = DenseNgramScorer(
+            NgramModel.load_arpa(args.ngram_file), converter.token_list)
+
+    if args.search == "timesync":
+        from espnet_tpu_torch.decode.timesync import Speech2TextTimeSync
+
+        s2t = Speech2TextTimeSync(
+            model, tokenizer, converter, beam_size=args.beam_size,
+            ngram_scorer=ngram_scorer, ngram_weight=args.ngram_weight,
+            device=device)
+    else:
+        s2t = Speech2Text(
+            model, device=device, beam_size=args.beam_size,
+            ctc_weight=args.ctc_weight, penalty=args.penalty,
+            maxlenratio=args.maxlenratio, minlenratio=args.minlenratio,
+            max_steps=args.max_steps, tokenizer=tokenizer,
+            converter=converter, lm_model=lm_model,
+            lm_weight=args.lm_weight, ngram_scorer=ngram_scorer,
+            ngram_weight=args.ngram_weight, extra_scorers=extra_scorers,
+        )
 
     hyps_text = {}
     nbest_rows = []

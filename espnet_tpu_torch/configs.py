@@ -59,7 +59,20 @@ weight 0.5; and
 
 the `LMModelConfig` defaults, a 6 x 256 transformer LM with FFN 1024, built
 over `LM_VOCAB` tokens by `tasks.lm.LMTask.build_model` (which takes the
-compute dtype). All use vocab 5000 and random weights from a seed.
+compute dtype);
+
+    mt_transformer(torch.bfloat16)
+
+the `MTConfig` defaults: a 6 x 256 token encoder (4 heads, FFN 2048) and a
+6 x 2048 decoder, source and target vocab 5000; 21,208,968 parameters;
+
+    st_conformer(torch.bfloat16)
+
+the `STConfig` defaults on bench.py's conformer (12 x 256, 4 heads, FFN
+2048, kernel 31, a 6 x 2048 translation decoder, utterance MVN as the other
+configurations), `asr_weight` 0.3 and `mtlalpha` 1.0 (so a CTC head over
+the source vocabulary and no ASR decoder), source and target vocab 5000;
+46,836,496 parameters. All use vocab 5000 and random weights from a seed.
 """
 
 from __future__ import annotations
@@ -67,7 +80,9 @@ from __future__ import annotations
 from espnet_tpu_torch.models.asr import ASRConfig
 from espnet_tpu_torch.models.asr_mix import ASRMixConfig
 from espnet_tpu_torch.models.maskctc import MaskCTCConfig
+from espnet_tpu_torch.models.mt import MTConfig
 from espnet_tpu_torch.models.mulenc import MulEncConfig
+from espnet_tpu_torch.models.st import STConfig
 from espnet_tpu_torch.models.transducer import TransducerConfig
 from espnet_tpu_torch.tasks.lm import LMModelConfig
 
@@ -185,3 +200,19 @@ def transformer_lm(**overrides) -> LMModelConfig:
     """The JAX `LMModelConfig` defaults (a 6 x 256 transformer LM, FFN
     1024)."""
     return LMModelConfig(**overrides)
+
+
+def mt_transformer(dtype, **overrides) -> MTConfig:
+    """The JAX `MTConfig` defaults with source and target vocab 5000."""
+    return MTConfig(**{"vocab_size": BENCH["vocab_size"],
+                       "src_vocab_size": BENCH["vocab_size"], "dtype": dtype,
+                       **overrides})
+
+
+def st_conformer(dtype, **overrides) -> STConfig:
+    """The JAX `STConfig` defaults on bench.py's conformer: asr_weight 0.3,
+    mtlalpha 1.0, source and target vocab 5000, utterance MVN."""
+    fields = {**BENCH, "encoder_type": "conformer",
+              "src_vocab_size": BENCH["vocab_size"], "asr_weight": 0.3,
+              "mtlalpha": 1.0, "dtype": dtype, **overrides}
+    return STConfig(**fields)

@@ -47,6 +47,13 @@ With `scan_layers` (a conformer built with `scan_encoder_layers`) the
 encoder's layers are stacked back into `encoder/block`, the tree JAX saves
 for such a model.
 
+The MT and ST trees (`models/mt.py`, `models/st.py`) need no rule of their
+own either: the source embedding is `encoder/embed/embedding`, the MT
+encoder's layers `encoder/layer{i}` and its final norm
+`encoder/after_norm`, the CTC head over the source vocabulary `ctc_head`,
+the source-side decoder `asr_decoder`, and an ST model with global MVN
+keeps its statistics in the `mvn` collection, as the ASR model does.
+
 The transducer's tree (`models/transducer.py`) follows the same rules: its
 LSTM cells are Dense layers named as flax's `OptimizedLSTMCell` names its
 kernels (`decoder/lstm{i}/{ii,if,ig,io}/kernel`, `decoder/lstm{i}/{hi,hf,hg,

@@ -1,14 +1,20 @@
 """Speech2Text: batched ASR inference (port of
 espnet_tpu/decode/asr_inference.py).
 
-Encodes a padded batch of raw waveforms with `ASRModel.encode`, then runs the
-joint CTC/attention batched beam search over all utterances at once and
+Encodes a padded batch of raw waveforms with the model's `encode`, then runs
+the joint CTC/attention batched beam search over all utterances at once and
 returns each utterance's n-best token ids and scores, and, given a tokenizer
 and a token converter, the best hypothesis's tokens and text. Runs on the
 CUDA card unless the caller passes device="cpu"; it never falls back on its
-own. A neural LM (`lm_model`, `models/lm.py`) joins the search by shallow
-fusion with `lm_weight` > 0, ahead of any `extra_scorers`, as in JAX. Not
-ported yet: the n-gram scorer (ROADMAP.md queue 1 item 7) and meshes.
+own. Shallow fusion, in JAX's order: a neural LM (`lm_model`, `models/lm.py`)
+with `lm_weight` > 0, then an n-gram (`ngram_scorer`, `lm/ngram.py`
+`DenseNgramScorer`) with `ngram_weight` > 0, then any `extra_scorers` (the
+word LMs of `decode/extlm.py`). Not ported: the JAX `mesh` option.
+
+The model is any one with `encode`, `decoder_init_cache` and
+`decoder_score_step` (and `ctc_log_probs` for a CTC weight > 0): the ASR
+models, ST (`models/st.py`) and MT (`models/mt.py`), whose input is a padded
+batch of source token ids; an integer input array stays integer.
 
 The search needs the model's attention decoder, and its CTC head unless
 `ctc_weight` is 0: a CTC-only model (`ctc_weight` 1.0 in training) or a
@@ -30,9 +36,8 @@ import torch
 from espnet_tpu_torch.decode.beam_search import (BeamSearchConfig,
                                                  batched_beam_search)
 from espnet_tpu_torch.decode.scorers import (Scorer, combine_scorers,
-                                             lm_scorer)
+                                             lm_scorer, ngram_scorer_adapter)
 from espnet_tpu_torch.device import resolve_device
-from espnet_tpu_torch.models.asr import ASRModel
 
 
 @dataclasses.dataclass
@@ -46,15 +51,16 @@ class DecodeResult:
 
 
 class Speech2Text:
-    """Batched beam-search decoder over an `ASRModel`."""
+    """Batched beam-search decoder over an ASR, ST or MT model."""
 
-    def __init__(self, model: ASRModel, device="cuda", beam_size: int = 10,
+    def __init__(self, model, device="cuda", beam_size: int = 10,
                  ctc_weight: float = 0.3, penalty: float = 0.0,
                  maxlenratio: float = 0.0, minlenratio: float = 0.0,
                  max_steps: int = 0,
                  extra_scorers: Optional[Sequence[Scorer]] = None,
                  tokenizer=None, converter=None, lm_model=None,
-                 lm_weight: float = 0.0):
+                 lm_weight: float = 0.0, ngram_scorer=None,
+                 ngram_weight: float = 0.0):
         """`device`: "cuda" (the default; None means the same) or "cpu";
         `model` is moved there. `tokenizer` and `converter`
         (`data/tokenizer.py`) turn the best token ids into tokens and text.
@@ -62,7 +68,8 @@ class Speech2Text:
         `extra_scorers`: weighted full scorers added to the search.
         `lm_model`: a neural LM over the same token list (its parameters
         loaded), fused with `lm_weight` when that is > 0; it is moved to
-        `device` too."""
+        `device` too. `ngram_scorer`: a `lm.ngram.DenseNgramScorer` over the
+        same token list, fused with `ngram_weight` when that is > 0."""
         if getattr(model, "decoder", None) is None:
             raise ValueError(
                 "the model has no attention decoder (trained with ctc_weight "
@@ -79,7 +86,7 @@ class Speech2Text:
         self.cfg = BeamSearchConfig(
             beam_size=beam_size, att_weight=1.0 - ctc_weight,
             ctc_weight=ctc_weight, penalty=penalty, maxlenratio=maxlenratio,
-            minlenratio=minlenratio, blank_id=cfg.blank_id)
+            minlenratio=minlenratio, blank_id=getattr(cfg, "blank_id", 0))
         self.max_steps = max_steps
         self.tokenizer = tokenizer
         self.converter = converter
@@ -87,14 +94,17 @@ class Speech2Text:
         self.lm_model = (lm_model.to(self.device).eval()
                          if lm_model is not None else None)
         self.lm_weight = lm_weight
+        self.ngram_scorer = ngram_scorer
+        self.ngram_weight = ngram_weight
         self.sos = cfg.sos_id
         self.eos = cfg.eos_id
         self.vocab_size = cfg.vocab_size
 
     @torch.no_grad()
     def decode_batch(self, speech: torch.Tensor, speech_lengths: torch.Tensor):
-        """(B, N) waveforms on the device -> (yseq (B, W, L), ylen (B, W),
-        score (B, W)), the finished pool sorted by score."""
+        """(B, N) waveforms (MT: (B, L) source token ids) on the device ->
+        (yseq (B, W, L), ylen (B, W), score (B, W)), the finished pool
+        sorted by score."""
         enc, enc_lens = self.model.encode(speech, speech_lengths)
         return self.search_from_memory(enc, enc_lens)
 
@@ -127,6 +137,9 @@ class Speech2Text:
         slot = []
         if self.lm_model is not None and self.lm_weight > 0:
             slot.append(lm_scorer(self.lm_model, self.lm_weight))
+        if self.ngram_scorer is not None and self.ngram_weight > 0:
+            slot.append(ngram_scorer_adapter(self.ngram_scorer,
+                                             self.ngram_weight))
         slot.extend(self.extra_scorers)
         lm_score_fn, lm_cache = combine_scorers(slot, b * w, steps + 1,
                                                 enc.device)
@@ -141,8 +154,12 @@ class Speech2Text:
     def __call__(self, speech, speech_lengths,
                  keys: Optional[Sequence[str]] = None,
                  nbest: int = 1) -> List[DecodeResult]:
-        """Decode a padded batch: speech (B, N) float, speech_lengths (B,)."""
-        speech = torch.as_tensor(np.asarray(speech, np.float32)).to(self.device)
+        """Decode a padded batch: speech (B, N) float (MT: (B, L) integer
+        source token ids), speech_lengths (B,)."""
+        speech = np.asarray(speech)
+        speech = torch.as_tensor(
+            speech.astype(np.int64) if speech.dtype.kind in "iu"
+            else speech.astype(np.float32)).to(self.device)
         lengths = torch.as_tensor(np.asarray(speech_lengths, np.int64)).to(
             self.device)
         yseq, ylen, score = (t.cpu().numpy()

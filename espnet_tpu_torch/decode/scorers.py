@@ -1,6 +1,5 @@
 """Weighted full scorers for the batched beam search (port of
-espnet_tpu/decode/scorers.py but its n-gram adapter, which waits for
-`lm/ngram.py`).
+espnet_tpu/decode/scorers.py).
 
 A scorer is a pair of functions over fixed-shape caches:
 
@@ -9,7 +8,8 @@ A scorer is a pair of functions over fixed-shape caches:
 
 `combine_scorers` folds weighted scorers into the search's single extra
 slot: their weighted sum, with a tuple of their caches as its cache.
-`lm_scorer` makes a neural LM (`models/lm.py`) one of them.
+`lm_scorer` makes a neural LM (`models/lm.py`) one of them,
+`ngram_scorer_adapter` an n-gram's dense tables (`lm/ngram.py`).
 """
 
 from __future__ import annotations
@@ -62,6 +62,19 @@ def lm_scorer(lm_model, weight: float) -> Scorer:
         return lm_model.score_step(tokens, pos, cache)
 
     return Scorer(weight, init_cache, score_step, name="lm")
+
+
+def ngram_scorer_adapter(ngram, weight: float) -> Scorer:
+    """A `lm.ngram.DenseNgramScorer` as a weighted scorer: its cache is a
+    context id a hypothesis, its tables on the cache's device."""
+
+    def init_cache(n, steps, device):
+        return ngram.init_cache(n, device)
+
+    def score_step(tokens, pos, cache):
+        return ngram.make_score_fn(cache.device)(tokens, pos, cache)
+
+    return Scorer(weight, init_cache, score_step, name="ngram")
 
 
 def length_bonus_scorer(vocab_size: int, weight: float) -> Scorer:

@@ -11,10 +11,12 @@ before the final LayerNorm as in JAX; `remat` recomputes each layer in the
 backward pass (`models.remat`).
 The decoder ends in an output projection to the vocabulary; `score_step`
 decodes one token for every hypothesis of a beam search against an explicit
-per-layer KV cache. The decoder's FFN is plain PyTorch: in the JAX package
-its row count (batch x beam, or batch x labels in training) stays below the
-fused kernels' gate, so it never reaches `fused_ffn` or `fused_prenorm_ffn`
-either.
+per-layer KV cache. The decoder's FFN is plain PyTorch. The JAX decoder
+layer sends its FFN to `fused_prenorm_ffn` where its rows (batch x beam, or
+batch x labels in training) reach the fused kernels' gate of 4096 (and
+tile), which MT training at B=64 x 129 target positions does; below that
+it is plain there too. The port keeps its decoders plain at every row
+count (ROADMAP.md queue 2 "Speed" item 9).
 
 `PositionwiseFeedForward(fused=True)` (the E-Branchformer's macaron FFNs)
 goes through `ops.ffn.fused_ffn`, the CUDA kernels on the card, with its

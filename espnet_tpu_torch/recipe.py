@@ -14,7 +14,7 @@ Stage map (reference asr.sh line refs):
   4  remove long/short utterances                            asr.sh:652
   5  token list / BPE model                                  asr.sh:730
   6  LM training (optional)                                  asr.sh:829
-  7  n-gram training (optional; not ported)                  asr.sh:1009
+  7  n-gram training (optional)                              asr.sh:1009
   8  ASR collect-stats                                       asr.sh:1021
   9  ASR training                                            asr.sh:1133
   10 decoding (each test set)                                asr.sh:1299
@@ -28,8 +28,11 @@ model (`asr_train`, `lm_train`, `asr_inference`) as their `--device`; it is
 never written into a config. `use_lm` trains the neural LM in stage 6
 (`bin.lm_train` on the training text with the recipe's token list and
 `lm_args`) and passes `--lm_exp_dir` to decoding, as JAX does: the fusion
-weight comes from `decode_args` (`--lm_weight`). `use_ngram` raises
-NotImplementedError before any stage runs (ROADMAP.md queue 1 item 7).
+weight comes from `decode_args` (`--lm_weight`). `use_ngram` trains an
+`ngram_order`-gram on the training text in stage 7 (`bin.ngram_train`, the
+recipe's token type, into `<expdir>/ngram/<order>gram.arpa`) and passes
+`--ngram_file` to decoding; as in JAX it passes no weight, so the n-gram is
+fused only where `decode_args` names an `--ngram_weight` > 0.
 """
 
 from __future__ import annotations
@@ -45,9 +48,6 @@ from pathlib import Path
 from typing import List, Sequence
 
 logger = logging.getLogger("espnet_tpu")
-
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 7: the n-gram)"
-
 
 @dataclasses.dataclass
 class RecipeConfig:
@@ -88,8 +88,6 @@ def _run_cli(module: str, args: Sequence[str]) -> None:
 
 class Recipe:
     def __init__(self, cfg: RecipeConfig, device: str = "cuda"):
-        if cfg.use_ngram:
-            raise NotImplementedError(f"--recipe.use_ngram true {NOT_PORTED}")
         self.cfg = cfg
         self.device = device
         self.exp = Path(cfg.expdir)
@@ -221,8 +219,23 @@ class Recipe:
             "--data.token_list", str(self.exp / "tokens" / "tokens.txt"),
         ] + shlex.split(self.cfg.lm_args) + ["--device", self.device])
 
+    def ngram_file(self) -> Path:
+        return self.exp / "ngram" / f"{self.cfg.ngram_order}gram.arpa"
+
     def stage7_ngram(self):
-        """Inert: `use_ngram` is refused before any stage runs."""
+        if not self.cfg.use_ngram:
+            return
+        c = self.cfg
+        (self.exp / "ngram").mkdir(exist_ok=True)
+        args = [
+            "--data_dir", str(self.train_dir()),
+            "--output", str(self.ngram_file()),
+            "--order", str(c.ngram_order),
+            "--token_type", c.token_type,
+        ]
+        if c.token_type == "bpe":
+            args += ["--bpe_model", str(self.exp / "tokens" / "bpe.json")]
+        _run_cli("espnet_tpu_torch.bin.ngram_train", args)
 
     def _asr_common_args(self) -> List[str]:
         c = self.cfg
@@ -257,6 +270,8 @@ class Recipe:
             ] + shlex.split(self.cfg.decode_args) + ["--device", self.device]
             if self.cfg.use_lm:
                 args += ["--lm_exp_dir", str(self.exp / "lm")]
+            if self.cfg.use_ngram:
+                args += ["--ngram_file", str(self.ngram_file())]
             _run_cli("espnet_tpu_torch.bin.asr_inference", args)
 
     def stage11_score(self):

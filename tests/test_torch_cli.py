@@ -281,18 +281,66 @@ def test_jax_resume_state_is_refused(runs, tmp_path):
         assert ep[3][phase]["loss"] < ep[2][phase]["loss"]
 
 
-@pytest.mark.parametrize("extra, item", [
-    (["--search", "timesync"], 7),
-    (["--word_lm_exp_dir", "wlm"], 7),
-    (["--ngram_file", "x.arpa"], 7),
-    (["--ngram_weight", "0.3"], 7),
-], ids=["timesync", "word_lm_exp_dir", "ngram_file", "ngram_weight"])
-def test_unported_inference_flags_raise(runs, extra, item):
+@pytest.fixture(scope="module")
+def plain_decode(runs, tmp_path_factory):
+    """The port's decode of the port's directory, without any LM."""
     ws = runs[0]
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-        tinference.main(["--exp_dir", str(ws / "texp"), "--data_dir",
-                         str(ws / "valid"), "--output_dir",
-                         str(ws / "unused"), "--device", "cpu"] + extra)
+    out = tmp_path_factory.mktemp("plain_decode")
+    texts = tinference.main(["--exp_dir", str(ws / "texp"), "--data_dir",
+                             str(ws / "valid"), "--output_dir", str(out),
+                             "--device", "cpu"] + DECODE)
+    return texts, _nbest(out)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--search", "timesync"],
+    ["--word_lm_exp_dir", "wlm"],
+    ["--ngram_file", "x.arpa"],
+    ["--ngram_weight", "0.3"],
+    ["--search", "timesync", "--ngram_file", "{arpa}", "--ngram_weight",
+     "0.3"],
+], ids=["timesync", "word_lm_exp_dir", "ngram_file", "ngram_weight",
+        "timesync_ngram"])
+def test_fusion_and_timesync_flags_parse_and_decode(runs, plain_decode,
+                                                    extra, tmp_path):
+    """The n-gram, word-LM and time-synchronous flags decode. A word LM
+    directory or an n-gram file without its weight, or a weight without
+    its file, is never read (the paths here do not exist), as in JAX: the
+    decode is the plain one. `--search timesync` writes each utterance's
+    n-best, best first, its text the tokenizer's rendering of the best;
+    with a weighted n-gram (`bin.ngram_train` on the training text) its
+    scores move (tests/test_torch_timesync.py holds both against JAX's
+    search)."""
+    from espnet_tpu_torch.bin import ngram_train
+    from espnet_tpu_torch.tasks.asr import ASRTask
+
+    ws = runs[0]
+    base = ["--exp_dir", str(ws / "texp"), "--data_dir", str(ws / "valid"),
+            "--device", "cpu"] + DECODE
+    arpa = tmp_path / "3gram.arpa"
+    if "{arpa}" in extra:
+        ngram_train.main(["--data_dir", str(ws / "train"), "--exp_dir",
+                          str(ws / "texp"), "--output", str(arpa)])
+    extra = [a.format(arpa=arpa) for a in extra]
+    got = tinference.main(base + ["--output_dir", str(tmp_path / "t")]
+                          + extra)
+    assert len(got) == 4 and (tmp_path / "t" / "score_wer.txt").exists()
+    have = _nbest(tmp_path / "t")
+    if "--search" not in extra:
+        assert (got, have) == plain_decode
+        return
+    cfg = ASRTask.load_config(ws / "texp")
+    tok = ASRTask.build_tokenizer(cfg["data"], ws / "texp")
+    conv = ASRTask.build_token_list(cfg["data"], ws / "texp", tok)
+    for key, row in have.items():
+        scores = [h["score"] for h in row["nbest"]]
+        assert scores == sorted(scores, reverse=True) and len(scores) == 2
+        assert row["text"] == got[key] == tok.tokens2text(
+            conv.ids2tokens(row["nbest"][0]["ids"]))
+    if "--ngram_file" in extra:
+        tinference.main(base + ["--output_dir", str(tmp_path / "p"),
+                                "--search", "timesync"])
+        assert _nbest(tmp_path / "p") != have
 
 
 @pytest.mark.parametrize("extra", [
@@ -300,14 +348,12 @@ def test_unported_inference_flags_raise(runs, extra, item):
     ["--lm_weight", "0.3"],
 ], ids=["lm_exp_dir", "lm_weight"])
 def test_neural_lm_inference_flags_pass_the_check(runs, extra):
-    """The neural LM's flags are ported: they pass the check that refuses
-    the unported ones (a missing LM directory then fails where it is read;
-    tests/test_torch_multi_cli.py decodes with one)."""
+    """The neural LM's flags parse (a missing LM directory then fails where
+    it is read; tests/test_torch_multi_cli.py decodes with one)."""
     ws = runs[0]
     argv = ["--exp_dir", str(ws / "texp"), "--data_dir", str(ws / "valid"),
             "--output_dir", str(ws / "unused"), "--device", "cpu"] + extra
     args = tinference.get_parser().parse_args(argv)
-    tinference._refuse_unported(args)
     assert args.lm_weight == 0.3
 
 

@@ -1077,3 +1077,190 @@ def test_transducer_loss_routes_agree_on_card(cuda):
                                rtol=1e-5)
     torch.testing.assert_close(out[True][1], out[False][1],
                                atol=RNNT_OCC_ATOL, rtol=0)
+
+
+def _ragged_ids(rng, b, n, vocab, lengths, device):
+    ids = rng.randint(1, vocab - 1, (b, n))
+    lens = np.asarray(lengths)
+    ids[np.arange(n)[None, :] >= lens[:, None]] = 0
+    return (torch.from_numpy(ids).to(device),
+            torch.from_numpy(lens).to(device))
+
+
+def _kernel_vs_plain_loss(model, args):
+    """(loss with kernels, loss plain, launch counts of the kernel run)."""
+    from espnet_tpu_torch.ops import launches
+
+    wrappers = launches.reset()
+    model.set_use_kernels(True)
+    lk = float(model(*args)[0])
+    counts = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    model.set_use_kernels(False)
+    lp = float(model(*args)[0])
+    model.set_use_kernels(True)
+    return lk, lp, counts
+
+
+@pytest.mark.gpu
+def test_mt_model_takes_flash_and_prenorm_ffn_on_the_card(cuda):
+    """A 2-layer MT model (d_model 128, head dim 64): each encoder layer
+    launches the flash kernel and the pre-norm FFN once a forward; its
+    float32 loss equals the plain route's."""
+    from espnet_tpu_torch.models.asr import init_random_
+    from espnet_tpu_torch.models.mt import MTConfig, MTModel
+
+    cfg = MTConfig(vocab_size=50, src_vocab_size=40, d_model=128,
+                   num_heads=2, d_ff=256, num_encoder_layers=2,
+                   num_decoder_layers=1, decoder_d_ff=256, dropout_rate=0.0)
+    model = init_random_(MTModel(cfg), torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    rng = np.random.RandomState(7)
+    args = (*_ragged_ids(rng, 3, 37, 40, [37, 20, 1], cuda),
+            *_ragged_ids(rng, 3, 9, 50, [9, 4, 1], cuda))
+    with torch.no_grad():
+        lk, lp, counts = _kernel_vs_plain_loss(model, args)
+    assert counts == {"flash_attention": 2, "prenorm_ffn": 2}
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+
+
+@pytest.mark.gpu
+def test_st_model_takes_relpos_ffn_and_ctc_on_the_card(cuda):
+    """A 2-layer ST conformer with the source-side CTC head and ASR
+    decoder: the rel-pos kernel once a layer, the pre-norm FFN twice, the
+    CTC pair on the source labels; its float32 loss and gradient equal the
+    plain route's."""
+    from espnet_tpu_torch.models.asr import init_random_
+    from espnet_tpu_torch.models.st import STConfig, STModel
+
+    cfg = STConfig(vocab_size=50, src_vocab_size=40, n_mels=40,
+                   use_specaug=False, normalize="utterance_mvn",
+                   d_model=128, num_heads=2, d_ff=256, num_encoder_layers=2,
+                   num_decoder_layers=1, decoder_d_ff=256,
+                   num_asr_decoder_layers=1, dropout_rate=0.0,
+                   asr_weight=0.3, mtlalpha=0.5)
+    model = init_random_(STModel(cfg), torch.Generator().manual_seed(0))
+    model = model.to(cuda).train()
+    rng = np.random.RandomState(8)
+    lens = np.array([32000, 20000, 9000])
+    speech = np.zeros((3, 32000), np.float32)
+    for i, n in enumerate(lens):
+        speech[i, :n] = 0.1 * rng.randn(n)
+    args = (torch.from_numpy(speech).to(cuda), torch.from_numpy(lens).to(cuda),
+            *_ragged_ids(rng, 3, 9, 50, [9, 4, 1], cuda),
+            *_ragged_ids(rng, 3, 12, 40, [12, 6, 2], cuda))
+    lk, lp, counts = _kernel_vs_plain_loss(model, args)
+    assert counts == {"relpos_attention": 2, "prenorm_ffn": 4,
+                      "ctc_alphas": 1}
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+    grads = {}
+    for use in (True, False):
+        model.set_use_kernels(use)
+        loss, _ = model(*args)
+        grads[use] = torch.autograd.grad(loss, list(model.parameters()))
+    model.set_use_kernels(True)
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(*grads.values()))
+    den = sum(float((b ** 2).sum()) for b in grads[False])
+    assert (num / den) ** 0.5 < 1e-3
+
+
+@pytest.mark.gpu
+def test_fusion_scorers_and_timesync_on_the_card(cuda):
+    """The n-gram's search step and the look-ahead word LM's on the card
+    give the CPU's rows; a tiny ASR model fused with the n-gram, and its
+    time-synchronous search, decode on the card as on the CPU."""
+    from espnet_tpu_torch.decode.asr_inference import Speech2Text
+    from espnet_tpu_torch.decode.extlm import (LookAheadWordLM,
+                                               make_lexical_tree)
+    from espnet_tpu_torch.decode.timesync import Speech2TextTimeSync
+    from espnet_tpu_torch.lm.ngram import DenseNgramScorer, NgramModel
+    from espnet_tpu_torch.models.asr import ASRConfig, ASRModel, init_random_
+    from espnet_tpu_torch.models.lm import RNNLM
+
+    letters = list("abcdefg")
+    tokens = ["<blank>", "<unk>", "<space>", *letters, "<sos/eos>"]
+    rng = np.random.RandomState(0)
+    sents = [[letters[i] for i in rng.randint(0, 7, rng.randint(1, 8))]
+             for _ in range(40)]
+    ngram = DenseNgramScorer(NgramModel.train(sents, 3), tokens)
+    steps = rng.randint(2, len(tokens) - 1, (6, 4))
+    rows = {}
+    for dev in (torch.device("cpu"), cuda):
+        fn, cache, out = ngram.make_score_fn(dev), ngram.init_cache(4, dev), []
+        for step in steps:
+            row, cache = fn(torch.from_numpy(step).to(dev), 0, cache)
+            out.append(row.cpu())
+        rows[dev.type] = torch.stack(out)
+    assert torch.equal(rows["cpu"], rows["cuda"])
+    words = ["<blank>", "<unk>", "ab", "abc", "bad", "ca", "<sos/eos>"]
+    tree = make_lexical_tree({w: i for i, w in enumerate(words)},
+                             {c: i for i, c in enumerate(tokens)}, 1)
+    wlm = RNNLM(len(words), 32, 1, 0.0)
+    init_random_(wlm, torch.Generator().manual_seed(1))
+    for dev in (torch.device("cpu"), cuda):
+        lm = wlm.to(dev).eval()
+        la = LookAheadWordLM(lambda c, t: lm.score_step(t, 0, c),
+                             lambda b, d: lm.init_cache(b, device=d), tree,
+                             word_eos=6, word_unk=1, space=2,
+                             eos=len(tokens) - 1, subword_size=len(tokens))
+        fn, cache, out = la.make_score_fn(), la.init_cache(4, dev), []
+        with torch.no_grad():
+            for step in steps:
+                row, cache = fn(torch.from_numpy(step).to(dev), 0, cache)
+                out.append(row.cpu())
+        rows[dev.type] = torch.stack(out)
+    torch.testing.assert_close(rows["cuda"], rows["cpu"], atol=1e-5,
+                               rtol=1e-5)
+    cfg = ASRConfig(vocab_size=len(tokens), n_mels=40, use_specaug=False,
+                    normalize="utterance_mvn", d_model=128, num_heads=2,
+                    d_ff=256, num_encoder_layers=2, num_decoder_layers=1,
+                    decoder_d_ff=256, dropout_rate=0.0)
+    model = init_random_(ASRModel(cfg), torch.Generator().manual_seed(2))
+    speech = (0.1 * rng.randn(2, 16000)).astype(np.float32)
+    lens = np.array([16000, 9000])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model.set_use_kernels(dev == "cuda")
+        s2t = Speech2Text(model, device=dev, beam_size=3, max_steps=6,
+                          ngram_scorer=ngram, ngram_weight=0.5)
+        ts = Speech2TextTimeSync(model, beam_size=3, ngram_scorer=ngram,
+                                 ngram_weight=0.5, device=dev)
+        out[dev] = ([r.token_ids for r in s2t(speech, lens)],
+                    [r.nbest[0][0] for r in ts(speech, lens, ["a", "b"])])
+    assert out["cpu"] == out["cuda"]
+
+
+@pytest.mark.gpu
+def test_translation_clis_train_and_decode_on_the_card(cuda, tmp_path):
+    """mt_train and mt_inference, st_train and st_inference for one epoch
+    on toy corpora, on the card (their default device)."""
+    from espnet_tpu_torch.bin import (mt_inference, mt_train, st_inference,
+                                      st_train)
+    from espnet_tpu_torch.data.synth import (generate_mt_corpus,
+                                             generate_st_corpus)
+    from espnet_tpu_torch.ops import ctc_lattice
+
+    small = ["--run.max_epoch", "1", "--run.best_metric", "valid.loss.min",
+             "--model.d_model", "128", "--model.num_heads", "2",
+             "--model.d_ff", "256", "--model.num_encoder_layers", "2",
+             "--model.num_decoder_layers", "1", "--model.decoder_d_ff",
+             "256", "--data.batch_size", "4"]
+    generate_mt_corpus(tmp_path / "mt", n_utts=8, max_words=3)
+    generate_st_corpus(tmp_path / "st", n_utts=4, max_words=3)
+    for fn in (tflash.flash_attention, trel.relpos_attention,
+               ctc_lattice.ctc_alphas):
+        fn.launches = 0
+    for train, infer, data, extra in (
+            (mt_train, mt_inference, "mt", []),
+            (st_train, st_inference, "st", ["--model.n_mels", "40"])):
+        train.main(small + extra + [
+            "--data.train_dir", str(tmp_path / data), "--data.valid_dir",
+            str(tmp_path / data), "--run.output_dir",
+            str(tmp_path / f"{data}_exp")])
+        infer.main(["--exp_dir", str(tmp_path / f"{data}_exp"), "--data_dir",
+                    str(tmp_path / data), "--output_dir",
+                    str(tmp_path / f"{data}_dec"), "--beam_size", "2",
+                    "--max_steps", "8"])
+        assert (tmp_path / f"{data}_dec" / "score_wer.txt").exists()
+    for fn in (tflash.flash_attention, trel.relpos_attention,
+               ctc_lattice.ctc_alphas):
+        assert fn.launches > 0, fn.__name__

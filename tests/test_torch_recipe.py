@@ -3,9 +3,9 @@ package's, on the CPU: stages 1-5 of both on the same arguments give the
 same data dirs and token list byte for byte; stages 8-12 of the port's
 with `--device cpu` train, decode, score and pack (markers, a resumed
 second call that skips every stage, RESULTS.md, a pack that unpacks);
-`use_lm`/`use_ngram` are refused before any stage; and `prep_librispeech`
-gives JAX's Kaldi dirs on a fabricated LibriSpeech layout. Mirrors
-tests/test_recipe.py without the n-gram stage."""
+`use_lm` and `use_ngram` add their stages' commands and the decoding
+flags that JAX's recipe adds; and `prep_librispeech` gives JAX's Kaldi
+dirs on a fabricated LibriSpeech layout. Mirrors tests/test_recipe.py."""
 
 import zipfile
 from pathlib import Path
@@ -110,12 +110,37 @@ def test_stages_8_to_12_train_decode_score_and_pack(ws, caplog):
                 == (exp / "asr" / name).read_bytes()), name
 
 
-def test_ngram_is_refused_before_any_stage(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        run.main(_args(tmp_path, ["--recipe.use_ngram", "true",
-                                  "--device", "cpu"]))
-    assert not (tmp_path / "data").exists()
-    assert not (tmp_path / "exp").exists()
+@pytest.mark.parametrize("token_type", ["char", "bpe"])
+def test_use_ngram_runs_stage7_and_passes_the_file_to_decoding(
+        tmp_path, monkeypatch, token_type):
+    """Stage 7 runs `ngram_train` on the training text with the recipe's
+    token type (and its BPE model), and decoding gets `--ngram_file` but no
+    weight, as in the JAX recipe (the commands are recorded here, not run;
+    tests/test_torch_ngram.py runs stage 7)."""
+    from espnet_tpu_torch import recipe
+
+    calls = []
+    monkeypatch.setattr(recipe, "_run_cli",
+                        lambda module, args: calls.append((module, args)))
+    r = recipe.Recipe(recipe.RecipeConfig(
+        expdir=str(tmp_path / "exp"), datadir=str(tmp_path / "data"),
+        use_ngram=True, ngram_order=4, token_type=token_type,
+        decode_args="--beam_size 2"), device="cpu")
+    r.stage7_ngram()
+    r.stage10_decode()
+    (ng_mod, ng_args), (dec_mod, dec_args) = calls
+    arpa = str(tmp_path / "exp" / "ngram" / "4gram.arpa")
+    assert ng_mod == "espnet_tpu_torch.bin.ngram_train"
+    assert ng_args[ng_args.index("--output") + 1] == arpa
+    assert ng_args[ng_args.index("--order") + 1] == "4"
+    assert ng_args[ng_args.index("--token_type") + 1] == token_type
+    assert ng_args[ng_args.index("--data_dir") + 1] == str(
+        tmp_path / "data" / "train")
+    assert ("--bpe_model" in ng_args) == (token_type == "bpe")
+    assert "--device" not in ng_args
+    assert dec_mod == "espnet_tpu_torch.bin.asr_inference"
+    assert dec_args[dec_args.index("--ngram_file") + 1] == arpa
+    assert "--ngram_weight" not in dec_args
 
 
 def test_use_lm_runs_stage6_and_passes_the_lm_to_decoding(tmp_path,
