@@ -225,13 +225,39 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    `bin.st_inference` and `bin.slu_train` / `bin.slu_inference` on
    synthetic corpora (and `slu_inference` on synth_hard's 100 utterances:
    intent accuracy 1.0), each with its exact launches;
-16. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
+16. ssl: the SSL and Whisper parts of the ASR model and HuBERT
+   pretraining at the published widths (random weights from seed 0;
+   `espnet_tpu_torch.configs`): (a) flash attention forward at HuBERT's
+   training shape (B=64, H=4, T=1876, D=64: 15 s at hop 128, no
+   subsampling) and the pre-norm FFN forward and backward at its rows
+   (M=64*1876, F=1024, relu 1.0, dropout 0.1), float32 and bf16, against
+   their plain versions; (b) `ssl_conformer` (the frozen wav2vec2-base /
+   HuBERT-base trunk through the S3PRL featurizer into bench.py's
+   conformer; 12 rel-pos and 24 pre-norm FFN launches an encode),
+   `wav2vec2_ctc` (that trunk fine-tuned as the encoder: the CTC pair
+   only) and `whisper_base` (no kernel; its `score_step` with a 448-row
+   cache against the teacher-forced log-probs): the 4 requests served in
+   float32 (beam 10, 40 steps) with the kernel route's results equal to
+   the plain route's and the encoder output within 1e-3, a float32 train
+   step with kernels against plain (the frozen trunk gets no gradient),
+   3 bf16 steps at B=64 x 15 s (for wav2vec2_ctc, whose trunk is
+   fine-tuned, the largest power of two that fits: 68.6 GiB) with
+   ms/step, audio-s/s, peak GiB and exact launches; (c) `hubert_pretrain` (6 x 256, FFN 1024): a float32
+   step with kernels against plain, 3 bf16 steps at B=64 x 15 s, flash
+   and the pre-norm FFN once a layer a step; (d) in-process
+   `bin.hubert_train` (one epoch on 16 synthetic utterances: k-means
+   centroids, labels, checkpoint), `bin.convert_hf` on a full-width
+   wav2vec2-base-layout `.safetensors` file (float32) and a whisper-base
+   one (float16) that the phase writes under HF's key names, and
+   `bin.asr_train --run.init_param` from each, the transferred weights
+   equal to the source; each with its exact launches;
+17. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
    lattice pairs float32; launches from the 3 timed train steps of the
    configuration whose path holds the kernel: the conformer's, the
    transformer's for flash attention, the E-Branchformer's for
    `fused_ffn`, the two conv routes' for theirs, the transducer's for its
    lattice pair);
-17. last line: {"ok": true, "device": {...}}.
+18. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1107,10 +1133,11 @@ def serve_shapes(cfg, lengths):
 
 def build_model(cfg, options=None):
     """The port's model of `cfg`: the transducer for a TransducerConfig,
-    Mask-CTC, multi-encoder or multi-speaker ASR, MT or ST for theirs, else
-    the joint CTC/attention ASRModel."""
+    Mask-CTC, multi-encoder or multi-speaker ASR, MT, ST or HuBERT for
+    theirs, else the joint CTC/attention ASRModel."""
     from espnet_tpu_torch.models.asr import ASRModel
     from espnet_tpu_torch.models.asr_mix import ASRMixConfig, ASRMixModel
+    from espnet_tpu_torch.models.hubert import HubertConfig, HubertModel
     from espnet_tpu_torch.models.maskctc import MaskCTCConfig, MaskCTCModel
     from espnet_tpu_torch.models.mt import MTConfig, MTModel
     from espnet_tpu_torch.models.mulenc import ASRMulEncModel, MulEncConfig
@@ -1120,6 +1147,8 @@ def build_model(cfg, options=None):
 
     if isinstance(cfg, MTConfig):
         return MTModel(cfg)
+    if isinstance(cfg, HubertConfig):
+        return HubertModel(cfg)
     if isinstance(cfg, STConfig):
         return STModel(cfg)
     if isinstance(cfg, TransducerConfig):
@@ -1244,7 +1273,8 @@ def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity",
     """One float32 forward and backward of the full-width model with the
     kernels and with their plain versions (dropout and SpecAug off), on
     the requests' waveforms with random labels or on `batch` (the model
-    takes its fields `keys`)."""
+    takes its fields `keys`). Returns the names of the parameters that got
+    no gradient (a frozen SSL trunk's), the same on both routes."""
     import dataclasses
 
     from espnet_tpu_torch.models.asr import init_random_
@@ -1264,11 +1294,18 @@ def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity",
     for use in (True, False):
         model.set_use_kernels(use)
         loss, stats = model(*args)
-        grads = torch.autograd.grad(loss, list(model.parameters()))
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
         results[use] = (float(loss.detach()), grads)
     model.set_use_kernels(True)
     sync(torch, device)
     (lk, gk), (lp, gp) = results[True], results[False]
+    unused = [n for n, g in zip(names, gk) if g is None]
+    if unused != [n for n, g in zip(names, gp) if g is None]:
+        raise AssertionError("the routes leave different parameters "
+                             "without a gradient")
+    names, gk, gp = zip(*((n, a, b) for n, a, b in zip(names, gk, gp)
+                          if a is not None))
     loss_dev = abs(lk - lp) / abs(lp)
     total = float(torch.sqrt(sum((b.double() ** 2).sum() for b in gp)))
     whole = float(torch.sqrt(sum(((a.double() - b.double()) ** 2).sum()
@@ -1292,6 +1329,7 @@ def phase_train_parity(torch, np, cfg, device="cuda", tag="train-parity",
             or devs[0][0] > TRAIN_FP32_GRAD_REL_L2):
         raise AssertionError("the float32 train step with kernels deviates "
                              "from the plain versions'")
+    return unused
 
 
 def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
@@ -4472,6 +4510,464 @@ def phase_translation(torch, np, smi):
     log("translation", f"phase {time.perf_counter() - t0:.1f}s")
 
 
+# the ssl phase: the SSL and Whisper parts of the ASR model and HuBERT
+# pretraining at the published widths (configs.ssl_conformer, wav2vec2_ctc,
+# whisper_base, hubert_pretrain; random weights from a seed)
+SSL_BEAM, SSL_STEPS = 10, 40
+HUBERT_LAYERS = 6
+HUBERT_KEYS = ("speech", "speech_lengths", "labels")
+SSL_PER_ENCODE = {
+    "ssl_conformer": {"relpos_attention": L, "prenorm_ffn": 2 * L},
+    "wav2vec2_ctc": {},
+    "whisper_base": {},
+}
+SSL_PER_STEP = {
+    "ssl_conformer": {**CONFORMER[1]},
+    "wav2vec2_ctc": dict(CTC),
+    "whisper_base": {},
+}
+HUBERT_PER_STEP = {"flash_attention": HUBERT_LAYERS,
+                   "prenorm_ffn": HUBERT_LAYERS,
+                   "prenorm_ffn_bwd": HUBERT_LAYERS}
+# the weight-norm collapse of the positional conv, w = g v / ||v||, rounds
+# in float32 (every other transferred tensor is copied exactly)
+WEIGHT_NORM_RTOL = 1e-5
+SSL_CLI_UTTS = 16
+SSL_CLI_ARGS = ("--run.max_epoch 1 --run.log_interval 1000 "
+                "--run.best_metric train.loss.min --optim.schedule constant")
+# the decoder's step log-probs against the teacher-forced ones (float32)
+WHISPER_STEP_ATOL = 1e-4
+
+
+def hubert_batch(np, b, seconds, classes, seed, hop=128):
+    """Seeded noise waveforms with random k-means labels on the log-mel
+    frame grid (hop 128: N // hop + 1 frames)."""
+    rng = np.random.RandomState(seed)
+    n = [int(sec * SAMPLE_RATE) for sec in seconds]
+    speech = np.zeros((b, max(n)), np.float32)
+    for i, k in enumerate(n):
+        speech[i, :k] = 0.1 * rng.randn(k)
+    frames = max(n) // hop + 1
+    return {"speech": speech, "speech_lengths": np.array(n, np.int32),
+            "labels": rng.randint(0, classes, (b, frames)).astype(np.int32)}
+
+
+def ssl_kernels(torch, np):
+    """Flash attention forward at HuBERT's training shape (B=64, H=4,
+    T=1876, D=64) and the pre-norm FFN forward and backward at its rows
+    (M=64*1876, D=256, F=1024, relu, residual 1.0, dropout 0.1), float32
+    and bf16, against their plain versions: neither shape ran before."""
+    from espnet_tpu_torch.configs import hubert_pretrain
+    from espnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_plain)
+    from espnet_tpu_torch.ops.stft import stft_frames_lengths
+
+    hcfg = hubert_pretrain(torch.bfloat16)
+    t = int(stft_frames_lengths(torch.tensor([int(TRAIN_SECONDS
+                                                  * SAMPLE_RATE)]),
+                                hcfg.n_fft, hcfg.hop_length)[0])
+    lengths = [t] * TRAIN_BATCH
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        args, flops, nbytes, _ = flash_case(torch, TRAIN_BATCH, t, dtype,
+                                            lengths, 41)
+        with torch.no_grad():
+            check_kernel(torch, "flash_attention", flash_attention,
+                         flash_attention_plain, args, flops, nbytes, dn,
+                         f"hubert B={TRAIN_BATCH} H=4 T={t} D=64", iters=5)
+        del args
+    check_ffn_rows(torch, hcfg, TRAIN_BATCH * t,
+                   f"hubert M={TRAIN_BATCH}x{t}", "relu", 1.0)
+    return t
+
+
+def whisper_step_check(torch, np, model, sp, ln, smi):
+    """score_step over 12 positions with the KV cache of
+    max_target_positions (448) rows against the teacher-forced decoder's
+    log-probs, float32, on the requests' encoder output."""
+    dec = model.decoder
+    rng = np.random.RandomState(9)
+    b, u = sp.shape[0], 12
+    tokens = torch.from_numpy(rng.randint(
+        1, dec.cfg.vocab_size - 1, (b, u))).to(sp.device)
+    with torch.no_grad():
+        mem, mlen = model.encode(sp, ln)
+        full = torch.log_softmax(dec(tokens, torch.full(
+            (b,), u, device=sp.device), mem, mlen).float(), -1)
+        cache = dec.init_cache(b, dec.cfg.max_target_positions, sp.device)
+        steps = []
+        for pos in range(u):
+            lp, cache = dec.score_step(tokens[:, pos], pos, mem, mlen, cache)
+            steps.append(lp)
+    dev = float((torch.stack(steps, 1) - full).abs().max())
+    log("ssl", f"whisper_base score_step (cache {dec.cfg.max_target_positions}"
+        f" rows) vs teacher-forced log-probs, {u} positions, float32: max "
+        f"|dev| {dev:.3e} (limit {WHISPER_STEP_ATOL}) [{smi}]")
+    if dev > WHISPER_STEP_ATOL:
+        raise AssertionError("whisper score_step disagrees with the "
+                             "teacher-forced decoder")
+
+
+def ssl_case(torch, np, smi, name, device="cuda", cfg=None,
+             batch_size=TRAIN_BATCH, seconds=TRAIN_SECONDS):
+    """One of the SSL and Whisper configurations: serve the 4 requests in
+    float32 (beam 10, 40 steps; Whisper's CTC weight 0) with the kernel
+    route's results equal to the plain route's and the encoder output
+    within 1e-3 (Whisper: also score_step against the teacher-forced
+    log-probs), a float32 train step with kernels against plain (a frozen
+    trunk gets no gradient), then 3 bf16 steps at `batch_size` x 15 s,
+    each with its exact launches. (device="cpu" with a small `cfg`
+    rehearses it without a card.)"""
+    from espnet_tpu_torch import configs
+    from espnet_tpu_torch.decode.asr_inference import Speech2Text
+
+    cfg = cfg or getattr(configs, name)(torch.bfloat16)
+    on_card = device == "cuda"
+    per_encode = SSL_PER_ENCODE[name] if on_card else {}
+    per_step = SSL_PER_STEP[name] if on_card else {}
+    ctc_weight = 0.3 if cfg.ctc_weight > 0 else 0.0
+    speech, lengths = requests(np)
+    sp = torch.from_numpy(speech).to(device)
+    ln = torch.from_numpy(lengths).to(device)
+
+    def run(model):
+        yseq, ylen, score = Speech2Text(
+            model, device=device, beam_size=SSL_BEAM, ctc_weight=ctc_weight,
+            max_steps=SSL_STEPS).decode_batch(sp, ln)
+        return [(yseq[i, 0, :ylen[i, 0]].tolist(), float(score[i, 0]))
+                for i in range(yseq.shape[0])]
+
+    stepped = []
+
+    def encode(model):
+        enc, olens = model.encode(sp, ln)
+        valid = torch.arange(enc.shape[1], device=enc.device)[None] < \
+            olens[:, None]
+        if cfg.decoder_type == "whisper" and not stepped:
+            whisper_step_check(torch, np, model, sp, ln, smi)
+            stepped.append(1)
+        return enc, valid[..., None]
+
+    multi_serve(torch, np, name, cfg, run, encode, per_encode, {}, None,
+                smi, device=device, phase="ssl")
+    unused = phase_train_parity(torch, np, cfg, device=device,
+                                tag=f"train-parity[{name}]")
+    frozen = cfg.input_type == "ssl" and cfg.ssl_freeze
+    trunk = [n for n in unused if n.startswith("ssl_frontend.upstream.")]
+    if (len(trunk) != len(unused)
+            or bool(trunk) != frozen):
+        raise AssertionError(f"{name}: parameters without a gradient "
+                             f"{len(unused)} (trunk {len(trunk)}), frozen "
+                             f"trunk {frozen}")
+    batch = train_batch(np, batch_size, [seconds] * batch_size,
+                        TRAIN_LABELS, cfg.vocab_size, 0)
+    launches, step_s, peak = phase_train(
+        torch, np, cfg, device=device, batch_size=batch_size,
+        seconds=seconds, tag=f"train[{name}]", batch=batch,
+        need_stats=("loss",))
+    check_case_launches(name, f"{TRAIN_TIMED_STEPS} train steps", launches,
+                        per_step, TRAIN_TIMED_STEPS)
+    log("ssl", f"{name} train {cfg.dtype} B={batch_size} x {seconds} s: "
+        f"{step_s * 1e3:.1f} ms/step, {batch_size * seconds / step_s:.1f} "
+        f"audio-s/s, peak {peak:.2f} GiB [{smi}]; "
+        f"{len(trunk)} frozen trunk tensors without a gradient; "
+        f"launches exact {({k: v for k, v in launches.items() if v})}")
+
+
+def ssl_hubert(torch, np, smi, device="cuda", cfg=None,
+               batch_size=TRAIN_BATCH, seconds=TRAIN_SECONDS):
+    """hubert_pretrain: a float32 train step with kernels against plain on
+    the requests, then 3 bf16 steps at B=64 x 15 s with the exact flash
+    and pre-norm FFN launches. Returns the timed steps' launches."""
+    from espnet_tpu_torch.configs import hubert_pretrain
+
+    cfg = cfg or hubert_pretrain(torch.bfloat16)
+    pb = hubert_batch(np, len(REQUEST_SECONDS), REQUEST_SECONDS,
+                      cfg.num_classes, 2, cfg.hop_length)
+    phase_train_parity(torch, np, cfg, device=device,
+                       tag="train-parity[hubert_pretrain]", batch=pb,
+                       keys=HUBERT_KEYS)
+    batch = hubert_batch(np, batch_size, [seconds] * batch_size,
+                         cfg.num_classes, 0, cfg.hop_length)
+    launches, step_s, peak = phase_train(
+        torch, np, cfg, device=device, batch_size=batch_size,
+        seconds=seconds, tag="train[hubert_pretrain]", batch=batch,
+        need_stats=("loss_masked", "acc_masked", "mask_ratio"),
+        keys=HUBERT_KEYS)
+    check_case_launches("hubert_pretrain", f"{TRAIN_TIMED_STEPS} train "
+                        "steps", launches,
+                        HUBERT_PER_STEP if device == "cuda" else {},
+                        TRAIN_TIMED_STEPS)
+    rows = batch["labels"].shape[1]
+    log("ssl", f"hubert_pretrain train {cfg.dtype} B={batch_size} x "
+        f"{seconds} s ({rows} frames, no subsampling): {step_s * 1e3:.1f} "
+        f"ms/step, {batch_size * seconds / step_s:.1f} audio-s/s, peak "
+        f"{peak:.2f} GiB [{smi}]; launches exact")
+    return launches
+
+
+def hf_wav2vec2_state(trunk):
+    """The port's Wav2Vec2Model as a HF Wav2Vec2Model state dict (numpy,
+    HF key names; the positional conv as the weight-norm parametrization
+    with g = ||v||, so that w = v)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in trunk.state_dict().items()}
+    c = trunk.cfg
+    out = {}
+    for i in range(len(c.conv_dim)):
+        out[f"feature_extractor.conv_layers.{i}.conv.weight"] = \
+            sd[f"feature_extractor.conv{i}.weight"]
+        norm = ("group_norm" if c.feat_extract_norm == "group" and i == 0
+                else f"norm{i}" if c.feat_extract_norm == "layer" else None)
+        if norm:
+            for leaf in ("weight", "bias"):
+                out[f"feature_extractor.conv_layers.{i}.layer_norm.{leaf}"] \
+                    = sd[f"feature_extractor.{norm}.{leaf}"]
+    names = {"feature_projection.layer_norm": "proj_norm",
+             "feature_projection.projection": "projection",
+             "encoder.layer_norm": "norm"}
+    for i in range(c.num_layers):
+        p, q = f"encoder.layers.{i}", f"layer{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            names[f"{p}.attention.{proj}"] = f"{q}.attention.{proj}"
+        names[f"{p}.layer_norm"] = f"{q}.layer_norm"
+        names[f"{p}.feed_forward.intermediate_dense"] = \
+            f"{q}.intermediate_dense"
+        names[f"{p}.feed_forward.output_dense"] = f"{q}.output_dense"
+        names[f"{p}.final_layer_norm"] = f"{q}.final_layer_norm"
+    for hf, port in names.items():
+        for leaf in ("weight", "bias"):
+            out[f"{hf}.{leaf}"] = sd[f"{port}.{leaf}"]
+    v = sd["pos_conv.weight"]
+    g = (v.astype("float64") ** 2).sum(axis=(0, 1), keepdims=True) ** 0.5
+    pre = "encoder.pos_conv_embed.conv"
+    out[f"{pre}.parametrizations.weight.original0"] = g.astype(v.dtype)
+    out[f"{pre}.parametrizations.weight.original1"] = v
+    out[f"{pre}.bias"] = sd["pos_conv.bias"]
+    return out
+
+
+def hf_whisper_state(encoder, decoder):
+    """The port's Whisper encoder and decoder as a HF
+    WhisperForConditionalGeneration state dict (keys under `model.`)."""
+    out = {}
+
+    def layer(sd, p, q, cross):
+        attns = ["self_attn"] + (["encoder_attn"] if cross else [])
+        for a in attns:
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                for leaf in ("weight", "bias"):
+                    key = f"{q}.{a}.{proj}.{leaf}"
+                    if key in sd:
+                        out[f"{p}.{a}.{proj}.{leaf}"] = sd[key]
+            for leaf in ("weight", "bias"):
+                out[f"{p}.{a}_layer_norm.{leaf}"] = \
+                    sd[f"{q}.{a}_layer_norm.{leaf}"]
+        for m in ("fc1", "fc2", "final_layer_norm"):
+            for leaf in ("weight", "bias"):
+                out[f"{p}.{m}.{leaf}"] = sd[f"{q}.{m}.{leaf}"]
+
+    for side, mod in (("encoder", encoder), ("decoder", decoder)):
+        sd = {k: v.detach().cpu().numpy() for k, v in
+              mod.state_dict().items()}
+        pre = f"model.{side}"
+        out[f"{pre}.embed_positions.weight"] = sd["positions"]
+        for leaf in ("weight", "bias"):
+            out[f"{pre}.layer_norm.{leaf}"] = sd[f"norm.{leaf}"]
+        n = mod.cfg.encoder_layers if side == "encoder" else \
+            mod.cfg.decoder_layers
+        for i in range(n):
+            layer(sd, f"{pre}.layers.{i}", f"layer{i}", side == "decoder")
+        if side == "encoder":
+            for conv in ("conv1", "conv2"):
+                for leaf in ("weight", "bias"):
+                    out[f"{pre}.{conv}.{leaf}"] = sd[f"{conv}.{leaf}"]
+        else:
+            out[f"{pre}.embed_tokens.weight"] = sd["embed_tokens.weight"]
+    return out
+
+
+def ssl_clis(torch, np, smi, device="cuda", hubert_args=(), w2v_ssl=None,
+             whisper_cfg=None, asr_args=()):
+    """In-process `bin.hubert_train` (one epoch on 16 synthetic utterances,
+    the k-means stage on the device's log-mel), then `bin.convert_hf` on a
+    full-width wav2vec2-base-layout `.safetensors` file (float32) and a
+    whisper-base one (float16, keys under `model.`), both written here
+    under HF's key names from random weights, and `bin.asr_train
+    --run.init_param` from each converted file (learning rate 0: the
+    epoch's parameters are the transferred ones): the transferred trunk
+    and encoder equal the source weights. Each with its exact launches.
+    (device="cpu" with small `w2v_ssl` / `whisper_cfg` and `hubert_args` /
+    `asr_args` that shrink the models rehearses it without a card.)"""
+    import json
+    import shlex
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from espnet_tpu_torch.bin import asr_train, convert_hf, hubert_train
+    from espnet_tpu_torch.data.sampler import build_batches
+    from espnet_tpu_torch.data.synth import generate_corpus
+    from espnet_tpu_torch.models.asr import init_random_
+    from espnet_tpu_torch.models.ssl import (SSLConfig, Wav2Vec2Model,
+                                            WhisperConfig, WhisperDecoder,
+                                            WhisperEncoder)
+    from espnet_tpu_torch.tasks.hubert import HubertDataset, HubertTask
+    from espnet_tpu_torch.train.hf_import import write_safetensors
+    from espnet_tpu_torch.train.msgpack_io import flatten, load_tree
+
+    on_card = device == "cuda"
+    ws = Path(tempfile.mkdtemp(prefix="chip_smoke_ssl_"))
+    common = shlex.split(SSL_CLI_ARGS)
+    dev = ["--device", device]
+    try:
+        generate_corpus(ws / "data", n_utts=SSL_CLI_UTTS, seed=3)
+        exp = ws / "hubert_exp"
+        (_, trainer, _), counts, wall = counted_call(hubert_train.main, [
+            *common, "--data.train_dir", str(ws / "data"),
+            "--data.batch_size", "8", "--data.kmeans_iters", "5",
+            "--optim.lr", "0.001", "--run.output_dir", str(exp),
+            *hubert_args, *dev])
+        cfg = HubertTask.load_config(exp)
+        ds = HubertDataset(ws / "data", exp / "labels")
+        n_batches = len(build_batches(
+            {"speech": ds.speech_lengths()},
+            batch_size=cfg["data"].batch_size,
+            length_quantum=cfg["data"].length_quantum))
+        layers = cfg["model"].num_encoder_layers
+        check_launches("hubert_train", counts, expected_counts(
+            {k: layers * n_batches for k in HUBERT_PER_STEP}
+            if on_card else {}, 1))
+        cents = np.load(exp / "km_centroids.npy")
+        labels = sorted((exp / "labels").glob("*.npy"))
+        if (cents.shape != (cfg["model"].num_classes, cfg["model"].n_mels)
+                or len(labels) != SSL_CLI_UTTS
+                or not (exp / "checkpoint.pt").exists()
+                or not np.isfinite(cents).all()):
+            raise AssertionError("hubert_train: missing or malformed "
+                                 "centroids, labels or checkpoint")
+        log("ssl", f"bin.hubert_train: k-means {cents.shape[0]} x "
+            f"{cents.shape[1]} centroids, {len(labels)} label files, 1 "
+            f"epoch of {n_batches} batches, "
+            f"{trainer.epoch_seconds.get(1, float('nan')):.1f}s train, "
+            f"{wall:.1f}s in all; launches exact [{smi}]")
+
+        gen = torch.Generator().manual_seed(5)
+        scfg = w2v_ssl or SSLConfig()
+        trunk = init_random_(Wav2Vec2Model(scfg), gen)
+        wcfg = whisper_cfg or WhisperConfig()
+        wenc = init_random_(WhisperEncoder(wcfg), gen)
+        wdec = init_random_(WhisperDecoder(wcfg), gen)
+        hf_cfg = {"hidden_size": scfg.hidden_size,
+                  "num_hidden_layers": scfg.num_layers,
+                  "num_attention_heads": scfg.num_heads,
+                  "intermediate_size": scfg.ffn_size,
+                  "conv_dim": list(scfg.conv_dim),
+                  "conv_kernel": list(scfg.conv_kernel),
+                  "conv_stride": list(scfg.conv_stride),
+                  "conv_bias": scfg.conv_bias,
+                  "feat_extract_norm": scfg.feat_extract_norm,
+                  "num_conv_pos_embeddings": scfg.num_conv_pos_embeddings,
+                  "num_conv_pos_embedding_groups":
+                      scfg.num_conv_pos_embedding_groups,
+                  "do_stable_layer_norm": scfg.do_stable_layer_norm}
+        wh_cfg = {"vocab_size": wcfg.vocab_size,
+                  "num_mel_bins": wcfg.n_mels, "d_model": wcfg.d_model,
+                  "encoder_layers": wcfg.encoder_layers,
+                  "decoder_layers": wcfg.decoder_layers,
+                  "encoder_attention_heads": wcfg.num_heads,
+                  "encoder_ffn_dim": wcfg.ffn_size,
+                  "max_source_positions": wcfg.max_source_positions,
+                  "max_target_positions": wcfg.max_target_positions}
+        cases = (
+            ("wav2vec2", hf_wav2vec2_state(trunk), np.float32, hf_cfg,
+             "params:encoder/upstream",
+             ["--model.encoder_type", "wav2vec2", "--model.ssl",
+              json.dumps(dataclasses_dict(scfg))],
+             {k: v for k, v in trunk.state_dict().items()},
+             lambda model: model.encoder.upstream, CTC),
+            ("whisper", hf_whisper_state(wenc, wdec), np.float16, wh_cfg,
+             "encoder:encoder",
+             ["--model.encoder_type", "whisper", "--model.decoder_type",
+              "whisper", "--model.ctc_weight", "0.0", "--model.whisper",
+              json.dumps(dataclasses_dict(wcfg))],
+             {k: v for k, v in wenc.state_dict().items()},
+             lambda model: model.encoder, {}))
+        for kind, sd, dt, conf, spec, model_args, src, part, per in cases:
+            d = ws / f"hf_{kind}"
+            d.mkdir()
+            t = time.perf_counter()
+            write_safetensors(d / "model.safetensors",
+                              {k: np.ascontiguousarray(v, dt)
+                               for k, v in sd.items()})
+            (d / "config.json").write_text(json.dumps(conf))
+            out = ws / f"{kind}.msgpack"
+            convert_hf.main(["--model_type", kind, "--checkpoint", str(d),
+                             "--out", str(out)])
+            n_leaves = len(flatten(load_tree(out)))
+            size = (d / "model.safetensors").stat().st_size / 2 ** 20
+            conv_s = time.perf_counter() - t
+            aexp = ws / f"{kind}_asr"
+            (_, trainer, model, _, _), counts, wall = counted_call(
+                asr_train.main, [
+                    *common, "--optim.lr", "0.0", "--data.train_dir",
+                    str(ws / "data"), "--data.batch_size", "8",
+                    "--model.normalize", "utterance_mvn",
+                    "--model.use_specaug", "false", "--run.init_param",
+                    f"{out}:{spec}", "--run.output_dir", str(aexp),
+                    *model_args, *asr_args, *dev])
+            got = part(model).state_dict()
+            worst, off = 0.0, []
+            for k, v in src.items():
+                want = v.detach().cpu().to(getattr(torch, np.dtype(
+                    dt).name)).float()
+                g = got[k].detach().cpu().float()
+                rel = float((g - want).abs().max()
+                            / want.abs().max().clamp(min=1e-30))
+                worst = max(worst, rel)
+                if rel > (WEIGHT_NORM_RTOL if k == "pos_conv.weight"
+                          else 0.0):
+                    off.append((k, rel))
+            n_steps = len(trainer.step_log)
+            check_launches(f"asr_train {kind}", counts, expected_counts(
+                per if on_card else {}, n_steps))
+            log("ssl", f"bin.convert_hf {kind}: {size:.0f} MiB "
+                f"{np.dtype(dt).name} safetensors -> {n_leaves} leaves, "
+                f"{conv_s:.1f}s; bin.asr_train --run.init_param {spec}: "
+                f"{len(src)} tensors equal to the source (the weight-norm "
+                f"conv within {WEIGHT_NORM_RTOL}: worst relative "
+                f"difference {worst:.2e}), {n_steps} steps, {wall:.1f}s; "
+                f"launches exact [{smi}]")
+            if off:
+                raise AssertionError(f"asr_train {kind}: the transferred "
+                                     f"weights differ from the source: {off}")
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+
+
+def dataclasses_dict(cfg):
+    """A model section's fields but dtype, as the CLI's YAML flow map."""
+    import dataclasses
+
+    return {k: list(v) if isinstance(v, tuple) else v
+            for k, v in dataclasses.asdict(cfg).items() if k != "dtype"}
+
+
+def phase_ssl(torch, np, smi):
+    """The SSL and Whisper parts and HuBERT: the kernels at HuBERT's shapes,
+    ssl_conformer, wav2vec2_ctc and whisper_base served and trained,
+    hubert_pretrain trained, then the CLIs. Returns hubert_pretrain's
+    timed steps' launches."""
+    t0 = time.perf_counter()
+    ssl_kernels(torch, np)
+    ssl_case(torch, np, smi, "ssl_conformer")
+    ssl_case(torch, np, smi, "wav2vec2_ctc")
+    ssl_case(torch, np, smi, "whisper_base")
+    launches = ssl_hubert(torch, np, smi)
+    ssl_clis(torch, np, smi)
+    log("ssl", f"phase {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4500,6 +4996,7 @@ def main() -> int:
     phase_asr_multi(torch, np, smi)
     phase_lm_fusion(torch, np, smi)
     phase_translation(torch, np, smi)
+    phase_ssl(torch, np, smi)
     results.update(rnnt_results)
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

@@ -109,7 +109,8 @@ def load_experiment(exp: Path, data_dir, params=None):
 
 def load_variables(model, exp: Path, params=None):
     """Load into `model` the params file `params` (default:
-    `pick_params_file(exp)`) and, for global MVN, the experiment's
+    `pick_params_file(exp)`) and, for a model with global MVN, the
+    experiment's
     `stats/feats_stats.npz`; without stats, the identity statistics of
     the JAX init, with which the JAX package decodes (and the ST task,
     which collects none, trains)."""
@@ -120,7 +121,7 @@ def load_variables(model, exp: Path, params=None):
     params_file = Path(params) if params else pick_params_file(exp)
     logger.info("loading params: %s", params_file)
     variables = {"params": load_tree(params_file)}
-    if getattr(model.config, "normalize", None) == "global_mvn":
+    if hasattr(model, "mvn"):
         stats_path = exp / "stats" / "feats_stats.npz"
         dim = model.mvn.mean.numel()
         variables["mvn"] = (

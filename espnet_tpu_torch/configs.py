@@ -72,16 +72,37 @@ the `STConfig` defaults on bench.py's conformer (12 x 256, 4 heads, FFN
 2048, kernel 31, a 6 x 2048 translation decoder, utterance MVN as the other
 configurations), `asr_weight` 0.3 and `mtlalpha` 1.0 (so a CTC head over
 the source vocabulary and no ASR decoder), source and target vocab 5000;
-46,836,496 parameters. All use vocab 5000 and random weights from a seed.
+46,836,496 parameters.
+
+    ssl_conformer(torch.bfloat16), wav2vec2_ctc(...), whisper_base(...)
+
+the SSL and Whisper parts of the ASR model (`models/ssl.py`), at the
+published geometry of the JAX `SSLConfig` / `WhisperConfig` defaults:
+`ssl_conformer` is ESPnet's S3PRL-frontend recipe, a frozen wav2vec2-base
+/ HuBERT-base trunk (768 wide, 12 layers, 12 heads, FFN 3072, conv 512 x
+7) through the softmax layer mix into bench.py's model (SpecAug, utterance
+MVN, 12 x 256 conformer, 6 x 2048 decoder, CTC 0.3, vocab 5000);
+`wav2vec2_ctc` fine-tunes that trunk as the encoder (`output_layer` to 256,
+CTC 0.3, the 6-layer decoder); `whisper_base` is whisper-base's encoder
+and decoder (d 512, 6 + 6 layers, 8 heads, FFN 2048, 80 mels, vocab 51865,
+no normalisation, CTC weight 0 as ESPnet's Whisper fine-tuning configs);
+
+    hubert_pretrain(torch.bfloat16)
+
+the JAX `HubertConfig` defaults (a 6 x 256 transformer, 4 heads, FFN 1024,
+100 k-means classes, log-mel at hop 128). All use random weights from a
+seed; all but `whisper_base` vocab 5000.
 """
 
 from __future__ import annotations
 
 from espnet_tpu_torch.models.asr import ASRConfig
 from espnet_tpu_torch.models.asr_mix import ASRMixConfig
+from espnet_tpu_torch.models.hubert import HubertConfig
 from espnet_tpu_torch.models.maskctc import MaskCTCConfig
 from espnet_tpu_torch.models.mt import MTConfig
 from espnet_tpu_torch.models.mulenc import MulEncConfig
+from espnet_tpu_torch.models.ssl import SSLConfig, WhisperConfig
 from espnet_tpu_torch.models.st import STConfig
 from espnet_tpu_torch.models.transducer import TransducerConfig
 from espnet_tpu_torch.tasks.lm import LMModelConfig
@@ -216,3 +237,36 @@ def st_conformer(dtype, **overrides) -> STConfig:
               "src_vocab_size": BENCH["vocab_size"], "asr_weight": 0.3,
               "mtlalpha": 1.0, "dtype": dtype, **overrides}
     return STConfig(**fields)
+
+
+def ssl_conformer(dtype, **overrides) -> ASRConfig:
+    """bench.py's model behind the frozen S3PRL frontend (wav2vec2-base /
+    HuBERT-base trunk)."""
+    return bench_config(dtype, "conformer", **{
+        "input_type": "ssl", "ssl": SSLConfig(), "ssl_freeze": True,
+        **overrides})
+
+
+def wav2vec2_ctc(dtype, **overrides) -> ASRConfig:
+    """The wav2vec2-base trunk fine-tuned as the encoder (output_layer to
+    256), CTC 0.3 and bench.py's 6-layer decoder."""
+    return bench_config(dtype, "conformer", **{
+        "encoder_type": "wav2vec2", "ssl": SSLConfig(),
+        "ssl_freeze": False, **overrides})
+
+
+WHISPER_VOCAB = WhisperConfig().vocab_size
+
+
+def whisper_base(dtype, **overrides) -> ASRConfig:
+    """whisper-base's encoder and decoder over its 51865 tokens, CTC weight
+    0, no normalisation (Whisper's log-mel is its own)."""
+    return bench_config(dtype, "conformer", **{
+        "encoder_type": "whisper", "decoder_type": "whisper",
+        "whisper": WhisperConfig(), "vocab_size": WHISPER_VOCAB,
+        "ctc_weight": 0.0, "normalize": "none", **overrides})
+
+
+def hubert_pretrain(dtype, **overrides) -> HubertConfig:
+    """The JAX `HubertConfig` defaults (6 x 256, FFN 1024, 100 classes)."""
+    return HubertConfig(**{"dtype": dtype, **overrides})

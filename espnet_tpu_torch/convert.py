@@ -16,8 +16,10 @@ leaves change layout:
   among them), Conv2d's as above (the VGG front and AttLoc2D);
 * `pos_bias_u` / `pos_bias_v` (H, dk), every `bias`, and the raw
   parameters of the S4 layer (`log_neg_a_re`, `a_im`, `log_dt`, `c_re`,
-  `c_im`, `d`), the sinc filters (`low_hz`, `band_hz`) and the multi-head
-  RNN attentions (`gvec`, (H, dk)) as they are.
+  `c_im`, `d`), the sinc filters (`low_hz`, `band_hz`), the multi-head
+  RNN attentions (`gvec`, (H, dk)), the S3PRL featurizer's
+  `layer_weights`, HuBERT's `mask_emb` and Whisper's `positions` tables
+  as they are.
 
 The fused and unfused JAX layers use the same param names, so one mapping
 serves both. A conformer built with `scan_encoder_layers=True` keeps its
@@ -54,6 +56,15 @@ encoder's layers `encoder/layer{i}` and its final norm
 the source-side decoder `asr_decoder`, and an ST model with global MVN
 keeps its statistics in the `mvn` collection, as the ASR model does.
 
+The SSL and Whisper trees (`models/ssl.py`) and HuBERT's
+(`models/hubert.py`) follow the same rules: the S3PRL frontend is
+`ssl_frontend/upstream/...` beside its raw `ssl_frontend/layer_weights`,
+the wav2vec2 encoder `encoder/upstream/...` and `encoder/output_layer`,
+the trunk's grouped `pos_conv` a Conv kernel (k, in/groups, out) and its
+GroupNorm a `scale`; Whisper's `encoder/positions` and `decoder/positions`
+are raw tables and `decoder/embed_tokens/embedding` an embedding; HuBERT's
+`mask_emb` is raw, its `layer{i}` the transformer's encoder layers.
+
 The transducer's tree (`models/transducer.py`) follows the same rules: its
 LSTM cells are Dense layers named as flax's `OptimizedLSTMCell` names its
 kernels (`decoder/lstm{i}/{ii,if,ig,io}/kernel`, `decoder/lstm{i}/{hi,hf,hg,
@@ -86,7 +97,10 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 # raw parameters carried without a layout change
 RAW_LEAVES = ("bias", "pos_bias_u", "pos_bias_v", "log_neg_a_re", "a_im",
-              "log_dt", "c_re", "c_im", "d", "low_hz", "band_hz", "gvec")
+              "log_dt", "c_re", "c_im", "d", "low_hz", "band_hz", "gvec",
+              "layer_weights", "mask_emb", "positions")
+# modules whose 2-D `weight` is an embedding table
+EMBEDDINGS = ("embed", "embed_tokens")
 
 
 def _leaf(name: str, value: np.ndarray):
@@ -222,7 +236,7 @@ def _jax_leaf(key: str, value: np.ndarray):
         raise ValueError(f"unknown parameter leaf {key!r}")
     if value.ndim == 1:
         return "scale", value
-    if value.ndim == 2 and len(parts) > 1 and parts[-2] == "embed":
+    if value.ndim == 2 and len(parts) > 1 and parts[-2] in EMBEDDINGS:
         return "embedding", value
     if value.ndim in (2, 3, 4):
         return "kernel", _unleaf("kernel", value)

@@ -123,6 +123,10 @@ class Speech2Text:
             steps = max(1, int(math.ceil(self.cfg.maxlenratio * steps)))
         if self.max_steps:
             steps = min(steps, self.max_steps)
+        # a decoder with a position table (Whisper's) scores that many steps
+        cap = getattr(model, "decoder_max_steps", None)
+        if cap is not None:
+            steps = min(steps, cap)
         if self.cfg.ctc_weight <= 0:
             ctc_lp = None
         elif ctc_lp is None:

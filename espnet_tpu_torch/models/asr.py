@@ -1,27 +1,37 @@
 """Joint CTC/attention ASR model (port of espnet_tpu/models/asr.py).
 
-Every part that the JAX `ASRModel` selects through its `ASRConfig`, but
-the SSL and Whisper ones (ROADMAP.md queue 1 item 8): a frontend
-(`input_type`: "raw" 16 kHz waveform -> log-mel, multichannel (B, N, C)
-with DNN-WPE and the mask-MVDR beamformer when `num_channels` > 1;
-"feats", precomputed features passed through; "sliding_window", raw-sample
-frames; "fused", two log-mel resolutions concatenated; "sinc",
-`LightweightSincConvs`) -> SpecAug (training) -> global MVN (stats in the
-`mvn` buffers, loaded from the JAX `mvn` collection), utterance MVN or
-none -> an encoder (conformer, transformer, Branchformer, E-Branchformer,
-contextual-block conformer, longformer, VGG-BLSTM, VGG-LSTM, or a plugin
-registered under `encoder_type` in `utils/registry.py`, built from
-`encoder_conf`) -> a CTC head (when `ctc_weight` > 0) and a decoder (when
-`ctc_weight` < 1: transformer, the v1 RNN decoder with the attention of
-`rnn_att_type`, the S4 decoder, or a registered plugin built from
-`decoder_conf`). `forward` is the training loss (CTC weight `ctc_weight`,
-InterCTC on the encoder layers `interctc_layer_idx` mixed into the CTC
-loss with `interctc_weight`, label-smoothed attention loss); `encode`,
+Every part that the JAX `ASRModel` selects through its `ASRConfig`: a
+frontend (`input_type`: "raw" 16 kHz waveform -> log-mel, multichannel
+(B, N, C) with DNN-WPE and the mask-MVDR beamformer when `num_channels` >
+1; "feats", precomputed features passed through; "sliding_window",
+raw-sample frames; "fused", two log-mel resolutions concatenated; "sinc",
+`LightweightSincConvs`; "ssl", the S3PRL featurizer over a wav2vec2 /
+HuBERT trunk, `models/ssl.py` `SSLFrontend`, configured by the `ssl`
+section) -> SpecAug (training) -> global MVN (stats in the `mvn` buffers,
+loaded from the JAX `mvn` collection), utterance MVN or none -> an encoder
+(conformer, transformer, Branchformer, E-Branchformer, contextual-block
+conformer, longformer, VGG-BLSTM, VGG-LSTM, "wav2vec2" (the trunk itself
+on the raw waveform, with no frontend, SpecAug or normalisation),
+"whisper" (Whisper's encoder on Whisper's log-mel, the `whisper` section),
+or a plugin registered under `encoder_type` in `utils/registry.py`, built
+from `encoder_conf`) -> a CTC head (when `ctc_weight` > 0) and a decoder
+(when `ctc_weight` < 1: transformer, the v1 RNN decoder with the attention
+of `rnn_att_type`, the S4 decoder, Whisper's decoder over the ASR's
+vocabulary, or a registered plugin built from `decoder_conf`). `forward`
+is the training loss (CTC weight `ctc_weight`, InterCTC on the encoder
+layers `interctc_layer_idx` mixed into the CTC loss with
+`interctc_weight`, label-smoothed attention loss); `encode`,
 `encode_chunk` (the VGG-LSTM's carried chunk streaming), `ctc_log_probs`
 and the decoder's step scoring serve inference. sos = eos = vocab_size - 1
 and blank = 0, as in the JAX package. Parameters are float32;
 `ASRConfig.dtype` is the compute dtype (bfloat16 for the bench model); the
 multichannel frontend runs in float32 whatever it is, as in JAX.
+
+The `ssl` and `whisper` sections take `SSLConfig` / `WhisperConfig`
+instances or plain dicts (a config.yaml's); the model rebuilds the
+dataclasses with lists as tuples and the compute dtype pinned to its own
+(the JAX `_coerce_section`). `ssl_freeze` runs the trunk without a graph
+(the JAX stop-gradient) in the SSL frontend and the wav2vec2 encoder.
 
 Dropout and SpecAug are on while the model is training and the caller
 passes a `torch.Generator`, from which all their randomness is drawn (the
@@ -45,6 +55,10 @@ from espnet_tpu_torch.models.longformer import LongformerEncoder
 from espnet_tpu_torch.models.rnn import RNNDecoder, VGGRNNEncoder
 from espnet_tpu_torch.models.s4_decoder import S4Decoder
 from espnet_tpu_torch.models.sinc import LightweightSincConvs
+from espnet_tpu_torch.models.ssl import (SSLConfig, SSLFrontend,
+                                         Wav2Vec2ASREncoder, WhisperConfig,
+                                         WhisperDecoder, WhisperEncoder,
+                                         whisper_log_mel)
 from espnet_tpu_torch.models.streaming import ContextualBlockConformerEncoder
 from espnet_tpu_torch.models.transformer import (TransformerDecoder,
                                                  TransformerEncoder)
@@ -61,15 +75,17 @@ from espnet_tpu_torch.utils import registry
 
 @dataclasses.dataclass(frozen=True)
 class ASRConfig:
-    """The fields of the JAX `ASRConfig` but its SSL and Whisper sections,
-    with the JAX defaults: a frontend (`input_type`: "raw" | "feats" |
-    "sliding_window" | "fused" | "sinc"; multichannel raw input with
-    `num_channels` > 1) with SpecAug and a normalisation (`normalize`:
-    "global_mvn" | "utterance_mvn" | "none"), an encoder (`encoder_type`:
-    "conformer" | "transformer" | "branchformer" | "e_branchformer" |
-    "contextual_block_conformer" | "longformer" | "vgg_blstm" | "vgg_lstm"
-    | a registered plugin), a CTC head and a decoder (`decoder_type`:
-    "transformer" | "rnn" | "s4" | a registered plugin)."""
+    """The fields of the JAX `ASRConfig`, with the JAX defaults: a frontend
+    (`input_type`: "raw" | "feats" | "sliding_window" | "fused" | "sinc" |
+    "ssl"; multichannel raw input with `num_channels` > 1) with SpecAug and
+    a normalisation (`normalize`: "global_mvn" | "utterance_mvn" | "none"),
+    an encoder (`encoder_type`: "conformer" | "transformer" |
+    "branchformer" | "e_branchformer" | "contextual_block_conformer" |
+    "longformer" | "vgg_blstm" | "vgg_lstm" | "wav2vec2" | "whisper" | a
+    registered plugin), a CTC head and a decoder (`decoder_type`:
+    "transformer" | "rnn" | "s4" | "whisper" | a registered plugin); `ssl`
+    and `whisper` configure the SSL trunk and Whisper (`SSLConfig`,
+    `WhisperConfig` or dicts of their fields)."""
 
     vocab_size: int
     input_type: str = "raw"
@@ -114,6 +130,12 @@ class ASRConfig:
     # JAX checkpoints of the conformer hold one stacked `block` (convert.py)
     scan_encoder_layers: bool = False
     conformer_kernel_size: int = 31
+    # the SSL trunk (input_type ssl, encoder_type wav2vec2) and Whisper
+    # (encoder_type / decoder_type whisper); ssl_freeze: no gradient into
+    # the trunk
+    ssl: Any = None
+    whisper: Any = None
+    ssl_freeze: bool = True
     decoder_type: str = "transformer"
     num_decoder_layers: int = 6
     decoder_d_ff: int = 2048
@@ -146,20 +168,58 @@ class ASRConfig:
 
 
 NORMALIZE = ("global_mvn", "utterance_mvn", "none")
-INPUT_TYPES = ("raw", "feats", "sliding_window", "fused", "sinc")
-# parts of the JAX package that the port lacks -> ROADMAP.md queue 1 item
-UNPORTED_INPUT_TYPES = {"ssl": 8}
-UNPORTED_ENCODERS = {"wav2vec2": 8, "whisper": 8}
-UNPORTED_DECODERS = {"whisper": 8}
+INPUT_TYPES = ("raw", "feats", "sliding_window", "fused", "sinc", "ssl")
 MERGE_KERNEL = 3  # the JAX BranchformerEncoder's default; no config field
+
+
+def coerce_section(value, cls, dtype):
+    """The `ssl` / `whisper` section as a `cls` dataclass (None stays None):
+    a dict (YAML, or a dataclass's asdict) with lists as tuples, its dtype
+    pinned to the model's compute `dtype`."""
+    if value is None:
+        return None
+    if isinstance(value, cls):
+        return dataclasses.replace(value, dtype=dtype)
+    d = {k: tuple(v) if isinstance(v, list) else v
+         for k, v in dict(value).items()}
+    d.pop("dtype", None)
+    return cls(dtype=dtype, **d)
+
+
+def with_sections(c: ASRConfig) -> ASRConfig:
+    """`c` with its `ssl` and `whisper` sections as dataclasses (the
+    defaults of one when an SSL or Whisper part is selected without it);
+    the model keeps this form."""
+    ssl = coerce_section(c.ssl, SSLConfig, c.dtype)
+    whisper = coerce_section(c.whisper, WhisperConfig, c.dtype)
+    if ssl is None and (c.input_type == "ssl"
+                        or c.encoder_type == "wav2vec2"):
+        ssl = SSLConfig(dtype=c.dtype)
+    if whisper is None and "whisper" in (c.encoder_type, c.decoder_type):
+        whisper = WhisperConfig(dtype=c.dtype)
+    return dataclasses.replace(c, ssl=ssl, whisper=whisper)
+
+
+def encoder_output_dim(c: ASRConfig) -> int:
+    """The encoder's output width: Whisper's d_model for its encoder, else
+    d_model (the wav2vec2 encoder projects to it)."""
+    if c.encoder_type == "whisper":
+        return with_sections(c).whisper.d_model
+    return c.d_model
 
 
 def feature_dim(c: ASRConfig) -> int:
     """The width of the frontend's features: the encoder's input width and
     the global MVN's (the JAX `GlobalMVN(feat_dim)`): `win_length` (400
     unset) samples for "sliding_window", 2 x n_mels for "fused",
-    `sinc_out_dim` for "sinc", else n_mels (precomputed "feats" must be
-    n_mels wide)."""
+    `sinc_out_dim` for "sinc", the trunk's `hidden_size` for "ssl",
+    Whisper's `n_mels` for raw input into the Whisper encoder (JAX sizes
+    that MVN by the ASR's n_mels: ROADMAP.md queue 3), else n_mels
+    (precomputed "feats" must be n_mels wide)."""
+    if c.input_type == "ssl":
+        return with_sections(c).ssl.hidden_size
+    if c.input_type == "raw" and c.encoder_type == "whisper":
+        return with_sections(c).whisper.n_mels
     if c.input_type == "sinc":
         return c.sinc_out_dim
     if c.input_type == "sliding_window":
@@ -231,11 +291,11 @@ def build_encoder(c: ASRConfig,
         return VGGRNNEncoder(
             n_feats, c.d_model, c.d_model, c.num_encoder_layers,
             c.encoder_type == "vgg_blstm", c.dropout_rate, c.dtype)
-    if c.encoder_type in UNPORTED_ENCODERS:
-        raise NotImplementedError(
-            f"encoder_type {c.encoder_type!r} is not ported yet (ROADMAP.md "
-            f"queue 1 item {UNPORTED_ENCODERS[c.encoder_type]}: SSL and "
-            "Whisper)")
+    if c.encoder_type == "wav2vec2":
+        return Wav2Vec2ASREncoder(with_sections(c).ssl, c.d_model,
+                                  freeze=c.ssl_freeze)
+    if c.encoder_type == "whisper":
+        return WhisperEncoder(with_sections(c).whisper)
     cls = registry.resolve("encoder", c.encoder_type,
                            f"unknown encoder_type {c.encoder_type}")
     return cls(**dict(c.encoder_conf or {}))
@@ -245,7 +305,8 @@ def build_decoder(c: ASRConfig) -> Optional[nn.Module]:
     """The decoder of `c.decoder_type` (None without one, ctc_weight 1):
     the transformer, the v1 RNN decoder (embedding, units and the
     attention's output all `d_model` wide, as the JAX model builds it), the
-    S4 decoder, or a plugin of `utils/registry.py` built from
+    S4 decoder, Whisper's decoder (its geometry the `whisper` section's,
+    its vocabulary the ASR's), or a plugin of `utils/registry.py` built from
     `decoder_conf` alone."""
     if c.ctc_weight >= 1.0:
         return None
@@ -264,11 +325,9 @@ def build_decoder(c: ASRConfig) -> Optional[nn.Module]:
         return S4Decoder(c.vocab_size, c.d_model, c.num_heads,
                          c.decoder_d_ff, c.num_decoder_layers,
                          dropout_rate=c.dropout_rate, dtype=c.dtype)
-    if c.decoder_type in UNPORTED_DECODERS:
-        raise NotImplementedError(
-            f"decoder_type {c.decoder_type!r} is not ported yet (ROADMAP.md "
-            f"queue 1 item {UNPORTED_DECODERS[c.decoder_type]}: SSL and "
-            "Whisper)")
+    if c.decoder_type == "whisper":
+        return WhisperDecoder(dataclasses.replace(with_sections(c).whisper,
+                                                  vocab_size=c.vocab_size))
     cls = registry.resolve("decoder", c.decoder_type,
                            f"unknown decoder_type {c.decoder_type}")
     return cls(**dict(c.decoder_conf or {}))
@@ -323,13 +382,10 @@ class ASRModel(ASRBase):
         c = config
         if not 0.0 <= c.ctc_weight <= 1.0:
             raise ValueError(f"ctc_weight {c.ctc_weight} not in [0, 1]")
+        if c.normalize is None:  # the CLI's "none" (as in JAX)
+            c = dataclasses.replace(c, normalize="none")
         if c.normalize not in NORMALIZE:
             raise ValueError(f"normalize {c.normalize!r} not in {NORMALIZE}")
-        if c.input_type in UNPORTED_INPUT_TYPES:
-            raise NotImplementedError(
-                f"input_type {c.input_type!r} is not ported yet (ROADMAP.md "
-                f"queue 1 item {UNPORTED_INPUT_TYPES[c.input_type]}: SSL and "
-                "Whisper)")
         if c.input_type not in INPUT_TYPES:
             raise ValueError(f"input_type {c.input_type!r} not in "
                              f"{INPUT_TYPES}")
@@ -346,13 +402,26 @@ class ASRModel(ASRBase):
                 f"interctc_layer_idx {c.interctc_layer_idx!r}: give 1-based "
                 f"layer numbers up to {c.num_encoder_layers} as a list "
                 "(--model.interctc_layer_idx 6, or [6] in YAML)")
+        c = with_sections(c)
         self.config = c
         self.encoder_options = dict(encoder_options or {})
-        if c.normalize == "global_mvn":
+        # the wav2vec2 encoder takes the raw waveform: no normalisation (the
+        # JAX model never calls its GlobalMVN there, so it has no stats)
+        if c.normalize == "global_mvn" and c.encoder_type != "wav2vec2":
             self.mvn = GlobalMVN(feature_dim(c))
+        if c.input_type == "ssl":
+            self.ssl_frontend = SSLFrontend(c.ssl, freeze=c.ssl_freeze)
+        if (c.encoder_type == "whisper" and c.ctc_weight < 1.0
+                and c.decoder_type != "whisper"
+                and c.whisper.d_model != c.d_model):
+            raise ValueError(
+                f"the Whisper encoder's output is {c.whisper.d_model} wide "
+                f"and the {c.decoder_type} decoder's memory d_model "
+                f"{c.d_model}: set d_model to Whisper's")
         self.encoder = build_encoder(c, self.encoder_options)
         self.decoder = build_decoder(c)
-        self.ctc_head = (Dense(c.d_model, c.vocab_size, dtype=c.dtype)
+        self.ctc_head = (Dense(encoder_output_dim(c), c.vocab_size,
+                               dtype=c.dtype)
                          if c.ctc_weight > 0.0 else None)
         if self.multichannel:
             n_freq = c.n_fft // 2 + 1
@@ -397,14 +466,22 @@ class ASRModel(ASRBase):
     def frontend(self, speech, speech_lengths, generator=None):
         """speech (B, N) waveforms ((B, N, C) multichannel), or (B, T, D)
         features for "feats" -> (normalised features (B, T, feature_dim),
-        lengths)."""
+        lengths); the waveforms themselves for the wav2vec2 encoder."""
         c = self.config
+        if c.encoder_type == "wav2vec2":
+            return speech, speech_lengths
         if self.multichannel:
             feats, feat_lengths = self.multichannel_frontend(speech,
                                                              speech_lengths)
         elif c.input_type == "sinc":
             feats, feat_lengths = self.sinc_frontend(speech, speech_lengths,
                                                      generator)
+        elif c.input_type == "ssl":
+            feats, feat_lengths = self.ssl_frontend(speech, speech_lengths,
+                                                    generator)
+        elif c.input_type == "raw" and c.encoder_type == "whisper":
+            feats, feat_lengths = whisper_log_mel(speech, speech_lengths,
+                                                  c.fs, c.whisper.n_mels)
         elif c.input_type == "raw":
             feats, feat_lengths = log_mel_spectrogram(
                 speech, speech_lengths, c.fs, c.n_fft, c.hop_length,
@@ -533,6 +610,16 @@ class ASRModel(ASRBase):
         return self.decoder.score_step(tokens_step, pos, memory,
                                        memory_lengths, cache)
 
+    @property
+    def decoder_max_steps(self) -> Optional[int]:
+        """The most label steps the decoder can score: Whisper's positions
+        end at max_target_positions (the search stops one short of it);
+        None for the others. (The JAX decoder clamps the position index
+        past its table: ROADMAP.md queue 3.)"""
+        if self.config.decoder_type == "whisper" and self.decoder is not None:
+            return self.config.whisper.max_target_positions - 1
+        return None
+
     def decoder_init_cache(self, batch, max_len, memory=None,
                            memory_lengths=None):
         """The decoder's empty beam cache for `batch` hypotheses, on the
@@ -567,12 +654,13 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     weights, N(0, 1) embeddings, zero biases and position biases, unit
     LayerNorm scales (the JAX package's initialisers, drawn from torch);
     a module with an `init_random_` of its own (the S4 layer, the sinc
-    filters) fills its parameters itself."""
+    filters, the S3PRL featurizer's layer weights, Whisper's position
+    tables, HuBERT's mask embedding) fills its own parameters itself."""
     own = set()
     for mod_name, mod in model.named_modules():
-        if hasattr(mod, "init_random_") and mod is not model:
+        if hasattr(mod, "init_random_"):
             mod.init_random_(generator)
-            own.update(f"{mod_name}.{n}" for n, _ in
+            own.update(f"{mod_name}.{n}" if mod_name else n for n, _ in
                        mod.named_parameters(recurse=False))
     for name, prm in model.named_parameters():
         if name in own:

@@ -3,8 +3,10 @@
     python -m espnet_tpu_torch.profile_train [--batch 64] [--secs 15]
         [--encoder NAME]  (a configuration of espnet_tpu_torch.configs,
                            "longformer", "vgg_blstm_rnn", "transducer",
-                           "maskctc_conformer", "mulenc_transformer" or
-                           "asr_mix_conformer")
+                           "maskctc_conformer", "mulenc_transformer",
+                           "asr_mix_conformer", "ssl_conformer",
+                           "wav2vec2_ctc", "whisper_base" or
+                           "hubert_pretrain")
 
 Builds the bench model (full width and depth, bf16 compute, dropout 0.1,
 SpecAug, random weights from a seed) with the encoder of the chosen
@@ -12,7 +14,9 @@ configuration of `espnet_tpu_torch.configs`, or with `--encoder transducer`
 the RNN-T `configs.transducer_conformer` (`longformer` and `vgg_blstm_rnn`:
 `configs.longformer_conformer`, `configs.vgg_blstm_rnn`; the Mask-CTC,
 multi-encoder and multi-speaker models of the configurations of their
-names, with two streams, or two speakers' labels); runs one warm-up
+names, with two streams, or two speakers' labels; the SSL and Whisper
+configurations; HuBERT pretraining with random k-means labels); runs one
+warm-up
 train step
 through
 `make_train_step`, then one step under `torch.profiler` and one step timed
@@ -33,17 +37,23 @@ import torch
 
 from espnet_tpu_torch.configs import (ENCODERS, asr_mix_conformer,
                                       bench_config, encoder_options,
-                                      longformer_conformer,
+                                      hubert_pretrain, longformer_conformer,
                                       maskctc_conformer, mulenc_transformer,
-                                      transducer_conformer, vgg_blstm_rnn)
+                                      ssl_conformer, transducer_conformer,
+                                      vgg_blstm_rnn, wav2vec2_ctc,
+                                      whisper_base)
 from espnet_tpu_torch.models.asr import ASRModel, init_random_
 from espnet_tpu_torch.models.asr_mix import ASRMixModel
+from espnet_tpu_torch.models.hubert import HubertModel
 from espnet_tpu_torch.models.maskctc import MaskCTCModel
 from espnet_tpu_torch.models.mulenc import ASRMulEncModel
 from espnet_tpu_torch.models.transducer import TransducerASRModel
 
 # whole models by name, beside the encoders of `ENCODERS`
-MODELS = {"longformer": longformer_conformer, "vgg_blstm_rnn": vgg_blstm_rnn}
+MODELS = {"longformer": longformer_conformer, "vgg_blstm_rnn": vgg_blstm_rnn,
+          "ssl_conformer": ssl_conformer, "wav2vec2_ctc": wav2vec2_ctc,
+          "whisper_base": whisper_base}
+HUBERT_KEYS = ("speech", "speech_lengths", "labels")
 # the other ASR tasks' models: name -> (configuration, model class)
 TASK_MODELS = {
     "maskctc_conformer": (maskctc_conformer, MaskCTCModel),
@@ -66,7 +76,10 @@ def _batch(b: int, secs: float, u: int, vocab: int, device, name=""):
         "text": rng.randint(1, vocab - 1, (b, u)).astype(np.int32),
         "text_lengths": np.full((b,), u, np.int32),
     }
-    if name.startswith("mulenc"):
+    if name == "hubert_pretrain":
+        frames = n // 128 + 1  # the log-mel grid at hop 128
+        batch["labels"] = rng.randint(0, 100, (b, frames)).astype(np.int32)
+    elif name.startswith("mulenc"):
         batch["speech"] = np.stack([batch["speech"]] * 2, axis=2)
         batch["speech_lengths"] = np.full((b, 2), n, np.int32)
     elif name.startswith("asr_mix"):
@@ -83,7 +96,7 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--encoder", default="conformer",
                     choices=sorted(ENCODERS) + sorted(MODELS)
-                    + ["transducer"] + sorted(TASK_MODELS))
+                    + ["transducer", "hubert_pretrain"] + sorted(TASK_MODELS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train needs a CUDA card")
@@ -93,9 +106,14 @@ def main() -> None:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
+    keys = ("speech", "speech_lengths", "text", "text_lengths")
     if args.encoder == "transducer":
         cfg = transducer_conformer(torch.bfloat16)
         model = TransducerASRModel(cfg)
+    elif args.encoder == "hubert_pretrain":
+        cfg = hubert_pretrain(torch.bfloat16)
+        model = HubertModel(cfg)
+        keys = HUBERT_KEYS
     elif args.encoder in TASK_MODELS:
         make_cfg, cls = TASK_MODELS[args.encoder]
         cfg = make_cfg(torch.bfloat16)
@@ -109,10 +127,10 @@ def main() -> None:
     model = init_random_(model, torch.Generator().manual_seed(0))
     tx = build_optimizer("fused_adam", lr=2e-3, schedule="warmuplr",
                          warmup_steps=25000, d_model=cfg.d_model)
-    step = make_train_step(model, tx, device="cuda")
+    step = make_train_step(model, tx, device="cuda", batch_keys=keys)
     state = TrainState.create(model, tx)
-    batch = _batch(args.batch, args.secs, args.labels, cfg.vocab_size,
-                   "cuda", args.encoder)
+    batch = _batch(args.batch, args.secs, args.labels,
+                   getattr(cfg, "vocab_size", 100), "cuda", args.encoder)
     gen = torch.Generator().manual_seed(0)
     state, _ = step(state, batch, gen)  # warm-up: builds the kernels
     torch.cuda.synchronize()

@@ -5,18 +5,23 @@ The sections, their fields and defaults are the JAX package's, so a command
 line or a config.yaml means the same run in both. `ASRModelSection` carries
 every field of the JAX `ASRConfig`; `build_model` maps it onto the port's
 `ASRConfig` (`dtype` "float32" or "bfloat16" becomes the torch dtype only
-there) and raises `NotImplementedError`, naming its ROADMAP.md item (item
-8, SSL and Whisper), for a field value that selects a part not ported
-yet: the `ssl` and `whisper` sections (`UNPORTED_FIELDS`), `input_type
-ssl` (`models.asr.UNPORTED_INPUT_TYPES`), `encoder_type` wav2vec2 and
-whisper (`UNPORTED_ENCODERS`) and `decoder_type whisper`
-(`models.asr.UNPORTED_DECODERS`). The plugin sections `encoder_conf` and
+there). The sections `ssl`, `whisper` (the SSL trunk's and Whisper's
+geometry, `models/ssl.py`) and the plugin sections `encoder_conf` and
 `decoder_conf` are dicts in a config.yaml; given on the command line
-(`--model.encoder_conf '{"d_model": 16}'`) the string is read as a YAML
-flow map. `ssl_freeze` is inert, as in JAX without an SSL section, and so
-is `frontend_precision`, the TPU's matmul precision for the frontend (the
-port's frontend runs its matmuls in float32). `remat_encoder` is inert for
-the branchformers, as in JAX.
+(`--model.ssl '{hidden_size: 768}'`) the string is read as a YAML flow
+map. `ssl_freeze` stops the gradient into the SSL trunk. `frontend_
+precision`, the TPU's matmul precision for the frontend, is inert (the
+port's frontend runs its matmuls in float32), and so is `remat_encoder`
+for the branchformers, as in JAX.
+
+Global MVN needs statistics of the features that the model normalises.
+For the Whisper encoder the collect-stats pass takes Whisper's own log-mel
+(`whisper_log_mel`, Whisper's n_mels wide), where the JAX pass takes the
+ASR's log-mel at its n_fft and hop; with `input_type ssl` there are no
+features to take them of before the trunk's weights arrive (the JAX pass
+fails on the raw waveforms), so `run` refuses to collect them and names
+the remedy (`--model.normalize utterance_mvn` or none, or
+`--run.collect_stats false`). ROADMAP.md queue 3 has both.
 """
 
 from __future__ import annotations
@@ -33,8 +38,7 @@ from espnet_tpu_torch.data.tokenizer import (TokenIDConverter,
                                              build_token_list,
                                              build_tokenizer)
 from espnet_tpu_torch.device import resolve_device
-from espnet_tpu_torch.models.asr import (UNPORTED_DECODERS, UNPORTED_ENCODERS,
-                                         ASRConfig, ASRModel)
+from espnet_tpu_torch.models.asr import ASRConfig, ASRModel
 from espnet_tpu_torch.tasks.abs_task import AbsTask, OptimConfig, RunConfig
 from espnet_tpu_torch.train.collect_stats import (collect_stats, load_stats,
                                                   mvn_variables)
@@ -137,13 +141,8 @@ class ASRModelSection:
     dtype: str = "float32"  # "float32" | "bfloat16"
 
 
-# a value other than the JAX default selects a part not ported yet:
-# field -> (default, ROADMAP.md queue 1 item)
-UNPORTED_FIELDS = {
-    "ssl": (None, 8),
-    "whisper": (None, 8),
-}
-PLUGIN_SECTIONS = ("encoder_conf", "decoder_conf")
+# sections given as YAML flow maps on the command line
+MAP_SECTIONS = ("ssl", "whisper", "encoder_conf", "decoder_conf")
 DTYPES = ("float32", "bfloat16")
 
 
@@ -243,23 +242,8 @@ class ASRTask(AbsTask):
     @classmethod
     def build_model(cls, model_cfg: ASRModelSection,
                     vocab_size: int) -> ASRModel:
-        for name, (default, item) in UNPORTED_FIELDS.items():
-            value = getattr(model_cfg, name)
-            if isinstance(value, list):
-                value = tuple(value)
-            if value != default:
-                raise NotImplementedError(
-                    f"--model.{name} {value!r} is not ported yet (ROADMAP.md "
-                    f"queue 1 item {item}: SSL and Whisper)")
-        for name, table in (("encoder_type", UNPORTED_ENCODERS),
-                            ("decoder_type", UNPORTED_DECODERS)):
-            value = getattr(model_cfg, name)
-            if value in table:
-                raise NotImplementedError(
-                    f"--model.{name} {value} is not ported yet (ROADMAP.md "
-                    f"queue 1 item {table[value]}: SSL and Whisper)")
         kw = model_kwargs(model_cfg, ASRConfig)
-        for name in PLUGIN_SECTIONS:
+        for name in MAP_SECTIONS:
             if isinstance(kw[name], str):
                 from espnet_tpu_torch.utils.config import loads_yaml
 
@@ -326,7 +310,16 @@ class ASRTask(AbsTask):
 
         # collect-stats stage (global MVN)
         extra_init = None
-        if model.config.normalize == "global_mvn" and run.collect_stats:
+        mc = model.config
+        if mc.normalize == "global_mvn" and run.collect_stats:
+            if mc.input_type == "ssl":
+                raise ValueError(
+                    "--model.input_type ssl normalises the SSL trunk's "
+                    "features, which exist only once its weights are "
+                    "loaded: collect-stats cannot take their global MVN "
+                    "statistics (the JAX pass fails on the raw waveforms). "
+                    "Use --model.normalize utterance_mvn (or none), or "
+                    "--run.collect_stats false for identity statistics")
             stats_path = out / "stats" / "feats_stats.npz"
             if not stats_path.exists():
                 logger.info("collect_stats -> %s", stats_path.parent)
@@ -336,6 +329,8 @@ class ASRTask(AbsTask):
                     hop_length=model.config.hop_length,
                     n_mels=model.config.n_mels,
                     input_type=model.config.input_type, device=dev,
+                    whisper_mels=(mc.whisper.n_mels
+                                  if mc.encoder_type == "whisper" else 0),
                 )
             # the transducer has no global-MVN buffers: as in JAX it gets
             # the stats collected and never reads them

@@ -9,7 +9,10 @@ does. Like the JAX pass, the features use the n_fft-long window
 (`win_length` None) whatever the model's `win_length`, and every
 `input_type` but "raw" counts as precomputed features: for
 "sliding_window" and "fused", whose data are waveforms, the JAX pass fails
-on the (B, N) batch, and this one raises a ValueError. Writes
+on the (B, N) batch, and this one raises a ValueError. With `whisper_mels`
+(a Whisper encoder on raw input) the features are the encoder's own,
+`models.ssl.whisper_log_mel` with that many mels, where the JAX pass takes
+the ASR's log-mel at its n_fft and hop (ROADMAP.md queue 3). Writes
 `feats_stats.npz` {count, sum, sum_square} and the `speech_shape` /
 `text_shape` files; `mvn_variables` turns the stats into the model's
 `GlobalMVN` buffers.
@@ -32,8 +35,13 @@ from espnet_tpu_torch.ops.stft import log_mel_spectrogram
 
 
 @torch.no_grad()
-def _moments(speech, lengths, fs, n_fft, hop_length, n_mels, input_type):
-    if input_type == "raw":
+def _moments(speech, lengths, fs, n_fft, hop_length, n_mels, input_type,
+             whisper_mels=0):
+    if input_type == "raw" and whisper_mels:
+        from espnet_tpu_torch.models.ssl import whisper_log_mel
+
+        feats, flens = whisper_log_mel(speech, lengths, fs, whisper_mels)
+    elif input_type == "raw":
         feats, flens = log_mel_spectrogram(speech, lengths, fs, n_fft,
                                            hop_length, None, n_mels)
     else:
@@ -52,8 +60,8 @@ def _moments(speech, lengths, fs, n_fft, hop_length, n_mels, input_type):
 
 def collect_stats(dataset, batches, output_dir, fs: int = 16000,
                   n_fft: int = 512, hop_length: int = 128, n_mels: int = 80,
-                  input_type: str = "raw", device="cuda"
-                  ) -> Dict[str, np.ndarray]:
+                  input_type: str = "raw", device="cuda",
+                  whisper_mels: int = 0) -> Dict[str, np.ndarray]:
     """Returns {count, sum, sum_square} over valid feature frames and writes
     speech_shape / text_shape / feats_stats.npz under output_dir. Runs on
     `device` (the card unless "cpu" is asked for)."""
@@ -68,7 +76,8 @@ def collect_stats(dataset, batches, output_dir, fs: int = 16000,
         batch = collate(dataset, batch_spec)
         m = _moments(torch.from_numpy(batch["speech"]).to(dev),
                      torch.from_numpy(batch["speech_lengths"]).to(dev),
-                     fs, n_fft, hop_length, n_mels, input_type)
+                     fs, n_fft, hop_length, n_mels, input_type,
+                     whisper_mels)
         m = m.cpu().numpy()
         dim = (len(m) - 1) // 2
         count += float(m[0])
@@ -81,7 +90,8 @@ def collect_stats(dataset, batches, output_dir, fs: int = 16000,
             if "text_lengths" in batch:
                 text_shapes[k] = (int(batch["text_lengths"][i]),)
     if s is None:
-        s, sq = np.zeros(n_mels, np.float64), np.zeros(n_mels, np.float64)
+        dim = whisper_mels or n_mels
+        s, sq = np.zeros(dim, np.float64), np.zeros(dim, np.float64)
     stats = {"count": np.asarray(count), "sum": s, "sum_square": sq}
     np.savez(out / "feats_stats.npz", **stats)
     write_shape_file(out / "speech_shape", speech_shapes)

@@ -73,15 +73,28 @@ def test_config_mirrors_the_jax_config():
 
 
 def test_unported_choices_raise():
-    """Only the SSL and Whisper parts (ROADMAP.md queue 1 item 8) are left
-    unported, and the refusal names that item."""
-    for kw in (dict(input_type="ssl"), dict(encoder_type="wav2vec2"),
-               dict(encoder_type="whisper"), dict(decoder_type="whisper")):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1 item 8: SSL and Whisper"):
-            ASRModel(dataclasses.replace(_torch_config(), **kw))
+    """No choice of the JAX `ASRConfig` is left unported: the SSL and
+    Whisper parts, refused until ROADMAP.md queue 1 item 8 was done, build
+    (tests/test_torch_ssl.py holds them against JAX); a value that is no
+    choice raises."""
+    ssl = dict(hidden_size=16, num_layers=1, num_heads=2, ffn_size=32,
+               conv_dim=(8, 8), conv_kernel=(10, 3), conv_stride=(5, 2),
+               num_conv_pos_embeddings=8, num_conv_pos_embedding_groups=2)
+    whisper = dict(n_mels=8, d_model=64, encoder_layers=1, decoder_layers=1,
+                   num_heads=2, ffn_size=32, max_source_positions=64,
+                   max_target_positions=16)
+    for kw, part in ((dict(input_type="ssl", ssl=ssl), "ssl_frontend"),
+                     (dict(encoder_type="wav2vec2", ssl=ssl), "encoder"),
+                     (dict(encoder_type="whisper", whisper=whisper),
+                      "encoder"),
+                     (dict(decoder_type="whisper", whisper=whisper),
+                      "decoder")):
+        model = ASRModel(dataclasses.replace(_torch_config(), **kw))
+        assert type(getattr(model, part)).__module__.endswith("models.ssl")
     with pytest.raises(ValueError, match="normalize"):
         ASRModel(dataclasses.replace(_torch_config(), normalize="cmvn"))
+    with pytest.raises(ValueError, match="input_type"):
+        ASRModel(dataclasses.replace(_torch_config(), input_type="wav"))
 
 
 def test_encode_and_ctc_log_probs_match(slice_models):

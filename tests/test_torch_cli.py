@@ -357,23 +357,6 @@ def test_neural_lm_inference_flags_pass_the_check(runs, extra):
     assert args.lm_weight == 0.3
 
 
-@pytest.mark.parametrize("extra, item", [
-    (["--model.ssl", "{hidden_size: 8}"], 8),
-    (["--model.whisper", "{n_mels: 8}"], 8),
-    (["--model.input_type", "ssl"], 8),
-    (["--model.encoder_type", "wav2vec2"], 8),
-    (["--model.decoder_type", "whisper"], 8),
-    (["--model.encoder_type", "whisper"], 8),
-], ids=["ssl_section", "whisper_section", "ssl", "wav2vec2",
-        "whisper_decoder", "whisper_encoder"])
-def test_unported_train_options_raise(runs, tmp_path, extra, item):
-    ws = runs[0]
-    argv = _argv(ws, "unused") + ["--run.output_dir", str(tmp_path / "x"),
-                                  "--device", "cpu"] + extra
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-        ttrain.main(argv)
-
-
 def _feats_dirs(ws, tmp_path):
     """The corpus's 24-mel log-mel features in Kaldi feats.scp dirs."""
     from espnet_tpu_torch.data.fileio import read_2column_text, read_wav

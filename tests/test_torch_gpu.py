@@ -1264,3 +1264,116 @@ def test_translation_clis_train_and_decode_on_the_card(cuda, tmp_path):
     for fn in (tflash.flash_attention, trel.relpos_attention,
                ctc_lattice.ctc_alphas):
         assert fn.launches > 0, fn.__name__
+
+
+_SSL_SMALL = dict(hidden_size=64, num_layers=2, num_heads=2, ffn_size=128,
+                  conv_dim=(32, 32), conv_kernel=(10, 3), conv_stride=(5, 2),
+                  num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+
+
+def _waves(device, lengths, seed):
+    rng = np.random.RandomState(seed)
+    speech = np.zeros((len(lengths), max(lengths)), np.float32)
+    for i, n in enumerate(lengths):
+        speech[i, :n] = 0.1 * rng.randn(n)
+    return (torch.from_numpy(speech).to(device),
+            torch.tensor(lengths).to(device))
+
+
+@pytest.mark.gpu
+def test_ssl_frontend_conformer_takes_relpos_ffn_and_ctc_on_the_card(cuda):
+    """input_type ssl with a frozen trunk into a 2-layer conformer (d 128,
+    head dim 64): the rel-pos kernel once a layer, the pre-norm FFN twice,
+    the CTC pair; the float32 loss equals the plain route's, and the trunk
+    gets no gradient."""
+    from espnet_tpu_torch.models.asr import ASRConfig, ASRModel, init_random_
+    from espnet_tpu_torch.models.ssl import SSLConfig
+
+    cfg = ASRConfig(vocab_size=40, input_type="ssl",
+                    ssl=SSLConfig(**_SSL_SMALL), use_specaug=False,
+                    normalize="utterance_mvn", d_model=128, num_heads=2,
+                    d_ff=256, num_encoder_layers=2, num_decoder_layers=1,
+                    decoder_d_ff=256, dropout_rate=0.0,
+                    conformer_kernel_size=7)
+    model = init_random_(ASRModel(cfg), torch.Generator().manual_seed(0))
+    model = model.to(cuda).train()
+    speech, lens = _waves(cuda, [32000, 20000, 9000], 10)
+    text, tlen = _ragged_ids(np.random.RandomState(11), 3, 9, 40,
+                             [9, 4, 1], cuda)
+    args = (speech, lens, text, tlen)
+    lk, lp, counts = _kernel_vs_plain_loss(model, args)
+    assert counts == {"relpos_attention": 2, "prenorm_ffn": 4,
+                      "ctc_alphas": 1}
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+    model(*args)[0].backward()
+    assert all(p.grad is None for p in model.ssl_frontend.upstream.parameters())
+    assert model.ssl_frontend.layer_weights.grad is not None
+
+
+@pytest.mark.gpu
+def test_whisper_launches_nothing_and_its_step_matches_on_the_card(cuda):
+    """Whisper's encoder and decoder run no kernel of the port; the
+    decoder's cached score_step gives the teacher-forced log-probs."""
+    from espnet_tpu_torch.models.asr import ASRConfig, ASRModel, init_random_
+    from espnet_tpu_torch.models.ssl import WhisperConfig
+    from espnet_tpu_torch.ops import launches
+
+    wcfg = WhisperConfig(vocab_size=300, n_mels=80, d_model=128,
+                         encoder_layers=2, decoder_layers=2, num_heads=2,
+                         ffn_size=256)
+    cfg = ASRConfig(vocab_size=300, encoder_type="whisper",
+                    decoder_type="whisper", whisper=wcfg, ctc_weight=0.0,
+                    normalize="none", use_specaug=False, dropout_rate=0.0)
+    model = init_random_(ASRModel(cfg), torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    speech, lens = _waves(cuda, [48000, 30000], 12)
+    text, tlen = _ragged_ids(np.random.RandomState(13), 2, 7, 300, [7, 7],
+                             cuda)
+    wrappers = launches.reset()
+    with torch.no_grad():
+        model(speech, lens, text, tlen)
+        mem, mlen = model.encode(speech, lens)
+        full = torch.log_softmax(model.decoder(text, tlen, mem, mlen), -1)
+        cache = model.decoder_init_cache(2, 448, mem, mlen)
+        steps = []
+        for pos in range(7):
+            lp, cache = model.decoder_score_step(text[:, pos], pos, mem,
+                                                 mlen, cache)
+            steps.append(lp)
+    assert not any(fn.launches for fn in wrappers.values())
+    torch.testing.assert_close(torch.stack(steps, 1), full, atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_hubert_takes_flash_and_prenorm_ffn_on_the_card(cuda):
+    """A 2-layer HuBERT (d 128, head dim 64) over 600 frames: flash and the
+    pre-norm FFN once a layer a forward, the FFN's backward once a layer;
+    its float32 loss and gradient equal the plain route's."""
+    from espnet_tpu_torch.models.asr import init_random_
+    from espnet_tpu_torch.models.hubert import HubertConfig, HubertModel
+    from espnet_tpu_torch.ops import launches
+
+    cfg = HubertConfig(num_classes=20, d_model=128, num_heads=2, d_ff=256,
+                       num_encoder_layers=2, dropout_rate=0.0)
+    model = init_random_(HubertModel(cfg), torch.Generator().manual_seed(0))
+    model = model.to(cuda).train()
+    speech, lens = _waves(cuda, [76672, 40000, 12000], 14)
+    labels = torch.from_numpy(np.random.RandomState(15).randint(
+        0, 20, (3, 600))).to(cuda)
+    args = (speech, lens, labels)
+    lk, lp, counts = _kernel_vs_plain_loss(model, args)
+    assert counts == {"flash_attention": 2, "prenorm_ffn": 2}
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+    grads = {}
+    for use in (True, False):
+        model.set_use_kernels(use)
+        wrappers = launches.reset()
+        loss, _ = model(*args)
+        grads[use] = torch.autograd.grad(loss, list(model.parameters()))
+        if use:
+            assert wrappers["prenorm_ffn_bwd"].launches == 2
+    model.set_use_kernels(True)
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(*grads.values()))
+    den = sum(float((b ** 2).sum()) for b in grads[False])
+    assert (num / den) ** 0.5 < 1e-3

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no JAX, no espnet_tpu, no triton at import.
 
-The card's machine has torch but no jax/flax/optax/yaml/msgpack, so any such
-import in espnet_tpu_torch/ or chip_smoke.py would kill the run there. Entry points
+The card's machine has torch but no jax/flax/optax/yaml/msgpack/
+transformers/safetensors, so any such import in espnet_tpu_torch/ or
+chip_smoke.py would kill the run there. Entry points
 run on the CUDA card unless the caller passes device="cpu", and raise
 rather than fall back when there is no card.
 """
@@ -17,7 +18,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "espnet_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "espnet_tpu", "triton", "yaml",
-             "msgpack")
+             "msgpack", "transformers", "safetensors")
 
 
 def _port_files():
@@ -72,7 +73,8 @@ def test_no_jax_or_reference_package_anywhere(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [n for n in _all_imports(tree)
            if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                  "espnet_tpu", "yaml", "msgpack")]
+                                  "espnet_tpu", "yaml", "msgpack",
+                                  "transformers", "safetensors")]
     assert not bad, f"{path}: imports {bad}"
 
 
@@ -88,7 +90,8 @@ def test_port_files_found():
             "dataset.py", "collect_stats.py", "pretrained.py", "recipe.py",
             "run.py", "make_synth_data.py", "build_token_list.py",
             "pack.py", "prep_librispeech.py", "ctc_greedy.py", "remat.py",
-            "launches.py"} <= names
+            "launches.py", "ssl.py", "hubert.py", "kmeans.py",
+            "hf_import.py", "convert_hf.py", "hubert_train.py"} <= names
 
 
 _NO_CARD_SCRIPT = r"""
