@@ -102,7 +102,7 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    frontend's);
 8. recipe: `python -m espnet_tpu_torch.bin.run --config
    egs/librispeech_100/conf/train_asr_conformer.yaml` in a temporary
-   directory with printed overrides (a 64-utterance synthetic corpus,
+   directory with printed overrides (a 32-utterance synthetic corpus,
    char tokens, test set test_clean, the `cli` phase's asr_args, stages
    1-12): every marker and stage file, the exact kernel launches of each
    CLI it runs (read from `ops/launches.py`'s log), the rel-pos attention,
@@ -251,13 +251,34 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    one (float16) that the phase writes under HF's key names, and
    `bin.asr_train --run.init_param` from each, the transferred weights
    equal to the source; each with its exact launches;
-17. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
-   lattice pairs float32; launches from the 3 timed train steps of the
+17. tts: the four TTS models without the GAN family at the JAX configs'
+   widths (`configs.tts_config`, random weights from seed 0, bf16): (a)
+   flash attention at FastSpeech2's head dim 192 (B=32, H=2, T=626
+   ragged: 10 s at hop 256; and its decoder at inference, B=4, T=2048)
+   with SDPA's time beside it, and the pre-norm FFN forward and backward
+   at D=384, F=1536, M=32*626, float32 and bf16, against their plain
+   versions; (b) `fastspeech2`, `tacotron2`, `transformer` and `prodiff`
+   each serving 4 requests of 120 tokens (the autoregressive two with
+   the stop token off, to their 400-frame cap) with Griffin-Lim (32
+   iterations), wall and RTF, the float32 synthesis with kernels against
+   plain, a float32 train step with kernels against plain, then bf16
+   steps at B=32 x 10 s with 120 tokens (ms/step, peak GiB), each with
+   its exact launches (Tacotron2 none: JAX routes none of its modules to
+   Pallas; the autoregressive two's float32 comparison over their first
+   64 frames); (c) on a synthetic corpus: `bin.run_tts` (stages 1-9, a
+   Tacotron2 of reduced width) with its subprocesses' launch logs, then
+   in process the teacher flow from that Tacotron2:
+   `tts_teacher_durations`, `tts_train` of a FastSpeech2 (2 + 2 layers at
+   full width) on those durations, its `tts_inference` and
+   `tts_scoring`;
+18. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
+   lattice pairs float32; launches from the timed train steps of the
    configuration whose path holds the kernel: the conformer's, the
    transformer's for flash attention, the E-Branchformer's for
    `fused_ffn`, the two conv routes' for theirs, the transducer's for its
-   lattice pair);
-18. last line: {"ok": true, "device": {...}}.
+   lattice pair, FastSpeech2's for the `flash_attention_d192` row: the
+   same kernel at head dim 192);
+19. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1042,6 +1063,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                       "espnet_tpu/ops/pallas_ffn.py:137"),
     "flash_attention": ("espnet_tpu_torch/csrc/flash_attention.cu",
                         "espnet_tpu/ops/pallas_attention.py:133"),
+    # the same kernel at FastSpeech2's head dim 192 (B=32, H=2, T=626)
+    "flash_attention_d192": ("espnet_tpu_torch/csrc/flash_attention.cu",
+                             "espnet_tpu/ops/pallas_attention.py:133"),
     "prenorm_glu": ("espnet_tpu_torch/csrc/conv_glu.cu",
                     "espnet_tpu/ops/pallas_conv_glu.py:177"),
     "prenorm_glu_bwd": ("espnet_tpu_torch/csrc/conv_glu.cu",
@@ -1100,9 +1124,11 @@ GATE_CONFIGS = {
     "gate_d384": ({"d_model": 384}, *CONFORMER),
     "gate_d512": ({"d_model": 512}, *CONFORMER),
 }
+# rows of the kernels line that are another row's kernel at another shape
+ROW_OF = {"flash_attention_d192": "flash_attention"}
 MAIN_PATH = {  # kernel: the configuration whose train run gives its launches
     "fused_ffn": "e_branchformer", "fused_ffn_bwd": "e_branchformer",
-    "flash_attention": "transformer",
+    "flash_attention": "transformer", "flash_attention_d192": "fastspeech2",
     **{k: "conformer_conv_split" for k in (
         "prenorm_glu", "prenorm_glu_bwd", "postnorm_proj",
         "postnorm_proj_bwd")},
@@ -1406,7 +1432,7 @@ def phase_train(torch, np, cfg, device="cuda", batch_size=TRAIN_BATCH,
 
 
 def expected_counts(per_step: dict, steps: int) -> dict:
-    want = {name: 0 for name in KERNELS}
+    want = {name: 0 for name in KERNELS if name not in ROW_OF}
     want.update({k: v * steps for k, v in per_step.items()})
     return want
 
@@ -1501,7 +1527,7 @@ def cli_expected(train, valid, accum, layers):
             n -= 1
         micro += n
     nv = len(valid)
-    want = {name: 0 for name in KERNELS}
+    want = {name: 0 for name in KERNELS if name not in ROW_OF}
     want.update({
         "relpos_attention": layers * (micro + nv),
         "relpos_attention_bwd": layers * micro,
@@ -1783,7 +1809,7 @@ def phase_cli(torch, np, smi):
         counts = {name: fn.launches for name, fn in wrappers.items()}
         n_dec = len(cli_batches(
             ds_valid, data, int(dargs[dargs.index("--batch_size") + 1])))
-        want = {name: 0 for name in KERNELS}
+        want = {name: 0 for name in KERNELS if name not in ROW_OF}
         want.update({"relpos_attention": mcfg.num_encoder_layers * n_dec,
                      "prenorm_ffn": 2 * mcfg.num_encoder_layers * n_dec})
         check_launches(f"decoding ({n_dec} batches)", counts,
@@ -2072,7 +2098,8 @@ def phase_asr_variants(torch, np, smi):
 # the recipe phase: the north-star config through bin.run, as a user runs it
 RECIPE_OVERRIDES = {
     "--recipe.local_data": "synth",
-    "--recipe.synth_utts": "64",
+    # 32 utterances: the tts phase took the time 64 needed
+    "--recipe.synth_utts": "32",
     # no LibriSpeech and no `tokenizers` on the card (as in the cli phase)
     "--recipe.token_type": "char",
     "--recipe.test_sets": "test_clean",
@@ -4968,6 +4995,408 @@ def phase_ssl(torch, np, smi):
     return launches
 
 
+# the tts phase: FastSpeech2, Tacotron2, Transformer-TTS and ProDiff at the
+# JAX configs' widths (`configs.tts_config`), then the TTS CLIs and run_tts
+TTS_TYPES = ("fastspeech2", "tacotron2", "transformer", "prodiff")
+TTS_BATCH, TTS_SECONDS, TTS_TOKENS = 32, 10.0, 120  # 626 mel frames
+TTS_REQUESTS = 4  # of TTS_TOKENS tokens, vocoded by Griffin-Lim
+TTS_GL_ITERS = 32
+TTS_TIMED_STEPS = {"fastspeech2": 3, "tacotron2": 1, "transformer": 3,
+                   "prodiff": 3}
+# random weights fire the stop token at once: the served autoregressive
+# models run with it off, to the TTS_AR_FRAMES cap
+TTS_NO_STOP = 1.1
+# kernel launches of one synthesis call (the encoder stacks, and
+# FastSpeech2's decoder over max_frames) and of one train step
+TTS_PER_SERVE = {
+    "fastspeech2": {"flash_attention": 8, "prenorm_ffn": 8},
+    "tacotron2": {},
+    "transformer": {"flash_attention": 6, "prenorm_ffn": 6},
+    "prodiff": {"flash_attention": 4, "prenorm_ffn": 4},
+}
+TTS_PER_STEP = {k: {**v, "prenorm_ffn_bwd": v.get("prenorm_ffn", 0)}
+                if v else {} for k, v in TTS_PER_SERVE.items()}
+TTS_MEL_FP32_TOL = 1e-3  # kernels vs plain synthesis, float32
+# the float32 comparison of the autoregressive two stops at this many
+# frames: each frame feeds the next, so the two routes' last-bit
+# differences in the encoder grow along the loop (1.3e-3 after 400
+# Transformer-TTS frames on an H100)
+TTS_FP32_AR_FRAMES = 64
+# run_tts's Tacotron2: the recipe's plumbing, at a width that keeps its
+# subprocesses' checkpoints small
+TTS_RECIPE_TACO = ("--model.tacotron2.embed_dim", "64",
+                   "--model.tacotron2.encoder_conv_channels", "64",
+                   "--model.tacotron2.encoder_lstm_units", "64",
+                   "--model.tacotron2.decoder_lstm_units", "128",
+                   "--model.tacotron2.postnet_channels", "64")
+TTS_CLI_UTTS = 8
+
+
+def tts_model(torch, cfg, seed=0):
+    from espnet_tpu_torch.models.asr import init_random_
+    from espnet_tpu_torch.models.tts.model import TTSModel
+
+    return init_random_(TTSModel(cfg), torch.Generator().manual_seed(seed))
+
+
+def tts_sub(cfg):
+    """The model configuration inside a TTSTaskConfig."""
+    return getattr(cfg, cfg.tts_type)
+
+
+def tts_replace(cfg, **kw):
+    """`cfg` with fields of its model configuration replaced."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, **{cfg.tts_type: dataclasses.replace(
+        tts_sub(cfg), **kw)})
+
+
+def tts_batch(np, cfg, b, seconds, tokens, seed):
+    """Seeded noise waveforms of `seconds` with `tokens` random token ids;
+    durations that fill the mel frames (FastSpeech2, ProDiff)."""
+    rng = np.random.RandomState(seed)
+    n = int(seconds * SAMPLE_RATE)
+    frames = n // cfg.hop_length + 1
+    dur = np.full((b, tokens), frames // tokens, np.int32)
+    dur[:, 0] += frames - dur.sum(1)
+    return {"text": rng.randint(1, cfg.vocab_size - 1, (b, tokens)
+                                ).astype(np.int32),
+            "text_lengths": np.full((b,), tokens, np.int32),
+            "speech": (0.1 * rng.randn(b, n)).astype(np.float32),
+            "speech_lengths": np.full((b,), n, np.int32),
+            "durations": dur}
+
+
+def tts_keys(cfg):
+    from espnet_tpu_torch.tasks.tts import batch_keys
+
+    return batch_keys(cfg.tts_type)
+
+
+def tts_kernels(torch, np):
+    """Flash attention at FastSpeech2's head dim 192 (B=32, H=2, T=626
+    ragged: its training shape; B=4, T=2048: its decoder at inference) and
+    the pre-norm FFN at D=384, F=1536 and B x 626 rows, float32 and bf16,
+    against their plain versions, SDPA with the key mask beside flash.
+    Returns the bf16 training-shape flash result (the kernels line's D=192
+    row)."""
+    import types
+
+    import torch.nn.functional as F
+
+    from espnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_plain)
+
+    frames = int(TTS_SECONDS * SAMPLE_RATE) // 256 + 1
+    cases = [(TTS_BATCH, frames, [frames - (i % 9) * 37
+                                  for i in range(TTS_BATCH)], "train"),
+             (TTS_REQUESTS, 2048, [2048, 1400, 700, 150], "inference")]
+    main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for b, t, lengths, role in cases:
+            args, flops, nbytes, valid = flash_case(torch, b, t, dtype,
+                                                    lengths, 51, h=2, d=192)
+            label = f"fastspeech2 {role} B={b} H=2 T={t} D=192"
+            with torch.no_grad():
+                fa = check_kernel(torch, "flash_attention", flash_attention,
+                                  flash_attention_plain, args, flops, nbytes,
+                                  dn, label, iters=10)
+                fa["library_ms"] = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        *args[:3], attn_mask=valid), 10)
+            log("kernels", f"flash_attention {label} {dn}: library "
+                f"(scaled_dot_product_attention, boolean key mask) "
+                f"{fa['library_ms']:.4f} ms")
+            if role == "train" and dtype == torch.bfloat16:
+                main = fa
+            del args
+    fs2 = types.SimpleNamespace(d_model=384, d_ff=1536, dropout_rate=0.1)
+    check_ffn_rows(torch, fs2, TTS_BATCH * frames,
+                   f"fastspeech2 M={TTS_BATCH}x{frames}", "relu", 1.0)
+    return main
+
+
+def tts_requests(np, cfg):
+    rng = np.random.RandomState(7)
+    text = rng.randint(1, cfg.vocab_size - 1, (TTS_REQUESTS, TTS_TOKENS))
+    return text, np.full((TTS_REQUESTS,), TTS_TOKENS)
+
+
+def tts_serve(torch, np, smi, cfg, device="cuda", gl_iters=TTS_GL_ITERS):
+    """Synthesise the requests in bf16 and vocode them with Griffin-Lim:
+    wall, RTF (over the seconds synthesised), exact launches; then the
+    float32 synthesis with kernels against plain (same lengths, mels
+    within TTS_MEL_FP32_TOL)."""
+    from espnet_tpu_torch.ops.griffin_lim import logmel_to_wav
+
+    name = cfg.tts_type
+    if name in ("tacotron2", "transformer"):
+        cfg = tts_replace(cfg, stop_threshold=TTS_NO_STOP)
+    per = TTS_PER_SERVE[name] if device == "cuda" else {}
+    text, lens = tts_requests(np, cfg)
+    tt = torch.from_numpy(text).to(device)
+    tl = torch.from_numpy(lens).to(device)
+    model = tts_model(torch, cfg).to(device).eval()
+
+    def synth(m, max_frames=None):
+        return m.inference(tt, tl, max_frames,
+                           generator=torch.Generator().manual_seed(2))
+
+    synth(model)  # warm-up
+    sync(torch, device)
+    wrappers = reset_counts()
+    t = time.perf_counter()
+    mel, mlens = synth(model)
+    sync(torch, device)
+    t_mel = time.perf_counter() - t
+    counts = {n: fn.launches for n, fn in wrappers.items()}
+    t = time.perf_counter()
+    wav = logmel_to_wav(mel.float(), cfg.fs, cfg.n_fft, cfg.hop_length,
+                        cfg.win_length, cfg.n_mels, gl_iters)
+    sync(torch, device)
+    t_gl = time.perf_counter() - t
+    check_case_launches(name, "one synthesis", counts, per, 1)
+    if not (torch.isfinite(mel.float()).all() and torch.isfinite(wav).all()):
+        raise AssertionError(f"{name}: non-finite mel or wave")
+    seconds = float(mlens.sum()) * cfg.hop_length / cfg.fs
+    padded = mel.shape[0] * mel.shape[1] * cfg.hop_length / cfg.fs
+    log("tts", f"{name} serve {tts_sub(cfg).dtype}: {TTS_REQUESTS} x "
+        f"{TTS_TOKENS} tokens -> mel {tuple(mel.shape)}, lengths "
+        f"{mlens.tolist()} ({seconds:.2f} s of speech, {padded:.2f} s "
+        f"padded); acoustic model {t_mel:.3f}s, Griffin-Lim ({gl_iters} "
+        f"iterations, the padded mel) {t_gl:.3f}s; RTF "
+        f"{(t_mel + t_gl) / max(seconds, 1e-9):.4f} over the speech, "
+        f"{(t_mel + t_gl) / padded:.4f} over the padded mel [{smi}]; "
+        f"launches exact {({k: v for k, v in counts.items() if v})}")
+    m32 = tts_model(torch, tts_replace(cfg, dtype=torch.float32))
+    m32 = m32.to(device).eval()
+    frames = TTS_FP32_AR_FRAMES if name in ("tacotron2", "transformer") \
+        else None
+    got, glen = synth(m32, frames)
+    m32.set_use_kernels(False)
+    want, wlen = synth(m32, frames)
+    sync(torch, device)
+    dev = float((got - want).abs().max()) if glen.equal(wlen) else None
+    log("tts", f"{name} serve float32 kernels vs plain "
+        f"({tuple(got.shape)}): lengths equal {glen.equal(wlen)}, max |dev| "
+        f"{'-' if dev is None else f'{dev:.3e}'} (limit {TTS_MEL_FP32_TOL})")
+    if dev is None or dev > TTS_MEL_FP32_TOL:
+        raise AssertionError(f"{name}: the kernel route's synthesis differs "
+                             "from the plain route's")
+
+
+def tts_train_parity(torch, np, cfg, device="cuda", batch_size=4,
+                     seconds=3.0):
+    """One float32 forward and backward at full width with the kernels and
+    with their plain versions (dropout 0; the postnet's and predictors'
+    fixed dropouts, zoneout and ProDiff's draws from one seed on both
+    routes): same loss, same gradients."""
+    cfg = tts_replace(cfg, dtype=torch.float32, dropout_rate=0.0)
+    model = tts_model(torch, cfg, seed=1).to(device).train()
+    batch = tts_batch(np, cfg, batch_size, seconds, TTS_TOKENS // 2, 3)
+    args = [torch.from_numpy(batch[k]).to(device) for k in tts_keys(cfg)]
+    params = list(model.parameters())
+    out = {}
+    for use in (True, False):
+        model.set_use_kernels(use)
+        loss, _ = model(*args, generator=torch.Generator().manual_seed(5))
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        out[use] = (float(loss.detach()), [g for g in grads])
+    model.set_use_kernels(True)
+    sync(torch, device)
+    (lk, gk), (lp, gp) = out[True], out[False]
+    pairs = [(a, b) for a, b in zip(gk, gp) if b is not None]
+    total = float(torch.sqrt(sum((b.double() ** 2).sum() for _, b in pairs)))
+    whole = float(torch.sqrt(sum(((a.double() - b.double()) ** 2).sum()
+                                 for a, b in pairs))) / total
+    loss_dev = abs(lk - lp) / abs(lp)
+    log("tts", f"{cfg.tts_type} train-parity float32 B={batch_size} x "
+        f"{seconds} s: loss kernels {lk:.6f} vs plain {lp:.6f} (relative "
+        f"{loss_dev:.2e}, limit {TRAIN_FP32_LOSS_RTOL}); gradient relative "
+        f"L2 {whole:.2e} (limit {TRAIN_FP32_GRAD_REL_L2})")
+    if not (np.isfinite(lk) and np.isfinite(whole)) or \
+            loss_dev > TRAIN_FP32_LOSS_RTOL or \
+            whole > TRAIN_FP32_GRAD_REL_L2:
+        raise AssertionError(f"{cfg.tts_type}: the float32 train step with "
+                             "kernels deviates from the plain versions'")
+
+
+def tts_train(torch, np, smi, cfg, device="cuda", batch_size=TTS_BATCH,
+              seconds=TTS_SECONDS, tokens=TTS_TOKENS, steps=None):
+    """The training run through make_train_step (bf16, dropout as
+    configured, adam with warmuplr): 1 warm-up step, then the timed steps
+    with their exact launches. Returns the timed steps' launches."""
+    from espnet_tpu_torch.train.optim import build_optimizer
+    from espnet_tpu_torch.train.steps import TrainState, make_train_step
+
+    name = cfg.tts_type
+    steps = steps or TTS_TIMED_STEPS[name]
+    model = tts_model(torch, cfg)
+    keys = tts_keys(cfg)
+    tx = build_optimizer("fused_adam", lr=1e-3, schedule="warmuplr",
+                         warmup_steps=4000, d_model=256)
+    step = make_train_step(model, tx, device=device, batch_keys=keys)
+    state = TrainState.create(model, tx)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in tts_batch(
+        np, cfg, batch_size, seconds, tokens, 0).items()}
+    gen = torch.Generator().manual_seed(0)
+    t = time.perf_counter()
+    state, stats = step(state, batch, gen)
+    sync(torch, device)
+    warm = time.perf_counter() - t
+    before = state.params.clone()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    wrappers = reset_counts()
+    t = time.perf_counter()
+    all_stats = []
+    for _ in range(steps):
+        state, stats = step(state, batch, gen)
+        all_stats.append({k: float(v) for k, v in stats.items()})
+    sync(torch, device)
+    step_s = (time.perf_counter() - t) / steps
+    counts = {n: fn.launches for n, fn in wrappers.items()}
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device == "cuda" else float("nan"))
+    for i, st in enumerate(all_stats):
+        if not (np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"])):
+            raise AssertionError(f"{name} train step {i + 1}: non-finite")
+        if st["skipped"] != 0.0:
+            raise AssertionError(f"{name} train step {i + 1} was skipped")
+    if not float((state.params - before).abs().max()) > 0.0:
+        raise AssertionError(f"{name}: the train steps did not move the "
+                             "parameters")
+    check_case_launches(name, f"{steps} train steps", counts,
+                        TTS_PER_STEP[name] if device == "cuda" else {},
+                        steps)
+    n_params = sum(p.numel() for p in model.parameters())
+    log("tts", f"{name} train {tts_sub(cfg).dtype} ({n_params} parameters) "
+        f"B={batch_size} x {seconds} s, {tokens} tokens: warm-up "
+        f"{warm:.2f}s, {step_s * 1e3:.1f} ms/step over {steps}, "
+        f"{batch_size * seconds / step_s:.1f} audio-s/s, peak {peak:.2f} "
+        f"GiB [{smi}]; loss {all_stats[-1]['loss']:.4f}; launches exact "
+        f"{({k: v for k, v in counts.items() if v})}")
+    return counts
+
+
+def tts_clis(torch, np, smi, device="cuda", taco_args=TTS_RECIPE_TACO,
+             fs2_args=()):
+    """The CLIs on a synthetic corpus of TTS_CLI_UTTS utterances: `run_tts`
+    (stages 1-9 for a Tacotron2 of `taco_args`; subprocesses with their
+    launch logs), then in process the teacher flow from the Tacotron2 it
+    trained: `tts_teacher_durations`, `tts_train` of a FastSpeech2 of
+    `fs2_args` on those durations, its `tts_inference` and `tts_scoring`.
+    Every launch count exact."""
+    import json
+    import os
+    import shlex
+    import tempfile
+    from pathlib import Path
+
+    from espnet_tpu_torch.bin import (tts_inference, tts_scoring,
+                                      tts_teacher_durations, tts_train)
+    from espnet_tpu_torch.data.synth import generate_corpus
+    from espnet_tpu_torch.ops.launches import LAUNCH_LOG_ENV
+
+    dev = ["--device", device]
+    ws = Path(tempfile.mkdtemp(prefix="tts_cli_"))
+    train, test = ws / "data" / "train", ws / "data" / "test"
+    generate_corpus(train, n_utts=TTS_CLI_UTTS, min_words=2, max_words=4)
+    generate_corpus(test, n_utts=2, min_words=2, max_words=3, seed=5)
+    run = ["--run.max_epoch", "1", "--run.log_interval", "1000",
+           "--optim.schedule", "constant", "--optim.lr", "0.001",
+           "--data.batch_size", str(TTS_CLI_UTTS)]
+
+    log_file = ws / "launches.jsonl"
+    env = dict(os.environ, **{LAUNCH_LOG_ENV: str(log_file)})
+    cmd = [sys.executable, "-m", "espnet_tpu_torch.bin.run_tts",
+           "--recipe.expdir", str(ws / "exp"),
+           "--recipe.datadir", str(ws / "data"), "--recipe.local_data", "",
+           "--recipe.tts_type", "tacotron2",
+           "--recipe.tts_args", shlex.join(list(run) + list(taco_args)),
+           "--recipe.synth_args",
+           "--max_frames 128 --griffin_lim_iters 8 --batch_size 2", *dev]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:] + proc.stderr[-8000:], flush=True)
+        raise AssertionError(f"run_tts exited {proc.returncode}")
+    for n in range(1, 10):
+        if not (ws / "exp" / f".stage{n}.done").exists():
+            raise AssertionError(f"run_tts: stage {n} not done")
+    logged = [json.loads(x) for x in log_file.read_text().splitlines()]
+    for entry in logged:
+        check_case_launches(entry["cli"], "its run", entry["launches"], {},
+                            1)
+    clis = sorted(e["cli"] for e in logged)
+    if clis != ["tts_inference", "tts_train"]:
+        raise AssertionError(f"run_tts: launch logs of {clis}")
+    score = (ws / "exp" / "score_test" / "score_mcd.txt").read_text()
+    log("tts", f"cli run_tts tacotron2 (stages 1-9): {wall:.1f}s; "
+        f"{score.splitlines()[0]}; launch logs of {clis}, none launched "
+        f"(exact) [{smi}]")
+
+    layers = 2 if device == "cuda" else 0
+    step = {"flash_attention": 2 * layers, "prenorm_ffn": 2 * layers,
+            "prenorm_ffn_bwd": 2 * layers}
+    synth = {"flash_attention": 2 * layers, "prenorm_ffn": 2 * layers}
+    calls = [
+        ("tts_teacher_durations", tts_teacher_durations.main, [
+            "--exp_dir", str(ws / "exp" / "tts"), "--data_dir", str(train),
+            *dev], {}),
+        ("tts_train fastspeech2", tts_train.main, [
+            "--run.output_dir", str(ws / "fs2"), "--data.train_dir",
+            str(train), "--model.tts_type", "fastspeech2", *run, *fs2_args,
+            *dev], step),
+        ("tts_inference fastspeech2", tts_inference.main, [
+            "--exp_dir", str(ws / "fs2"), "--data_dir", str(test),
+            "--output_dir", str(ws / "synth"), "--griffin_lim_iters", "8",
+            *dev], synth),
+        ("tts_scoring", tts_scoring.main, [
+            "--ref_dir", str(test), "--synth_dir", str(ws / "synth"),
+            "--output_dir", str(ws / "score")], {}),
+    ]
+    for what, fn, argv, per in calls:
+        _, counts, wall = counted_call(fn, argv)
+        check_case_launches(what, "its run", counts, per, 1)
+        log("tts", f"cli {what}: {wall:.1f}s; launches exact "
+            f"{({k: v for k, v in counts.items() if v})}")
+    durs = (train / "durations").read_text().splitlines()
+    if len(durs) != TTS_CLI_UTTS:
+        raise AssertionError("tts_teacher_durations wrote no durations")
+    log("tts", f"cli MCD of the FastSpeech2 synthesis: "
+        f"{(ws / 'score' / 'score_mcd.txt').read_text().splitlines()[0]}")
+
+
+TTS_FS2_CLI = ("--model.fastspeech2.encoder_layers", "2",
+               "--model.fastspeech2.decoder_layers", "2")
+
+
+def phase_tts(torch, np, smi):
+    """The TTS slice: flash at head dim 192 and the pre-norm FFN at
+    FastSpeech2's shapes; each of the four configurations served (Griffin-
+    Lim) and trained, with its float32 kernel route against the plain
+    route and its exact launches; then the CLIs and run_tts. Returns (the
+    D=192 flash row's result, FastSpeech2's timed steps' launches)."""
+    from espnet_tpu_torch.configs import tts_config
+
+    t0 = time.perf_counter()
+    flash192 = tts_kernels(torch, np)
+    launches = {}
+    for name in TTS_TYPES:
+        cfg = tts_config(torch.bfloat16, name)
+        tts_serve(torch, np, smi, cfg)
+        tts_train_parity(torch, np, cfg)
+        launches[name] = tts_train(torch, np, smi, cfg)
+    tts_clis(torch, np, smi, fs2_args=TTS_FS2_CLI)
+    log("tts", f"phase {time.perf_counter() - t0:.1f}s")
+    return flash192, launches["fastspeech2"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4997,6 +5426,8 @@ def main() -> int:
     phase_lm_fusion(torch, np, smi)
     phase_translation(torch, np, smi)
     phase_ssl(torch, np, smi)
+    results["flash_attention_d192"], launches["fastspeech2"] = phase_tts(
+        torch, np, smi)
     results.update(rnnt_results)
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
@@ -5004,7 +5435,8 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches[MAIN_PATH.get(kname, "conformer")][kname],
+            "launches": launches[MAIN_PATH.get(kname, "conformer")][
+                ROW_OF.get(kname, kname)],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

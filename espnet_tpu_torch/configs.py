@@ -91,7 +91,22 @@ no normalisation, CTC weight 0 as ESPnet's Whisper fine-tuning configs);
 
 the JAX `HubertConfig` defaults (a 6 x 256 transformer, 4 heads, FFN 1024,
 100 k-means classes, log-mel at hop 128). All use random weights from a
-seed; all but `whisper_base` vocab 5000.
+seed; all but `whisper_base` and the TTS models vocab 5000.
+
+    tts_config(torch.bfloat16, "fastspeech2")
+
+gives the `TTSTaskConfig` of one of the four TTS models at the JAX
+configs' defaults (the published geometry their docstrings cite), with
+the JAX `TTSTaskConfig` frontend (16 kHz, n_fft 1024, hop 256, 80 mels,
+fmin 80, fmax 7600, global MVN) and the synthetic corpus's character
+vocabulary (`TTS_VOCAB`, 16 tokens): `fastspeech2` (384 wide, 2 heads of
+192, FFN 1536, 4 + 4 layers, postnet 5 x 512, max_frames 2048: ESPnet's
+train_fastspeech2.yaml), `tacotron2` (embed 512, 3 x 512 convs k 5, BLSTM
+512, 2 x 1024 decoder LSTMs, AttLoc 128 / 32 x 15, postnet 5 x 512, GST
+off), `transformer` (256 wide, 4 heads, FFN 1024, 6 + 6 layers) and
+`prodiff` (256 wide, 2 heads, 4 encoder layers, denoiser 20 x 256, 4
+timesteps). The autoregressive two stop at `TTS_AR_FRAMES` (400) frames:
+random weights never emit the stop token.
 """
 
 from __future__ import annotations
@@ -105,6 +120,11 @@ from espnet_tpu_torch.models.mulenc import MulEncConfig
 from espnet_tpu_torch.models.ssl import SSLConfig, WhisperConfig
 from espnet_tpu_torch.models.st import STConfig
 from espnet_tpu_torch.models.transducer import TransducerConfig
+from espnet_tpu_torch.models.tts.fastspeech2 import FastSpeech2Config
+from espnet_tpu_torch.models.tts.model import TTSTaskConfig
+from espnet_tpu_torch.models.tts.prodiff import ProDiffConfig
+from espnet_tpu_torch.models.tts.tacotron2 import Tacotron2Config
+from espnet_tpu_torch.models.tts.transformer_tts import TransformerTTSConfig
 from espnet_tpu_torch.tasks.lm import LMModelConfig
 
 BENCH = dict(
@@ -270,3 +290,26 @@ def whisper_base(dtype, **overrides) -> ASRConfig:
 def hubert_pretrain(dtype, **overrides) -> HubertConfig:
     """The JAX `HubertConfig` defaults (6 x 256, FFN 1024, 100 classes)."""
     return HubertConfig(**{"dtype": dtype, **overrides})
+
+
+TTS_VOCAB = 16  # the synthetic corpus's character token list
+TTS_AR_FRAMES = 400
+TTS_MODELS = {  # tts_type: (TTSTaskConfig field, its configuration)
+    "fastspeech2": ("fastspeech2", FastSpeech2Config),
+    "tacotron2": ("tacotron2", Tacotron2Config),
+    "transformer": ("transformer", TransformerTTSConfig),
+    "prodiff": ("prodiff", ProDiffConfig),
+}
+
+
+def tts_config(dtype, tts_type: str, **overrides) -> TTSTaskConfig:
+    """The JAX TTS model configuration's defaults for `tts_type` with vocab
+    `TTS_VOCAB` and compute `dtype` (the autoregressive ones stopping at
+    TTS_AR_FRAMES), under the JAX `TTSTaskConfig` frontend; `overrides`
+    replace fields of the model's configuration."""
+    field, klass = TTS_MODELS[tts_type]
+    kw = {"vocab_size": TTS_VOCAB, "dtype": dtype}
+    if tts_type in ("tacotron2", "transformer"):
+        kw["max_frames"] = TTS_AR_FRAMES
+    return TTSTaskConfig(tts_type=tts_type, vocab_size=TTS_VOCAB,
+                         **{field: klass(**{**kw, **overrides})})

@@ -74,6 +74,22 @@ own. So do the v1 RNN models' and the beamformer's cells, which the JAX
 `nn.RNN` calls leave under flax's automatic names
 (`encoder/OptimizedLSTMCell_{k}`, `frontend_beamformer/mask_est/
 OptimizedLSTMCell_{k}`): the port's modules carry the same names.
+
+The TTS trees (`models/tts/`: Tacotron2, FastSpeech2, Transformer-TTS,
+ProDiff, GST, the speaker conditioner and extractor, VC) add three things.
+Tacotron2's encoder BLSTM cells are `OptimizedLSTMCell_{0,1}` under the
+encoder and its decoder cells `decoder/lstm{i}` (flax's cell, as above);
+GST's GRU is flax's `GRUCell` (`gst/ref_enc/GRUCell_0/{ir,iz,in,hr,hz,hn}`,
+Dense layers of the same names in the port); `tokens` (GST) and `pos_alpha`
+(FastSpeech2's scaled positions) are raw leaves, and `sid_emb` / `lid_emb`
+embedding tables. BatchNorm (Tacotron2's encoder, the postnet) keeps its
+running `mean` and `var` in the JAX `batch_stats` collection: a variables
+dict {"params", "batch_stats", "mvn"} carries them to the BatchNorm
+buffers of the same path, and `model_variables` gives the port's
+parameters and running statistics back as such a dict. A param tree
+without `batch_stats` (the JAX package's `ep<N>.params.msgpack`) leaves
+the model's running statistics as they are, as the JAX package's TTS
+inference starts from the initial ones (ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -98,9 +114,10 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 # raw parameters carried without a layout change
 RAW_LEAVES = ("bias", "pos_bias_u", "pos_bias_v", "log_neg_a_re", "a_im",
               "log_dt", "c_re", "c_im", "d", "low_hz", "band_hz", "gvec",
-              "layer_weights", "mask_emb", "positions")
+              "layer_weights", "mask_emb", "positions", "tokens", "pos_alpha")
 # modules whose 2-D `weight` is an embedding table
-EMBEDDINGS = ("embed", "embed_tokens")
+EMBEDDINGS = ("embed", "embed_tokens", "sid_emb", "lid_emb")
+COLLECTIONS = ("params", "mvn", "batch_stats")
 
 
 def _leaf(name: str, value: np.ndarray):
@@ -161,19 +178,21 @@ def _stack_scan(tree: Dict[str, Dict]) -> Dict[str, Dict]:
 
 
 def _split_variables(tree: Mapping):
-    """(params, mvn collection or None) of a JAX param tree or of a
-    variables dict {"params", optionally "mvn"}."""
-    if "params" in tree and set(tree) <= {"params", "mvn"}:
-        return tree["params"], tree.get("mvn")
-    return tree, None
+    """(params, mvn collection or None, batch_stats collection or None) of
+    a JAX param tree or of a variables dict {"params", optionally "mvn" and
+    "batch_stats"}."""
+    if "params" in tree and set(tree) <= set(COLLECTIONS):
+        return tree["params"], tree.get("mvn"), tree.get("batch_stats")
+    return tree, None, None
 
 
 def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """Map a JAX `ASRModel` param tree, or its variables dict with the `mvn`
-    collection, to the port's state_dict (float32)."""
-    params, mvn = _split_variables(params)
+    and `batch_stats` collections, to the port's state_dict (float32)."""
+    params, mvn, stats = _split_variables(params)
     sd = {}
-    for path, value in _flatten(mvn or {}).items():
+    for path, value in list(_flatten(mvn or {}).items()) + list(
+            _flatten(stats or {}).items()):
         sd[path.replace("/", ".")] = torch.from_numpy(
             np.array(value, np.float32))
     for path, value in _unstack_scan(_flatten(params)).items():
@@ -203,7 +222,7 @@ def torch_to_jax_tree(tensors: Mapping[str, torch.Tensor],
     """Nested dict with `like`'s structure (a JAX param tree), each leaf
     taken from `tensors` (port names -> tensors, e.g. a state_dict or the
     parameters' gradients) in the JAX layout, as float32 numpy arrays."""
-    if "params" in like and len(like) == 1:
+    if "params" in like and set(like) <= set(COLLECTIONS):
         like = like["params"]
 
     def build(tree, prefix):
@@ -224,10 +243,13 @@ def torch_to_jax_tree(tensors: Mapping[str, torch.Tensor],
 
 
 MVN_BUFFERS = ("mvn.mean", "mvn.inv_std")
+BATCH_STAT_LEAVES = (".mean", ".var")  # BatchNorm's running buffers
 
 
-def _jax_leaf(key: str, value: np.ndarray):
-    """(JAX leaf name, array in the JAX layout) of the port's leaf `key`."""
+def _jax_leaf(key: str, value: np.ndarray, has_bias: bool = False):
+    """(JAX leaf name, array in the JAX layout) of the port's leaf `key`;
+    `has_bias`: its module also has a bias (a Dense named like an
+    embedding table, as the speaker extractor's `embed`)."""
     parts = key.split(".")
     name = parts[-1]
     if name in RAW_LEAVES:
@@ -236,7 +258,8 @@ def _jax_leaf(key: str, value: np.ndarray):
         raise ValueError(f"unknown parameter leaf {key!r}")
     if value.ndim == 1:
         return "scale", value
-    if value.ndim == 2 and len(parts) > 1 and parts[-2] in EMBEDDINGS:
+    if value.ndim == 2 and len(parts) > 1 and parts[-2] in EMBEDDINGS \
+            and not has_bias:
         return "embedding", value
     if value.ndim in (2, 3, 4):
         return "kernel", _unleaf("kernel", value)
@@ -253,11 +276,12 @@ def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor],
     built with scan_encoder_layers=True."""
     tree: Dict[str, Dict] = {}
     for key, t in state_dict.items():
-        if key in MVN_BUFFERS:
+        if key in MVN_BUFFERS or key.endswith(BATCH_STAT_LEAVES):
             continue
         arr = (t.detach().cpu().float().numpy()
                if isinstance(t, torch.Tensor) else np.asarray(t, np.float32))
-        leaf, arr = _jax_leaf(key, arr)
+        leaf, arr = _jax_leaf(key, arr, key[:-len("weight")] + "bias"
+                              in state_dict)
         cur = tree
         for p in key.split(".")[:-1]:
             cur = cur.setdefault(p, {})
@@ -265,6 +289,41 @@ def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor],
             raise ValueError(f"two port leaves map to {key}")
         cur[leaf] = np.ascontiguousarray(arr, dtype=np.float32)
     return _stack_scan(tree) if scan_layers else tree
+
+
+def batch_stats_tree(model: torch.nn.Module) -> Dict[str, Dict]:
+    """The JAX `batch_stats` collection of `model`'s BatchNorm buffers
+    (nested dicts of float32 numpy arrays; empty without BatchNorm)."""
+    from espnet_tpu_torch.models.layers import BatchNorm
+
+    tree: Dict[str, Dict] = {}
+    for name, mod in model.named_modules():
+        if not isinstance(mod, BatchNorm):
+            continue
+        cur = tree
+        for p in name.split("."):
+            cur = cur.setdefault(p, {})
+        for leaf in ("mean", "var"):
+            cur[leaf] = getattr(mod, leaf).detach().cpu().float().numpy()
+    return tree
+
+
+def model_variables(model: torch.nn.Module) -> Dict[str, Dict]:
+    """{"params": the JAX param tree, "batch_stats": ...} of `model` (the
+    second only where it has BatchNorm): what flax's `apply` takes."""
+    out = {"params": model_params(model)}
+    stats = batch_stats_tree(model)
+    if stats:
+        out["batch_stats"] = stats
+    return out
+
+
+def batch_stat_keys(model: torch.nn.Module) -> set:
+    """The state_dict keys of `model`'s BatchNorm running buffers."""
+    from espnet_tpu_torch.models.layers import BatchNorm
+
+    return {f"{name}.{leaf}" for name, mod in model.named_modules()
+            if isinstance(mod, BatchNorm) for leaf in ("mean", "var")}
 
 
 def model_params(model: torch.nn.Module) -> Dict[str, Dict]:
@@ -278,22 +337,24 @@ def model_params(model: torch.nn.Module) -> Dict[str, Dict]:
 
 
 def load_jax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
-    """Load a JAX param tree, or the variables dict {"params", "mvn"} of a
-    global-MVN model, into `model`; raises on any key left unused on either
-    side, or on a shape that does not match. The transducer and Mask-CTC
+    """Load a JAX param tree, or the variables dict {"params", "mvn",
+    "batch_stats"}, into `model`; raises on any key left unused on either
+    side (but the BatchNorm running statistics that the tree lacks: they
+    stay as they are), or on a shape that does not match. The transducer and Mask-CTC
     drop the `mvn` collection: they have no global-MVN buffers, and the JAX
     models never read the stats that their tasks pass them."""
     from espnet_tpu_torch.models.maskctc import MaskCTCModel
     from espnet_tpu_torch.models.transducer import TransducerASRModel
 
-    tree, mvn = _split_variables(params)
+    tree, mvn, _ = _split_variables(params)
     if mvn is not None and isinstance(model, (TransducerASRModel,
                                               MaskCTCModel)):
         params = tree
     sd = jax_params_to_state_dict(params)
     own = model.state_dict()
     unused = sorted(set(sd) - set(own))
-    missing = sorted(set(own) - set(sd))
+    # running statistics the tree lacks stay as they are
+    missing = sorted(set(own) - set(sd) - batch_stat_keys(model))
     if any(k.startswith("mvn.") for k in missing):
         raise KeyError(
             "the model normalises with global MVN, but no 'mvn' statistics "
@@ -306,5 +367,5 @@ def load_jax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
         if tuple(own[key].shape) != tuple(value.shape):
             raise ValueError(f"{key}: JAX shape {tuple(value.shape)} vs port "
                              f"{tuple(own[key].shape)}")
-    model.load_state_dict(sd)
+    model.load_state_dict(sd, strict=False)
     return model

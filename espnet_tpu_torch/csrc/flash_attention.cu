@@ -41,6 +41,11 @@
 //   walks 64-key tiles in float32 shared memory; each thread holds a 4x4
 //   sub-tile and the probability tile goes through shared memory.
 //
+// At D = 192 the float32 kernel takes 165,120 bytes of shared memory and
+// the bf16 kernel 128,512 (one block an SM); the bf16 warp's output
+// accumulators are 96 float32 registers a thread. Both are the same code
+// as at D <= 128, instantiated once more.
+//
 // Both follow the plain reference (`_reference_attention`), not the Pallas
 // kernel, on masking: the key bias is clamped at NEG = finfo(f32).min/2 and
 // the running max starts at NEG, so a query whose keys are all masked
@@ -449,7 +454,8 @@ int launch_tc(const void* q, const void* k, const void* v,
 }  // namespace espnet_port
 
 // q, k, v, out: (B, H, T, D) of one dtype, contiguous; kbias: (B, T)
-// float32 additive key bias. D in {32, 64, 128}; scale multiplies the
+// float32 additive key bias. D in {32, 64, 128, 192} (FastSpeech2's two
+// heads of 384 are 192 wide; the rel-pos kernels stop at 128); scale multiplies the
 // scores (1/sqrt of the head dim before any zero padding to D). bf16 runs
 // on tensor cores and needs q, k, v 16-byte aligned; float32 runs on the
 // CUDA cores.
@@ -466,12 +472,14 @@ extern "C" int espnet_flash_attention_fwd(const void* q, const void* k,
   if (dtype == kFloat32 && D == 32) ESPNET_FLASH_FWD(float, 32);
   if (dtype == kFloat32 && D == 64) ESPNET_FLASH_FWD(float, 64);
   if (dtype == kFloat32 && D == 128) ESPNET_FLASH_FWD(float, 128);
+  if (dtype == kFloat32 && D == 192) ESPNET_FLASH_FWD(float, 192);
 #undef ESPNET_FLASH_FWD
 #define ESPNET_FLASH_TC(DD) \
   return launch_tc<DD>(q, k, v, kbias, out, B, H, T, scale, s)
   if (dtype == kBFloat16 && D == 32) ESPNET_FLASH_TC(32);
   if (dtype == kBFloat16 && D == 64) ESPNET_FLASH_TC(64);
   if (dtype == kBFloat16 && D == 128) ESPNET_FLASH_TC(128);
+  if (dtype == kBFloat16 && D == 192) ESPNET_FLASH_TC(192);
 #undef ESPNET_FLASH_TC
   return kUnsupported;
 }

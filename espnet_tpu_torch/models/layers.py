@@ -60,12 +60,13 @@ class Dense(nn.Linear):
 
 class Conv1d(nn.Conv1d):
     """flax `nn.Conv` over channel-last (N, L, C) input, computed in
-    `dtype`, "SAME" padding (odd kernels: symmetric)."""
+    `dtype`, "SAME" padding (odd kernels: symmetric, also dilated)."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int, groups: int = 1,
-                 bias: bool = True, dtype=torch.float32):
-        super().__init__(c_in, c_out, kernel, padding=kernel // 2,
-                         groups=groups, bias=bias)
+                 bias: bool = True, dtype=torch.float32, dilation: int = 1):
+        super().__init__(c_in, c_out, kernel,
+                         padding=(kernel - 1) * dilation // 2,
+                         dilation=dilation, groups=groups, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -73,7 +74,8 @@ class Conv1d(nn.Conv1d):
         b = None if self.bias is None else self.bias.to(dt)
         y = nn.functional.conv1d(x.to(dt).transpose(1, 2),
                                  self.weight.to(dt), b,
-                                 padding=self.padding, groups=self.groups)
+                                 padding=self.padding, dilation=self.dilation,
+                                 groups=self.groups)
         return y.transpose(1, 2)
 
 
@@ -88,6 +90,47 @@ class LayerNorm(nn.LayerNorm):
         y = nn.functional.layer_norm(x.float(), self.normalized_shape,
                                      self.weight, self.bias, self.eps)
         return y.to(self.compute_dtype)
+
+
+class BatchNorm(nn.Module):
+    """flax `nn.BatchNorm` over the last axis of (..., C), in float32 with
+    eps 1e-5 and momentum 0.9: in training mode it normalises with the
+    batch's statistics over every other axis (padding included; the
+    variance E[x^2] - E[x]^2, biased, floored at 0) and updates the running
+    buffers `mean` and `var` (the JAX `batch_stats` collection) in place as
+    flax does, new = 0.9 old + 0.1 batch; in eval mode it uses them.
+    `torch.nn.BatchNorm1d` keeps the unbiased variance, hence this module.
+    The output is in the input's dtype."""
+
+    def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            dims = tuple(range(xf.ndim - 1))
+            mean = xf.mean(dims)
+            var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.mul_(m).add_((1.0 - m) * mean.detach())
+                self.var.mul_(m).add_((1.0 - m) * var.detach())
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias  # flax's order: the scale folds into the rsqrt
+        return y.to(x.dtype)
+
+
+def batch_stat_buffers(model: nn.Module):
+    """Every BatchNorm running buffer of `model` (the JAX `batch_stats`)."""
+    return [b for m in model.modules() if isinstance(m, BatchNorm)
+            for b in (m.mean, m.var)]
 
 
 GATES = ("i", "f", "g", "o")

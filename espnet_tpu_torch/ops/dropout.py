@@ -32,6 +32,15 @@ def draw_seeds(generator: torch.Generator, n: int) -> List[int]:
                          device=generator.device).tolist()
 
 
+def bernoulli(shape, p: float, generator: torch.Generator,
+              device) -> torch.Tensor:
+    """Bool (shape) on `device`, True with probability p, drawn from a
+    device generator seeded from `generator`."""
+    g = torch.Generator(device=device)
+    g.manual_seed(draw_seeds(generator, 1)[0] & 0x7FFFFFFFFFFFFFFF)
+    return torch.rand(shape, generator=g, device=device) < p
+
+
 def _keep_bytes(shape, device, seed: int) -> torch.Tensor:
     g = torch.Generator(device=device)
     g.manual_seed(seed & 0x7FFFFFFFFFFFFFFF)

@@ -14,8 +14,9 @@ qualify (`key_padding_only`), as in the JAX `_key_padding_bias`.
 `csrc/flash_attention.cu`; anything else raises.
 Callers apply the head-dim gate of both attention kernels first,
 `relpos_attention.kernel_takes` (the JAX module's `dk % 8 == 0`), and
-head dims are padded to the kernel's as for rel-pos attention
-(`relpos_attention.kernel_head_dim`).
+head dims are padded to the kernel's (`flash_head_dim`): 32, 64, 128 as
+for rel-pos attention, and 192, FastSpeech2's two heads of 384, which only
+this kernel has.
 
 The forward, kernel and plain version alike, computes in float32 inside
 whatever the input dtype (as `_flash_kernel` does: it casts its blocks to
@@ -43,8 +44,19 @@ import torch.nn.functional as F
 
 from espnet_tpu_torch.ops.cuda_build import check_launch, kernel_library
 from espnet_tpu_torch.ops.ffn_common import aligned16
-from espnet_tpu_torch.ops.relpos_attention import (DTYPE_CODES, NEG,
-                                                   kernel_head_dim, key_bias)
+from espnet_tpu_torch.ops.relpos_attention import DTYPE_CODES, NEG, key_bias
+
+FLASH_HEAD_DIMS = (32, 64, 128, 192)  # the instantiations in csrc/
+
+
+def flash_head_dim(head_dim: int) -> int:
+    """The kernel head dim a call of this head dim runs at (zero padding
+    up to it); raises past the largest."""
+    for dim in FLASH_HEAD_DIMS:
+        if head_dim <= dim:
+            return dim
+    raise ValueError(f"the flash kernel takes head dims up to "
+                     f"{FLASH_HEAD_DIMS[-1]}, not {head_dim}")
 
 
 def key_padding_only(bias: Optional[torch.Tensor]) -> bool:
@@ -123,7 +135,7 @@ def _check_cuda_args(q, k, v):
     b, h, t, d = q.shape
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"flash_attention: unsupported dtype {q.dtype}")
-    kernel_head_dim(d)
+    flash_head_dim(d)
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {x.device}, "
@@ -143,7 +155,7 @@ def _kernel_fwd(q, k, v, kb):
     """The kernel's forward; kb: (B, 1, 1, T) float32 key bias, clamped,
     contiguous."""
     b, h, t, d = q.shape
-    pad = kernel_head_dim(d) - d
+    pad = flash_head_dim(d) - d
     if pad:  # zero columns add nothing to a score
         q, k, v = (F.pad(x, (0, pad)).contiguous() for x in (q, k, v))
     elif q.dtype == torch.bfloat16:

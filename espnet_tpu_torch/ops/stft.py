@@ -48,11 +48,21 @@ def _dft_bases(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
 
 def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int,
                  center: bool = True) -> torch.Tensor:
-    """(B, N) -> (B, F, n_fft) frames; reflect-pads n_fft//2 when center."""
+    """(B, N) -> (B, F, n_fft) frames; reflect-pads n_fft//2 when center
+    (numpy's reflect, repeated where the pad reaches past the signal, as
+    jnp.pad does for a signal shorter than the pad)."""
     if center:
         pad = n_fft // 2
-        x = torch.nn.functional.pad(x[:, None, :], (pad, pad),
-                                    mode="reflect")[:, 0]
+        n = x.shape[-1]
+        if pad < n:
+            x = torch.nn.functional.pad(x[:, None, :], (pad, pad),
+                                        mode="reflect")[:, 0]
+        else:
+            idx = torch.arange(-pad, n + pad, device=x.device)
+            period = max(2 * (n - 1), 1)
+            idx = idx % period
+            idx = torch.where(idx >= n, period - idx, idx)
+            x = x[:, idx]
     return x.unfold(-1, n_fft, hop_length)
 
 
@@ -152,3 +162,42 @@ def log_mel_spectrogram(x: torch.Tensor, ilens: torch.Tensor, fs: int = 16000,
     olens = stft_frames_lengths(ilens, n_fft, hop_length)
     mask = make_valid_mask(olens, feats.shape[1])
     return feats * mask[:, :, None].to(feats.dtype), olens
+
+
+def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int = 512,
+          hop_length: int = 128, win_length: Optional[int] = None,
+          window: str = "hann", center: bool = True,
+          length: Optional[int] = None) -> torch.Tensor:
+    """Inverse STFT of (real, imag), each (B, F, n_fft//2+1) -> (B, N):
+    the inverse real DFT as two float32 products with the bases of `stft`,
+    the window, overlap-add, then division by the overlap-added squared
+    window (floored at 1e-11), as the JAX `istft` does."""
+    win_length = win_length or n_fft
+    b, f, k = real.shape
+    dev = real.device
+    cos_b, sin_b = (torch.from_numpy(a).to(dev) for a in _dft_bases(n_fft))
+    scale = np.full((k,), 2.0, np.float32)
+    scale[0] = 1.0
+    if n_fft % 2 == 0:
+        scale[-1] = 1.0
+    scale = torch.from_numpy(scale).to(dev)
+    # x[n] = (1/N) sum_k scale_k (Re cos(2 pi k n/N) - Im sin(2 pi k n/N));
+    # the bases hold cos(-t) and sin(-t), hence '+' on the imaginary term
+    frames = ((real.float() * scale) @ cos_b.t()
+              + (imag.float() * scale) @ sin_b.t()) / n_fft
+    w = torch.from_numpy(_padded_window(win_length, n_fft, window)).to(dev)
+    frames = frames * w
+    out_len = n_fft + hop_length * (f - 1)
+    idx = (torch.arange(f, device=dev)[:, None] * hop_length
+           + torch.arange(n_fft, device=dev)[None, :]).reshape(-1)
+    sig = torch.zeros(b, out_len, device=dev).index_add_(
+        1, idx, frames.reshape(b, -1))
+    wsq = torch.zeros(out_len, device=dev).index_add_(
+        0, idx, (w * w).repeat(f))
+    sig = sig / wsq.clamp(min=1e-11)
+    if center:
+        pad = n_fft // 2
+        sig = sig[:, pad:out_len - pad]
+    if length is not None:
+        sig = sig[:, :length]
+    return sig

@@ -12,7 +12,8 @@ and layouts, so either package reads the other's:
 * `checkpoint.meta.json`: the last epoch and the reporter's state.
 
 The resume state is the port's own, `checkpoint.pt` (torch.save of the step,
-the flat parameters, the optimizer state and the step generator's state).
+the flat parameters, the optimizer state, the step generator's state and
+the BatchNorm running statistics, the JAX `batch_stats`).
 Where a directory holds only the JAX package's `checkpoint.msgpack` (an optax
 chain of clip and the optimizer: {step, params, opt_state, extra_vars}),
 `load_state` resumes from it: the parameters and the optimizer's slots
@@ -21,7 +22,8 @@ names, which the port's flat optimizers share), trees shaped like the
 parameters, each go through the converter that maps the parameters
 (`convert.jax_params_to_state_dict`) and then into the port's flat order,
 leaf by leaf; the optax counts must agree and become the port's one count,
-and the global-MVN statistics of `extra_vars` go to the model's buffers.
+and the global-MVN statistics and the BatchNorm running statistics of
+`extra_vars` (`mvn`, `batch_stats`) go to the model's buffers.
 JAX's dropout key has no torch counterpart: such a resumed run seeds its
 generator as a fresh run does.
 """
@@ -35,7 +37,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from espnet_tpu_torch.convert import jax_params_to_state_dict, model_params
+from espnet_tpu_torch.convert import (batch_stat_keys,
+                                      jax_params_to_state_dict, model_params)
 from espnet_tpu_torch.train.msgpack_io import load_tree, save_tree
 
 
@@ -69,14 +72,19 @@ class CheckpointManager:
 
     # --- full training state (resume) ---
     def save_state(self, state, epoch: int, reporter_state: dict,
-                   generator_state: Optional[torch.Tensor] = None) -> None:
+                   generator_state: Optional[torch.Tensor] = None,
+                   model: Optional[torch.nn.Module] = None) -> None:
         """`state`: the train step's TrainState (flat params, optimizer
-        state); written before the meta file, which names the epoch."""
+        state); `model`'s BatchNorm running statistics go with it. Written
+        before the meta file, which names the epoch."""
         blob = {"step": int(state.step),
                 "params": state.params.detach().cpu(),
                 "opt_state": {k: v.detach().cpu()
                               for k, v in state.opt_state.items()},
-                "generator": generator_state}
+                "generator": generator_state,
+                "batch_stats": {} if model is None else {
+                    k: v.detach().cpu() for k, v in model.state_dict().items()
+                    if k in batch_stat_keys(model)}}
         tmp = self.out / "checkpoint.pt.tmp"
         torch.save(blob, tmp)
         tmp.replace(self.out / "checkpoint.pt")
@@ -111,6 +119,8 @@ class CheckpointManager:
             state.params.copy_(blob["params"])
             for k, v in blob["opt_state"].items():
                 state.opt_state[k].copy_(v)
+            for k, v in blob.get("batch_stats", {}).items():
+                model.get_buffer(k).copy_(v)
         state.step = blob["step"]
         return state, meta["epoch"], meta["reporter"], blob["generator"]
 
@@ -207,10 +217,11 @@ def load_jax_state(path, state, model: torch.nn.Module):
             dst = state.params if name == "params" else state.opt_state[name]
             dst.copy_(flat)
         state.opt_state["count"].fill_(counts.pop())
-        mvn = blob.get("extra_vars", {}).get("mvn")
-        if mvn and hasattr(model, "mvn"):
-            for key, t in jax_params_to_state_dict(
-                    {"params": {}, "mvn": mvn}).items():
-                model.get_buffer(key).copy_(t)
+        extra = blob.get("extra_vars", {})
+        mvn = extra.get("mvn") if hasattr(model, "mvn") else None
+        for key, t in jax_params_to_state_dict(
+                {"params": {}, "mvn": mvn or {},
+                 "batch_stats": extra.get("batch_stats") or {}}).items():
+            model.get_buffer(key).copy_(t)
     state.step = int(np.asarray(blob["step"]))
     return state

@@ -12,6 +12,10 @@ as the JAX package's micro-batch scan does. All randomness (dropout, SpecAug,
 the FFN kernels' seeds) comes from `generator`. `batch_keys` names the
 batch fields that the model takes, in order (the ASR models' `BATCH_KEYS`
 by default; the JAX steps' `batch_arg_names`).
+BatchNorm's running statistics (the JAX `batch_stats` collection: the TTS
+models' postnet and Tacotron2's encoder) update in the forward passes, and
+a step the optimizer skips (a non-finite gradient) restores them, as the
+JAX step keeps its old collection then.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from torch import nn
 
 from espnet_tpu_torch.device import resolve_device
+from espnet_tpu_torch.models.layers import batch_stat_buffers
 from espnet_tpu_torch.train.optim import (FlatOptimizer, flat_grads,
                                           flatten_parameters_)
 
@@ -77,6 +82,8 @@ def make_train_step(model: nn.Module, optimizer: FlatOptimizer,
         size = b // n_micro
         for p in model.parameters():
             p.grad = None
+        stat_bufs = batch_stat_buffers(model)
+        saved = [b.clone() for b in stat_bufs]
         totals: Dict[str, torch.Tensor] = {}
         for i in range(n_micro):
             mb = [data[k][i * size:(i + 1) * size] for k in batch_keys]
@@ -93,6 +100,11 @@ def make_train_step(model: nn.Module, optimizer: FlatOptimizer,
         stats = {k: v / n_micro for k, v in totals.items()}
         stats["grad_norm"], stats["skipped"] = optimizer.apply_(
             state.params, grads, state.opt_state)
+        if stat_bufs:
+            skip = torch.as_tensor(stats["skipped"], device=dev) > 0
+            with torch.no_grad():
+                for b, old in zip(stat_bufs, saved):
+                    b.copy_(torch.where(skip, old, b))
         state.step += 1
         return state, stats
 

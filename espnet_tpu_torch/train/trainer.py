@@ -202,7 +202,7 @@ class Trainer:
             # ---- checkpoint + best/prune ----
             self.ckpt.save_epoch_params(self.model, epoch)
             self.ckpt.save_state(state, epoch, self.reporter.state_dict(),
-                                 self.generator.get_state())
+                                 self.generator.get_state(), self.model)
             phase, key, mode = self._best_metric(valid_iter)
             best = self.reporter.best_epoch(phase, key, mode)
             if best is not None:

@@ -520,11 +520,14 @@ def _flash_args(device, dtype, b=3, h=4, t=200, d=64, lengths=(200, 77, 0)):
                                  # dim the kernels are built for
                                  (1, 32), (63, 32), (65, 32), (469, 32),
                                  (63, 64), (64, 64), (65, 64), (1, 128),
-                                 (63, 128), (64, 128), (469, 128)])
+                                 (63, 128), (64, 128), (469, 128),
+                                 (1, 192), (65, 192), (626, 192),
+                                 (200, 136)])
 def test_flash_kernel_and_its_gradient_match_plain(cuda, dtype, t, d):
     """Ragged keys, one utterance with every key masked (the uniform
     average of v); the backward recomputes through the plain version. Head
-    dims 48 and 96 run zero-padded to the kernel's 64 and 128."""
+    dims 48, 96 and 136 run zero-padded to the kernel's 64, 128 and 192
+    (192: FastSpeech2's heads)."""
     args = _flash_args(cuda, dtype, t=t, d=d,
                        lengths=(t, max(1, t // 3), 0))
     gout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
@@ -565,15 +568,17 @@ def test_flash_bf16_gradient_is_the_reference_vjp(cuda, t, d):
 
 @pytest.mark.gpu
 def test_kernels_raise_for_shapes_the_gate_passes_but_they_lack(cuda):
-    """Head dims past 128 and d_model past 512 pass the JAX package's gates
-    but not the kernels: on the card they raise, never run plain."""
+    """Head dims past 128 (rel-pos) or 192 (flash) and d_model past 512
+    pass the JAX package's gates but not the kernels: on the card they
+    raise, never run plain."""
     args = _relpos_args(cuda, torch.float32, t=20, d=136, lengths=(20, 9, 0))
     assert trel.kernel_takes(136)
     with pytest.raises(ValueError, match="up to 128"):
         trel.relpos_attention(*args)
-    fargs = _flash_args(cuda, torch.float32, t=20, d=136,
+    fargs = _flash_args(cuda, torch.float32, t=20, d=200,
                         lengths=(20, 9, 0))
-    with pytest.raises(ValueError, match="up to 128"):
+    assert trel.kernel_takes(200)
+    with pytest.raises(ValueError, match="up to 192"):
         tflash.flash_attention(*fargs)
     x, lns, lnb, w1, b1, w2, b2 = _ffn_args(cuda, torch.float32, m=40, d=640)
     assert ffn_common.kernel_takes(640, 1024)
@@ -1377,3 +1382,86 @@ def test_hubert_takes_flash_and_prenorm_ffn_on_the_card(cuda):
     num = sum(float(((a - b) ** 2).sum()) for a, b in zip(*grads.values()))
     den = sum(float((b ** 2).sum()) for b in grads[False])
     assert (num / den) ** 0.5 < 1e-3
+
+
+def _fastspeech2(cuda, dtype):
+    """FastSpeech2 at its published width (384, 2 heads of 192, FFN 1536)
+    with 1 + 1 layers, random weights."""
+    from espnet_tpu_torch.configs import tts_config
+    from espnet_tpu_torch.models.asr import init_random_
+    from espnet_tpu_torch.models.tts.model import TTSModel
+
+    cfg = tts_config(dtype, "fastspeech2", encoder_layers=1,
+                     decoder_layers=1, max_frames=512)
+    model = init_random_(TTSModel(cfg), torch.Generator().manual_seed(0))
+    return cfg, model.to(cuda)
+
+
+@pytest.mark.gpu
+def test_fastspeech2_train_step_takes_flash_192_on_the_card(cuda):
+    """One bf16 train step through make_train_step: flash at head dim 192
+    and the pre-norm FFN at D=384, F=1536 once a layer, the FFN backward
+    once a layer; finite, not skipped, parameters moved. The float32 loss
+    with kernels equals the plain route's."""
+    from espnet_tpu_torch.ops import launches
+    from espnet_tpu_torch.train.optim import build_optimizer
+    from espnet_tpu_torch.train.steps import TrainState, make_train_step
+
+    cfg, model = _fastspeech2(cuda, torch.bfloat16)
+    rng = np.random.RandomState(3)
+    n, u = 2 * 16000, 30
+    frames = n // 256 + 1
+    dur = np.full((3, u), frames // u, np.int64)
+    dur[:, 0] += frames - dur.sum(1)
+    batch = {"text": torch.from_numpy(rng.randint(1, 15, (3, u))),
+             "text_lengths": torch.tensor([u, u, u]),
+             "speech": torch.from_numpy((0.1 * rng.randn(3, n)).astype(
+                 np.float32)),
+             "speech_lengths": torch.tensor([n, n, n]),
+             "durations": torch.from_numpy(dur)}
+    keys = tuple(batch)
+    tx = build_optimizer("fused_adam", lr=1e-3, schedule="constant")
+    step = make_train_step(model, tx, device=cuda, batch_keys=keys)
+    state = TrainState.create(model, tx)
+    before = state.params.clone()
+    wrappers = launches.reset()
+    state, stats = step(state, batch, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    assert counts == {"flash_attention": 2, "prenorm_ffn": 2,
+                      "prenorm_ffn_bwd": 2}
+    assert np.isfinite(float(stats["loss"])) and float(stats["skipped"]) == 0
+    assert float((state.params - before).abs().max()) > 0
+
+    _, m32 = _fastspeech2(cuda, torch.float32)
+    args = tuple(batch[k].to(cuda) for k in keys)
+    with torch.no_grad():
+        lk, lp, counts = _kernel_vs_plain_loss(m32.eval(), args)
+    assert counts == {"flash_attention": 2, "prenorm_ffn": 2}
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+
+
+@pytest.mark.gpu
+def test_fastspeech2_synthesis_takes_flash_192_on_the_card(cuda):
+    """Synthesis (the decoder over max_frames) and Griffin-Lim: flash and
+    the pre-norm FFN once a layer; float32 mels with kernels within 1e-3
+    of the plain route's, the same lengths."""
+    from espnet_tpu_torch.ops import launches
+    from espnet_tpu_torch.ops.griffin_lim import logmel_to_wav
+
+    text = torch.from_numpy(np.random.RandomState(4).randint(1, 15, (2, 40)))
+    lens = torch.tensor([40, 23])
+    cfg, model = _fastspeech2(cuda, torch.float32)
+    wrappers = launches.reset()
+    mel, mlen = model.inference(text.to(cuda), lens.to(cuda))
+    torch.cuda.synchronize()
+    assert {k: fn.launches for k, fn in wrappers.items() if fn.launches} \
+        == {"flash_attention": 2, "prenorm_ffn": 2}
+    model.set_use_kernels(False)
+    want, wlen = model.inference(text.to(cuda), lens.to(cuda))
+    assert torch.equal(mlen, wlen) and mel.shape == (2, 512, 80)
+    assert float((mel - want).abs().max()) <= 1e-3
+    wav = logmel_to_wav(mel, cfg.fs, cfg.n_fft, cfg.hop_length, None,
+                        cfg.n_mels, 4)
+    assert wav.shape == (2, 511 * cfg.hop_length)
+    assert torch.isfinite(wav).all()

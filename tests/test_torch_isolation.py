@@ -91,7 +91,13 @@ def test_port_files_found():
             "run.py", "make_synth_data.py", "build_token_list.py",
             "pack.py", "prep_librispeech.py", "ctc_greedy.py", "remat.py",
             "launches.py", "ssl.py", "hubert.py", "kmeans.py",
-            "hf_import.py", "convert_hf.py", "hubert_train.py"} <= names
+            "hf_import.py", "convert_hf.py", "hubert_train.py",
+            "fastspeech2.py", "tacotron2.py", "transformer_tts.py",
+            "prodiff.py", "gst.py", "spk_embed.py", "vc.py", "model.py",
+            "griffin_lim.py", "pitch.py", "stft.py", "tts_metrics.py",
+            "tts.py", "recipe_tts.py", "tts_train.py", "tts_inference.py",
+            "tts_teacher_durations.py", "tts_scoring.py", "vc_train.py",
+            "spk_embed_extract.py", "run_tts.py"} <= names
 
 
 _NO_CARD_SCRIPT = r"""
