@@ -49,7 +49,8 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    kernels (`conformer_conv_split`) or the whole-module kernel
    (`conformer_conv_module`), each with a 6-layer decoder:
    a. serve: 4 requests of 4, 6, 9 and 12 s through Speech2Text with beam
-      10; the launch counters must show the exact kernel launches of the
+      10 (SERVE_STEPS label steps at most, twice: the runs must agree);
+      the launch counters must show the exact kernel launches of the
       one encode call and nothing else, and the float32 encoder output must
       match the plain versions';
    b. train parity: one float32 forward and backward on those 4 utterances
@@ -102,9 +103,10 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    frontend's);
 8. recipe: `python -m espnet_tpu_torch.bin.run --config
    egs/librispeech_100/conf/train_asr_conformer.yaml` in a temporary
-   directory with printed overrides (a 32-utterance synthetic corpus,
-   char tokens, test set test_clean, the `cli` phase's asr_args, stages
-   1-12): every marker and stage file, the exact kernel launches of each
+   directory with printed overrides (a 16-utterance synthetic corpus,
+   char tokens, test set test_clean, the `cli` phase's asr_args at 4
+   encoder and 2 decoder layers, stages 1-12): every marker and stage
+   file, the exact kernel launches of each
    CLI it runs (read from `ops/launches.py`'s log), the rel-pos attention,
    pre-norm FFN and CTC pair against their plain versions on two of the
    recipe's own micro-batches (T' below one tile), each with a float32
@@ -126,7 +128,7 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    parallel and blockwise modes on the 4 requests, with kernels and with
    plain versions (1e-4), exact `fused_ffn` launches; (b) `fused_ffn`
    against its plain version at one block's 42 rows; (c) the device and
-   host engines, greedy and beam 10, in chunks of 1600 samples: greedy
+   host engines, greedy and beam 4, in chunks of 1600 samples: greedy
    equal to offline CTC greedy, the engines' beam results equal (and
    counted against the offline search), ms per 0.512 s quantum, the
    streaming RTF, `fused_ffn` launches per block; (d) a float32 train step
@@ -149,21 +151,21 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    bf16 steps at B=8 x 15 s, U=40 (ms/step, audio-s/s, peak GiB; the pair
    once each a step); (d) `bin.asr_transducer_train` (2 encoder layers at
    full width) on a synthetic corpus, then `bin.asr_transducer_inference`
-   greedy and mAES, each a subprocess whose launch log must show the exact
-   launches;
+   greedy and mAES, each in process with its exact launches;
 12. asr-families: the rest of what the JAX ASRModel selects, at full
    width (random weights from seed 0), each case with its exact kernel
    launches: (a) `configs.longformer_conformer` (the slice's main path:
    12 x 256 longformer, window 100; `fused_ffn` 24 an encode and 24 + 24
-   a step, the CTC pair 1 + 1): beam 10 on the 4 requests in float32,
-   the kernel route's tokens equal to the plain route's and its encoder
+   a step, the CTC pair 1 + 1): beam 10 (SERVE_STEPS label steps) on the
+   4 requests in float32, the kernel route's tokens equal to the plain
+   route's and its encoder
    output within 1e-3, a float32 train step with kernels against plain,
    3 bf16 steps at B=64 x 15 s; (b) `configs.vgg_blstm_rnn` (v1
    VGG-BLSTMP + AttLoc): the same serve, 1 bf16 step at B=64 x 15 s;
    (c) the S4 decoder, sinc and multichannel (with and without DNN-WPE)
    frontends on the bench conformer at 2 layers (`configs.FAMILIES`):
    the same serve (the S4 decoder's `fused_ffn` 6 a decoder step, counted)
-   and one bf16 step at B=16 x 15 s (the multichannel cases B=8); (d) `WindowStreamingASR` on the
+   and one bf16 step at B=16 x 15 s (the multichannel cases B=4); (d) `WindowStreamingASR` on the
    VGG-LSTM: one window equals the offline decode, then 0.512 s windows,
    timed; (e) `bin.asr_align` on synth_hard's 300 test utterances in a
    subprocess with its launch log, its `segments` equal to the plain
@@ -194,8 +196,8 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    the S^2 CTC pairs a step); (c) `transformer_lm` (6 x 256, FFN 1024): a
    float32 step with kernels against plain, 3 bf16 steps at B=64 x 256
    tokens; then `bin.lm_train` (5 epochs on synth_hard's test text, its
-   token list) and `bin.lm_calc_perplexity` in subprocesses with their
-   launch logs, and `bin.asr_inference` on synth_hard's 300 test
+   token list) and `bin.lm_calc_perplexity` in process with their
+   launches, and `bin.asr_inference` on synth_hard's 300 test
    utterances without and with that LM (weight 0.3): WER and RTF of each,
    launches exact (`fused_ffn` 6 a call of the LM's score_step);
 14. lm-fusion: the JAX-trained synth_hard conformer with LMs trained on
@@ -203,7 +205,7 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    (3-gram) and `bin.lm_train` (a word RNN LM and a character RNN LM, 2 x
    256, 3 epochs) with their held-out perplexities on the test
    transcripts (`bin.lm_calc_perplexity`), then `bin.asr_inference` on
-   the first 100 test utterances (a fixed subset: the host searches) with
+   the first 50 test utterances (a fixed subset: the host searches) with
    no LM, the n-gram, the look-ahead word LM, the multi-level LM, the
    time-synchronous search and it with the n-gram (weights 0.3): WER, RTF
    and LM score steps of each; float32 texts on the kernel route equal to
@@ -217,13 +219,14 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    side) serving 16 sentences (beam 10, 64 steps) and
    `st_conformer` (bench.py's conformer with the ST heads: a CTC head over
    the source vocabulary, asr_weight 0.3, mtlalpha 1.0) serving the 4
-   requests (beam 10, 40 steps), each in float32 with the kernel route's
-   results equal to the plain route's, a float32 train step with kernels
-   against plain, 3 bf16 steps (MT at B=64 ragged pairs of 16-128 tokens;
+   requests (beam 10, SERVE_STEPS steps), each in float32 with the kernel
+   route's results equal to the plain route's, a float32 train step with
+   kernels against plain, 3 bf16 steps (MT at B=64 ragged pairs of 16-128
+   tokens;
    ST at B=64 x 15 s, 40 target and 40 source labels), exact launches;
    then in-process `bin.mt_train` / `bin.mt_inference`, `bin.st_train` /
    `bin.st_inference` and `bin.slu_train` / `bin.slu_inference` on
-   synthetic corpora (and `slu_inference` on synth_hard's 100 utterances:
+   synthetic corpora (and `slu_inference` on synth_hard's 50 utterances:
    intent accuracy 1.0), each with its exact launches;
 16. ssl: the SSL and Whisper parts of the ASR model and HuBERT
    pretraining at the published widths (random weights from seed 0;
@@ -237,9 +240,10 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    `wav2vec2_ctc` (that trunk fine-tuned as the encoder: the CTC pair
    only) and `whisper_base` (no kernel; its `score_step` with a 448-row
    cache against the teacher-forced log-probs): the 4 requests served in
-   float32 (beam 10, 40 steps) with the kernel route's results equal to
-   the plain route's and the encoder output within 1e-3, a float32 train
-   step with kernels against plain (the frozen trunk gets no gradient),
+   float32 (beam 10, SERVE_STEPS steps) with the kernel route's results
+   equal to the plain route's and the encoder output within 1e-3, a
+   float32 train step with kernels against plain (the frozen trunk gets
+   no gradient),
    3 bf16 steps at B=64 x 15 s (for wav2vec2_ctc, whose trunk is
    fine-tuned, the largest power of two that fits: 68.6 GiB) with
    ms/step, audio-s/s, peak GiB and exact launches; (c) `hubert_pretrain` (6 x 256, FFN 1024): a float32
@@ -271,14 +275,31 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    `tts_teacher_durations`, `tts_train` of a FastSpeech2 (2 + 2 layers at
    full width) on those durations, its `tts_inference` and
    `tts_scoring`;
-18. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
+18. gan: the GAN vocoders, VITS and JETS at the JAX task's and configs'
+   defaults (random weights from seed 0, float32 as in JAX): (a) flash
+   attention at VITS's head dim 96 (zero-padded to 128; B=16, H=2, T=120)
+   and JETS's 128 (T=120 and its decoder's 626) with SDPA beside it, the
+   pre-norm FFN at D=256, F=1024, M=16*626, float32 and bf16, and the CTC
+   pair on JETS's forward-sum lattice (T=626; S=241, a warp per
+   utterance, and S=401, a block per utterance) with torch's ctc_loss
+   beside it, each against its plain version; (b) a timed train step of
+   each vocoder (HiFiGAN V1, MelGAN, multi-band MelGAN, Parallel WaveGAN,
+   StyleMelGAN) at B=16 x 8192 samples: ms/step, peak GiB, every loss
+   finite; (c) VITS and JETS: the float32 text stack with kernels against
+   plain, timed train steps at B=16 x 10 s with 120 tokens, the synthesis
+   of 4 x 120 tokens, each with its exact launches; (d) on a synthetic
+   corpus, in process: `vocoder_train`, `tts_train` of a FastSpeech2 and
+   its `tts_inference --vocoder_dir`, `vits_train` / `vits_inference`,
+   `jets_train` / `jets_inference` at reduced depth;
+19. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
    lattice pairs float32; launches from the timed train steps of the
    configuration whose path holds the kernel: the conformer's, the
    transformer's for flash attention, the E-Branchformer's for
    `fused_ffn`, the two conv routes' for theirs, the transducer's for its
-   lattice pair, FastSpeech2's for the `flash_attention_d192` row: the
-   same kernel at head dim 192);
-19. last line: {"ok": true, "device": {...}}.
+   lattice pair, FastSpeech2's for the `flash_attention_d192` row and
+   VITS's for the `flash_attention_d96` row: the same kernel at head dims
+   192 and 96);
+20. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1066,6 +1087,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     # the same kernel at FastSpeech2's head dim 192 (B=32, H=2, T=626)
     "flash_attention_d192": ("espnet_tpu_torch/csrc/flash_attention.cu",
                              "espnet_tpu/ops/pallas_attention.py:133"),
+    # and at VITS's head dim 96, zero-padded to 128 (B=16, H=2, T=120)
+    "flash_attention_d96": ("espnet_tpu_torch/csrc/flash_attention.cu",
+                            "espnet_tpu/ops/pallas_attention.py:133"),
     "prenorm_glu": ("espnet_tpu_torch/csrc/conv_glu.cu",
                     "espnet_tpu/ops/pallas_conv_glu.py:177"),
     "prenorm_glu_bwd": ("espnet_tpu_torch/csrc/conv_glu.cu",
@@ -1086,6 +1110,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 }
 REQUEST_SECONDS = (4.0, 6.0, 9.0, 12.0)
 SAMPLE_RATE = 16000
+# label steps of the serves (random weights run every search to its cap):
+# 24, not 40: the saved host time pays for the gan phase
+SERVE_STEPS = 24
 
 
 L = 12  # encoder layers of every configuration
@@ -1125,10 +1152,12 @@ GATE_CONFIGS = {
     "gate_d512": ({"d_model": 512}, *CONFORMER),
 }
 # rows of the kernels line that are another row's kernel at another shape
-ROW_OF = {"flash_attention_d192": "flash_attention"}
+ROW_OF = {"flash_attention_d192": "flash_attention",
+          "flash_attention_d96": "flash_attention"}
 MAIN_PATH = {  # kernel: the configuration whose train run gives its launches
     "fused_ffn": "e_branchformer", "fused_ffn_bwd": "e_branchformer",
     "flash_attention": "transformer", "flash_attention_d192": "fastspeech2",
+    "flash_attention_d96": "vits",
     **{k: "conformer_conv_split" for k in (
         "prenorm_glu", "prenorm_glu_bwd", "postnorm_proj",
         "postnorm_proj_bwd")},
@@ -1216,7 +1245,7 @@ def phase_serve(torch, np, cfg, device="cuda", tag="serve", options=None,
     model = init_random_(ASRModel(cfg, options),
                          torch.Generator().manual_seed(0))
     s2t = Speech2Text(model, device=device, beam_size=10, ctc_weight=0.3,
-                      max_steps=40)
+                      max_steps=SERVE_STEPS)
     n_params = sum(p.numel() for p in model.parameters())
     log(tag, f"model built: {n_params} parameters, compute "
         f"{cfg.dtype}, {time.perf_counter() - t:.1f}s")
@@ -2098,13 +2127,18 @@ def phase_asr_variants(torch, np, smi):
 # the recipe phase: the north-star config through bin.run, as a user runs it
 RECIPE_OVERRIDES = {
     "--recipe.local_data": "synth",
-    # 32 utterances: the tts phase took the time 64 needed
-    "--recipe.synth_utts": "32",
+    # 16 utterances: the tts and gan phases took the time 64 needed
+    "--recipe.synth_utts": "16",
     # no LibriSpeech and no `tokenizers` on the card (as in the cli phase)
     "--recipe.token_type": "char",
     "--recipe.test_sets": "test_clean",
     "--recipe.stop_stage": "12",
 }
+# appended to the recipe's asr_args: 4 encoder and 2 decoder layers of the
+# conf's widths (its pack stage deflated four 187 MB params files at 12
+# and 6); the launch counts follow the layers
+RECIPE_DEPTH = ("--model.num_encoder_layers", "4",
+                "--model.num_decoder_layers", "2")
 
 
 def recipe_micro_batches(np, ds, batches, accum):
@@ -2239,7 +2273,7 @@ def phase_recipe(torch, np, smi):
         overrides["--recipe.expdir"] = str(exp)
         overrides["--recipe.datadir"] = str(data)
         overrides["--recipe.asr_args"] = shlex.join(
-            cli_argv(conf["asr_args"]))
+            cli_argv(conf["asr_args"]) + list(RECIPE_DEPTH))
         argv = ["--config", str(conf_path)]
         for flag, value in overrides.items():
             log("recipe", f"set {flag} {value}")
@@ -2490,8 +2524,11 @@ def phase_trained_exp(torch, np, smi):
 # the streaming phase: the streaming_conformer configuration (the bench
 # conformer's widths, contextual-block encoder 40 / 16 / 16) at full width
 STREAM_CHUNK = 1600      # samples a simulated chunk (0.1 s)
-STREAM_BEAM = 10
-STREAM_MAX_STEPS = 64    # the streaming engines' default label budget
+# beam 4 and a 32-label budget, not the offline serve's 10 and the
+# engines' default 64: the two engines' beam walls (70-85 s at 10 or 4 with
+# 64 labels) paid for the gan phase
+STREAM_BEAM = 4
+STREAM_MAX_STEPS = 32
 BLOCK_ROWS = 42          # block 40 + 2 context slots, one utterance
 
 
@@ -2904,14 +2941,14 @@ RNNT_CLI_LAYERS = 2
 
 def transducer_cli(torch, np, smi):
     """bin.asr_transducer_train and bin.asr_transducer_inference (greedy,
-    mAES) in subprocesses, each with its launch log."""
-    import os
+    mAES) in process (a subprocess's start costs 8-10 s on a busy host),
+    each with its launch counts."""
+    import importlib
     import shutil
     import tempfile
     from pathlib import Path
 
     from espnet_tpu_torch.data.synth import generate_corpus
-    from espnet_tpu_torch.ops.launches import LAUNCH_LOG_ENV
     from espnet_tpu_torch.tasks.transducer import TransducerTask
 
     ws = Path(tempfile.mkdtemp(prefix="chip_smoke_rnnt_"))
@@ -2920,8 +2957,6 @@ def transducer_cli(torch, np, smi):
                         seed=0)
         generate_corpus(ws / "valid", n_utts=8, min_words=4, max_words=10,
                         seed=1)
-        log_path = ws / "launches.jsonl"
-        env = dict(os.environ, **{LAUNCH_LOG_ENV: str(log_path)})
         exp = ws / "exp"
         train = RNNT_CLI_ARGS.split() + [
             "--data.train_dir", str(ws / "train"),
@@ -2934,21 +2969,13 @@ def transducer_cli(torch, np, smi):
                 "--output_dir", str(ws / f"decode_{search}"),
                 "--beam_size", str(beam), "--search", search,
                 "--batch_size", "4"]))
+        logged = []
         for cli, argv in calls:
-            t = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", f"espnet_tpu_torch.bin.{cli}", *argv],
-                cwd=Path(__file__).resolve().parent, env=env,
-                capture_output=True, text=True, timeout=600)
-            if proc.returncode != 0:
-                print(proc.stdout[-4000:] + proc.stderr[-8000:], flush=True)
-                raise AssertionError(f"transducer: {cli} exited "
-                                     f"{proc.returncode}")
+            main = importlib.import_module(f"espnet_tpu_torch.bin.{cli}").main
+            _, counts, wall = counted_call(main, argv)
+            logged.append({"cli": cli, "argv": argv, "launches": counts})
             log("transducer", f"(d) {cli} {' '.join(argv[-6:])}: "
-                f"{time.perf_counter() - t:.1f}s")
-        logged = [json.loads(ln) for ln in log_path.read_text().splitlines()]
-        if [c["cli"] for c in logged] != [c for c, _ in calls]:
-            raise AssertionError(f"transducer: CLI calls {logged}")
+                f"{wall:.1f}s")
         cfg = TransducerTask.load_config(exp)
         data = cfg["data"]
         tokens = TransducerTask.build_tokenizer(data, exp)
@@ -3062,7 +3089,7 @@ def phase_transducer(torch, np, smi):
 # and CTC forced alignment
 FAMILY_LAYERS = 2
 FAMILY_BATCH = 16  # the 2-layer cases' B (x 15 s)
-MULTICHANNEL_BATCH = 8  # the multichannel cases' (3.5-5.9 s a step at 16)
+MULTICHANNEL_BATCH = 4  # the multichannel cases' (5.1-8.4 s a step at 8)
 VGG_TIMED_STEPS = 1  # vgg_blstm_rnn's timed steps (2.0-2.7 s each)
 FAMILY_SCORE_RTOL = 1e-4
 FFN_PAIR = ("fused_ffn", "fused_ffn_bwd")
@@ -3079,7 +3106,8 @@ def family_inputs(np, cfg, speech):
 
 def family_serve(torch, np, name, cfg, per_encode, per_step, smi,
                  device="cuda"):
-    """Beam 10 (CTC 0.3, 40 label steps) on the 4 requests in float32: the
+    """Beam 10 (CTC 0.3, SERVE_STEPS label steps) on the 4 requests in
+    float32, after a 2-step warm-up: the
     kernel route's launches exact (one encode, `per_step` a decoder step),
     its token ids equal to the plain route's and its scores within
     FAMILY_SCORE_RTOL; the float32 encoder output against the plain
@@ -3094,11 +3122,12 @@ def family_serve(torch, np, name, cfg, per_encode, per_step, smi,
     cfg = dataclasses.replace(cfg, dtype=torch.float32)
     model = variant_model(torch, cfg)
     s2t = Speech2Text(model, device=device, beam_size=10, ctc_weight=0.3,
-                      max_steps=40)
+                      max_steps=2)
     speech, lengths = requests(np)
     speech = family_inputs(np, cfg, speech)
-    s2t(speech, lengths)  # warm-up
+    s2t(speech, lengths)  # warm-up: the first calls, a 2-step search
     sync(torch, device)
+    s2t.max_steps = SERVE_STEPS
     steps = []
     score_step = model.decoder_score_step
 
@@ -3746,26 +3775,24 @@ def lm_cli_batches(np, data_dir, token_list, batch_size, quantum):
 
 def multi_lm_cli(torch, np, smi, device="cuda"):
     """bin.lm_train on synth_hard's test text with its token list and
-    bin.lm_calc_perplexity, subprocesses with their launch logs; then
+    bin.lm_calc_perplexity, in process with their launch counts (a
+    subprocess's start costs 8-10 s on a busy host); then
     bin.asr_inference on synth_hard's 300 test utterances without and with
     that LM (--lm_exp_dir, --lm_weight 0.3): WER and RTF of each, the
     encoder's launches exact and `fused_ffn` 6 a call of the LM's
     score_step."""
-    import os
+    import importlib
     import shutil
     import tempfile
     from pathlib import Path
 
     from espnet_tpu_torch.bin import asr_inference
     from espnet_tpu_torch.models.lm import TransformerLM
-    from espnet_tpu_torch.ops.launches import LAUNCH_LOG_ENV
     from espnet_tpu_torch.tasks.asr import ASRTask
     from espnet_tpu_torch.tasks.lm import LMTask
 
     ws = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
     try:
-        log_path = ws / "launches.jsonl"
-        env = dict(os.environ, **{LAUNCH_LOG_ENV: str(log_path)})
         tokens = f"{SYNTH}/exp/tokens/tokens.txt"
         data = f"{SYNTH}/data/test"
         exp = ws / "lm"
@@ -3774,21 +3801,12 @@ def multi_lm_cli(torch, np, smi, device="cuda"):
             "--data.token_list", tokens, "--run.output_dir", str(exp)]),
             ("lm_calc_perplexity", ["--exp_dir", str(exp), "--data_dir",
                                     data, "--output_dir", str(ws / "ppl")])]
-        walls = []
+        walls, logged = [], []
         for cli, argv in calls:
-            t = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", f"espnet_tpu_torch.bin.{cli}", *argv,
-                 "--device", device], cwd=Path(__file__).resolve().parent,
-                env=env, capture_output=True, text=True, timeout=600)
-            walls.append(time.perf_counter() - t)
-            if proc.returncode != 0:
-                print(proc.stdout[-4000:] + proc.stderr[-8000:], flush=True)
-                raise AssertionError(f"asr-multi: {cli} exited "
-                                     f"{proc.returncode}")
-        logged = [json.loads(ln) for ln in log_path.read_text().splitlines()]
-        if [c["cli"] for c in logged] != [c for c, _ in calls]:
-            raise AssertionError(f"asr-multi: CLI calls {logged}")
+            main = importlib.import_module(f"espnet_tpu_torch.bin.{cli}").main
+            _, counts, wall = counted_call(main, [*argv, "--device", device])
+            walls.append(wall)
+            logged.append({"cli": cli, "launches": counts})
         cfg = LMTask.load_config(exp)
         epochs = cfg["run"].max_epoch
         n = len(lm_cli_batches(np, data, tokens, cfg["data"].batch_size,
@@ -3803,7 +3821,7 @@ def multi_lm_cli(torch, np, smi, device="cuda"):
         ppl = (ws / "ppl" / "ppl").read_text().strip()
         log("asr-multi", f"bin.lm_train ({epochs} x {n} batches on "
             f"synth_hard's test text) {walls[0]:.1f}s, bin.lm_calc_perplexity "
-            f"{walls[1]:.1f}s with process start: perplexity {ppl} [{smi}]; "
+            f"{walls[1]:.1f}s: perplexity {ppl} [{smi}]; "
             f"launches exact")
         steps = []
         score_step = TransformerLM.score_step
@@ -3911,7 +3929,7 @@ def phase_asr_multi(torch, np, smi):
     def mulenc_run(model):
         yseq, ylen, score = Speech2TextMulEnc(
             model, None, beam_size=10, ctc_weight=0.3,
-            max_steps=40).decode_batch(sp, ln)
+            max_steps=SERVE_STEPS).decode_batch(sp, ln)
         return [(yseq[i, 0, :ylen[i, 0]].tolist(), float(score[i, 0]))
                 for i in range(yseq.shape[0])]
 
@@ -3963,7 +3981,7 @@ def phase_asr_multi(torch, np, smi):
 # n-gram, the word LMs and the time-synchronous search; every LM trained on
 # its training transcripts (data/train/text), perplexities held out on its
 # test transcripts
-FUSION_SUBSET = 100  # the first 100 sorted test utterances: the host search
+FUSION_SUBSET = 50  # the first 50 sorted test utterances: the host search
 # of every case and both routes stay within the phase's budget
 FUSION_PINNED = 4  # the first 4: tests/test_torch_ngram.py pins their
 # n-gram texts (the reference transcripts) on the CPU
@@ -4182,7 +4200,7 @@ def phase_lm_fusion(torch, np, smi, device="cuda", lm_args=FUSION_LM_ARGS,
 MT_SENTENCES, MT_BEAM, MT_STEPS = 16, 10, 64
 MT_BATCH, MT_MIN_TOKENS, MT_MAX_TOKENS = 64, 16, 128
 MT_LAYERS, ST_LAYERS = 6, 12
-ST_BEAM, ST_STEPS = 10, 40
+ST_BEAM, ST_STEPS = 10, SERVE_STEPS
 MT_BATCH_KEYS = ("src_text", "src_text_lengths", "text", "text_lengths")
 ST_BATCH_KEYS = BATCH_KEYS + ("src_text", "src_text_lengths")
 TRANSLATION_CLI_ARGS = ("--run.max_epoch 2 --run.log_interval 1000 "
@@ -4300,8 +4318,8 @@ def translation_mt(torch, np, smi, device="cuda", cfg=None):
 
 
 def translation_st(torch, np, smi, device="cuda", cfg=None):
-    """st_conformer: the 4 requests served (beam 10, 40 steps, CTC weight
-    0) in float32, the kernel route against the plain route; a float32
+    """st_conformer: the 4 requests served (beam 10, SERVE_STEPS steps, CTC
+    weight 0) in float32, the kernel route against the plain route; a float32
     train step with kernels against plain; 3 bf16 steps at B=64 x 15 s
     with 40 target and 40 source labels. (device="cpu" with a small `cfg`
     rehearses it without a card.)"""
@@ -4540,7 +4558,7 @@ def phase_translation(torch, np, smi):
 # the ssl phase: the SSL and Whisper parts of the ASR model and HuBERT
 # pretraining at the published widths (configs.ssl_conformer, wav2vec2_ctc,
 # whisper_base, hubert_pretrain; random weights from a seed)
-SSL_BEAM, SSL_STEPS = 10, 40
+SSL_BEAM, SSL_STEPS = 10, SERVE_STEPS
 HUBERT_LAYERS = 6
 HUBERT_KEYS = ("speech", "speech_lengths", "labels")
 SSL_PER_ENCODE = {
@@ -4638,8 +4656,8 @@ def whisper_step_check(torch, np, model, sp, ln, smi):
 def ssl_case(torch, np, smi, name, device="cuda", cfg=None,
              batch_size=TRAIN_BATCH, seconds=TRAIN_SECONDS):
     """One of the SSL and Whisper configurations: serve the 4 requests in
-    float32 (beam 10, 40 steps; Whisper's CTC weight 0) with the kernel
-    route's results equal to the plain route's and the encoder output
+    float32 (beam 10, SERVE_STEPS steps; Whisper's CTC weight 0) with the
+    kernel route's results equal to the plain route's and the encoder output
     within 1e-3 (Whisper: also score_step against the teacher-forced
     log-probs), a float32 train step with kernels against plain (a frozen
     trunk gets no gradient), then 3 bf16 steps at `batch_size` x 15 s,
@@ -5397,6 +5415,424 @@ def phase_tts(torch, np, smi):
     return flash192, launches["fastspeech2"]
 
 
+GAN_BATCH, GAN_SEGMENT = 16, 8192  # HiFiGAN's published batch and crop
+GAN_VOCODERS = ("hifigan", "melgan", "multiband_melgan", "parallel_wavegan",
+                "style_melgan")
+GAN_TIMED_STEPS = {"hifigan": 2, "melgan": 1, "multiband_melgan": 1,
+                   "parallel_wavegan": 1, "style_melgan": 1, "vits": 2,
+                   "jets": 2}
+GAN_TTS_BATCH, GAN_TTS_SECONDS, GAN_TTS_TOKENS = 16, 10.0, 120
+GAN_REQUESTS = 4  # of GAN_TTS_TOKENS tokens
+GAN_VOCAB = 40
+# kernel launches of one train step and of one synthesis call: VITS's six
+# text-encoder layers (flash at head dim 96; the FFN at D=192 fails the
+# kernels' tile gate, as in JAX), JETS's 4 + 4 FFT layers (flash at head
+# dim 128, the pre-norm FFN at D=256, F=1024) and its forward-sum CTC
+GAN_PER_STEP = {"vits": {"flash_attention": 6},
+                "jets": {"flash_attention": 8, "prenorm_ffn": 8,
+                         "prenorm_ffn_bwd": 8, **CTC}}
+GAN_PER_SYNTH = {"vits": {"flash_attention": 6},
+                 "jets": {"flash_attention": 8, "prenorm_ffn": 8}}
+GAN_FP32_TOL = 1e-3  # the text stacks, kernels vs plain, float32
+GAN_CLI_UTTS = 8
+
+
+def gan_text_batch(np, b, seconds, tokens, vocab, seed, hop=256):
+    """B ragged utterances of seeded noise (whole hops, up to `seconds`)
+    and random token ids (up to `tokens`), as numpy."""
+    rng = np.random.RandomState(seed)
+    n = int(seconds * SAMPLE_RATE)
+    n -= n % hop
+    wlens = np.array([n - (i % 4) * 40 * hop for i in range(b)], np.int64)
+    tlens = np.array([tokens - (i % 5) for i in range(b)], np.int64)
+    wav = (0.1 * rng.randn(b, n)).astype(np.float32)
+    wav[np.arange(n)[None, :] >= wlens[:, None]] = 0.0
+    text = rng.randint(1, vocab - 1, (b, tokens)).astype(np.int64)
+    text[np.arange(tokens)[None, :] >= tlens[:, None]] = 0
+    return text, tlens, wav, wlens
+
+
+def jets_lattice(torch, np, b, t, u, seed):
+    """The forward-sum lattice of JETS at B utterances of T frames and U
+    tokens (S = 2U + 1): log-probs (B, T, U + 1) of a random alignment with
+    the weak blank prepended, labels 1..U, lengths, and the pair's inputs."""
+    from espnet_tpu_torch.ops import ctc as tctc
+
+    rng = np.random.RandomState(seed)
+    att = torch.log_softmax(torch.from_numpy(
+        rng.randn(b, t, u).astype(np.float32)).cuda(), -1)
+    blank = torch.full((b, t, 1), -4.0, device="cuda")
+    lp = torch.log_softmax(torch.cat([blank, att], -1), -1)
+    labels = torch.arange(1, u + 1, device="cuda")[None].expand(b, u)
+    in_lens = torch.tensor([t - (i % 4) * 40 for i in range(b)]).cuda()
+    lab_lens = torch.tensor([u - (i % 5) for i in range(b)]).cuda()
+    ext = tctc.extended_labels(labels)
+    emit = lp.gather(2, ext[:, None, :].expand(b, t, ext.shape[1])
+                     ).transpose(0, 1).contiguous()
+    return lp, labels, in_lens, lab_lens, emit, tctc.transition_mask(ext)
+
+
+def gan_kernels(torch, np):
+    """The kernels at this slice's shapes against their plain versions:
+    flash at VITS's head dim 96 (zero-padded to 128; B=16, H=2, T=120
+    ragged) and JETS's 128 (its encoder's T=120 and decoder's T=626), with
+    SDPA beside each; the pre-norm FFN at D=256, F=1024 on 16 x 626 rows
+    (relu, residual 1.0, dropout 0.1); the CTC pair on JETS's forward-sum
+    lattice at 120 tokens (S=241: a warp per utterance) and 200 (S=401: a
+    block per utterance), with torch's ctc_loss beside it. Returns the
+    bf16 VITS flash result (the kernels line's `flash_attention_d96`)."""
+    import types
+
+    import torch.nn.functional as F
+
+    from espnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_plain)
+
+    frames = int(GAN_TTS_SECONDS * SAMPLE_RATE) // 256 + 1
+    tok = GAN_TTS_TOKENS
+    cases = [("vits text encoder", GAN_TTS_BATCH, tok, 96),
+             ("jets encoder", GAN_TTS_BATCH, tok, 128),
+             ("jets decoder", GAN_TTS_BATCH, frames, 128)]
+    main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for role, b, t, d in cases:
+            lengths = [t - (i % 5) * (t // 10) for i in range(b)]
+            args, flops, nbytes, valid = flash_case(torch, b, t, dtype,
+                                                    lengths, 61, h=2, d=d)
+            label = f"{role} B={b} H=2 T={t} D={d}"
+            with torch.no_grad():
+                fa = check_kernel(torch, "flash_attention", flash_attention,
+                                  flash_attention_plain, args, flops, nbytes,
+                                  dn, label, iters=10)
+                fa["library_ms"] = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        *args[:3], attn_mask=valid), 10)
+            log("kernels", f"flash_attention {label} {dn}: library "
+                f"(scaled_dot_product_attention, boolean key mask) "
+                f"{fa['library_ms']:.4f} ms")
+            if d == 96 and dtype == torch.bfloat16:
+                main = fa
+            del args
+    jets = types.SimpleNamespace(d_model=256, d_ff=1024, dropout_rate=0.1)
+    check_ffn_rows(torch, jets, GAN_TTS_BATCH * frames,
+                   f"jets M={GAN_TTS_BATCH}x{frames}", "relu", 1.0)
+    for u in (tok, 200):
+        lp, labels, in_lens, lab_lens, emit, skip = jets_lattice(
+            torch, np, GAN_TTS_BATCH, frames, u, 62)
+        lpt = lp.transpose(0, 1).detach().requires_grad_(True)
+        lib = F.ctc_loss(lpt, labels, in_lens, lab_lens, blank=0,
+                         reduction="sum", zero_infinity=True)
+        lib_fwd = time_ms(torch, lambda: F.ctc_loss(
+            lpt, labels, in_lens, lab_lens, blank=0, reduction="sum",
+            zero_infinity=True), 10)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            lib, lpt, retain_graph=True), 10)
+        check_ctc_pair(torch, emit, skip, in_lens, lab_lens,
+                       f"jets forward-sum B={GAN_TTS_BATCH} T={frames} "
+                       f"U={u} S={2 * u + 1}", (lib_fwd, lib_bwd))
+    return main
+
+
+def gan_timed(torch, np, smi, name, state, step_once, per_step, steps,
+              device="cuda"):
+    """One warm-up step, then `steps` timed ones with their exact launches
+    and peak memory; every loss finite and both modules moved. Returns
+    (ms a step, peak GiB, the last stats, the timed steps' launches)."""
+    step_once()
+    sync(torch, device)
+    before = (state.gen_flat.clone(), state.disc_flat.clone())
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    wrappers = reset_counts()
+    t = time.perf_counter()
+    all_stats = [{k: float(v) for k, v in step_once().items()}
+                 for _ in range(steps)]
+    sync(torch, device)
+    ms = (time.perf_counter() - t) / steps * 1e3
+    counts = {n: fn.launches for n, fn in wrappers.items()}
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device == "cuda" else float("nan"))
+    for i, st in enumerate(all_stats):
+        bad = [k for k, v in st.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{name} step {i + 1}: {bad} not finite")
+    for what, old, new in (("generator", before[0], state.gen_flat),
+                           ("discriminator", before[1], state.disc_flat)):
+        if not float((new - old).abs().max()) > 0.0:
+            raise AssertionError(f"{name}: the {what} did not move")
+    check_case_launches(name, f"{steps} train steps", counts,
+                        per_step if device == "cuda" else {}, steps)
+    return ms, peak, all_stats[-1], counts
+
+
+def gan_vocoder(torch, np, smi, gtype, device="cuda", batch=GAN_BATCH,
+                segment=GAN_SEGMENT, model=None):
+    """A vocoder train step at the task's defaults (`model`: a
+    VocoderModelConfig to use instead): B crops of `segment` samples of
+    seeded noise, their log-mel, the GAN step with both optimizers."""
+    import dataclasses
+
+    from espnet_tpu_torch.ops.stft import log_mel_spectrogram
+    from espnet_tpu_torch.tasks.vocoder import (VocoderDataConfig,
+                                                VocoderModelConfig,
+                                                VocoderOptimConfig,
+                                                VocoderTask, gan_state)
+    from espnet_tpu_torch.train.gan_steps import (GANLossWeights,
+                                                  make_gan_train_step)
+
+    data = VocoderDataConfig()
+    mc = model or dataclasses.replace(VocoderModelConfig(),
+                                      generator_type=gtype)
+    gen, disc = VocoderTask.build_models(mc, data.n_mels)
+    state = gan_state(gen, disc, VocoderOptimConfig(), 0, device)
+    rng = np.random.RandomState(3)
+    wav = torch.from_numpy((0.1 * rng.randn(batch, segment)).astype(
+        np.float32)).to(device)
+    lens = torch.full((batch,), segment, device=device)
+    mel = log_mel_spectrogram(wav, lens, data.fs, data.n_fft, data.hop_length,
+                              None, data.n_mels)[0][:, :segment
+                                                    // data.hop_length]
+    step = make_gan_train_step(GANLossWeights(
+        feat_match=mc.lambda_feat_match, mel=mc.lambda_mel,
+        stft=mc.lambda_stft, n_fft=data.n_fft, hop_length=data.hop_length,
+        n_mels=data.n_mels))
+    ms, peak, st, _ = gan_timed(torch, np, smi, gtype, state,
+                                lambda: step(state, mel, wav), {},
+                                GAN_TIMED_STEPS.get(gtype, 1), device)
+    n_g = sum(p.numel() for p in gen.parameters())
+    n_d = sum(p.numel() for p in disc.parameters())
+    log("gan", f"{gtype} train float32 (generator {n_g}, discriminator "
+        f"{n_d} parameters) B={batch} x {segment} samples: {ms:.1f} ms/step,"
+        f" peak {peak:.2f} GiB [{smi}]; generator loss {st['loss']:.4f}, "
+        f"discriminator {st['discriminator_loss']:.4f}; no kernel (exact)")
+    return ms
+
+
+def gan_tts_model(torch, family, vocab, device, **overrides):
+    """(generator, discriminator) of the JAX defaults (VITSConfig /
+    JETSConfig, the HiFiGAN multi discriminator), overridden."""
+    from espnet_tpu_torch.models.tts.hifigan import HiFiGANMultiDiscriminator
+    from espnet_tpu_torch.models.tts.jets import JETSConfig, JETSGenerator
+    from espnet_tpu_torch.models.tts.vits import VITSConfig, VITSGenerator
+
+    if family == "vits":
+        gen = VITSGenerator(VITSConfig(vocab_size=vocab, **overrides))
+    else:
+        gen = JETSGenerator(JETSConfig(vocab_size=vocab, **overrides))
+    return gen, HiFiGANMultiDiscriminator()
+
+
+def gan_tts(torch, np, smi, family, device="cuda", batch=GAN_TTS_BATCH,
+            seconds=GAN_TTS_SECONDS, tokens=GAN_TTS_TOKENS, overrides=None,
+            requests=GAN_REQUESTS):
+    """VITS or JETS at the JAX defaults: the float32 text stack with
+    kernels against plain, the train step (timed, exact launches, peak
+    memory), then the synthesis of `requests` texts (wall, exact
+    launches, finite waves). Returns the timed steps' launches."""
+    from espnet_tpu_torch.tasks.jets import JETSDataConfig, jets_features
+    from espnet_tpu_torch.tasks.vits import linear_spectrogram
+    from espnet_tpu_torch.tasks.vocoder import VocoderOptimConfig, gan_state
+    from espnet_tpu_torch.train.gan_steps import (make_jets_train_step,
+                                                  make_vits_train_step)
+
+    overrides = overrides or {}
+    gen, disc = gan_tts_model(torch, family, GAN_VOCAB, device, **overrides)
+    state = gan_state(gen, disc, VocoderOptimConfig(), 0, device)
+    text, tlens, wav, wlens = (torch.from_numpy(a).to(device) for a in
+                               gan_text_batch(np, batch, seconds, tokens,
+                                              GAN_VOCAB, 5))
+    hop = gen.upsample_factor
+    if family == "vits":
+        spec = linear_spectrogram(wav, gen.config.n_fft, hop)
+        step = make_vits_train_step(hop_length=hop, upsample=hop)
+        args = (text, tlens, spec, wlens // hop + 1, wav)
+        stack = gen.text_encoder
+    else:
+        feats, flens, pitch, energy = jets_features(wav, wlens,
+                                                    JETSDataConfig())
+        step = make_jets_train_step(hop_length=hop)
+        args = (text, tlens, feats, flens, pitch, energy, wav)
+        stack = gen.encoder
+    # the text stack in float32, kernels against plain
+    gen.eval()
+    with torch.no_grad():
+        outs = []
+        for use in (True, False):
+            gen.set_use_kernels(use)
+            outs.append(stack(text, tlens)[0] if family == "vits"
+                        else stack(gen._embed(text), tlens))
+    gen.set_use_kernels(True)
+    gen.train()
+    err = float((outs[0] - outs[1]).abs().max())
+    if not err <= GAN_FP32_TOL:
+        raise AssertionError(f"{family}: text stack kernels vs plain "
+                             f"{err:.3e} (limit {GAN_FP32_TOL})")
+    ms, peak, st, train_counts = gan_timed(
+        torch, np, smi, family, state, lambda: step(state, *args),
+        GAN_PER_STEP[family], GAN_TIMED_STEPS[family], device)
+    n_g = sum(p.numel() for p in gen.parameters())
+    log("gan", f"{family} train float32 ({n_g} generator parameters) "
+        f"B={batch} x {seconds} s, {tokens} tokens: {ms:.1f} ms/step, "
+        f"{batch * seconds / ms * 1e3:.1f} audio-s/s, peak {peak:.2f} GiB "
+        f"[{smi}]; generator loss {st['loss']:.4f}; text stack float32 "
+        f"kernels vs plain max |err| {err:.3e}; launches exact "
+        f"{({k: v for k, v in train_counts.items() if v})}")
+    # synthesis
+    gen.eval()
+    rng = np.random.RandomState(7)
+    req = torch.from_numpy(rng.randint(1, GAN_VOCAB - 1, (
+        requests, tokens))).to(device)
+    rlens = torch.full((requests,), tokens, device=device)
+    call = ((lambda: gen.inference(req, rlens, generator=torch.Generator(
+        device=device).manual_seed(7))) if family == "vits"
+        else (lambda: gen.inference(req, rlens)))
+    call()
+    sync(torch, device)
+    wrappers = reset_counts()
+    t = time.perf_counter()
+    wave, wave_lens = call()
+    sync(torch, device)
+    wall = time.perf_counter() - t
+    counts = {n: fn.launches for n, fn in wrappers.items()}
+    check_case_launches(family, "a synthesis", counts,
+                        GAN_PER_SYNTH[family] if device == "cuda" else {}, 1)
+    if not bool(torch.isfinite(wave).all()):
+        raise AssertionError(f"{family}: synthesis not finite")
+    secs = float(wave_lens.sum()) / SAMPLE_RATE
+    log("gan", f"{family} synthesis of {requests} x {tokens} tokens: wall "
+        f"{wall:.3f} s for {secs:.1f} s of speech (RTF "
+        f"{wall / max(secs, 1e-9):.4f}) [{smi}]; launches exact "
+        f"{({k: v for k, v in counts.items() if v})}")
+    return train_counts
+
+
+GAN_CLI_VOCODER = ("--model.channels", "128", "--data.batch_size", "4",
+                   "--data.steps_per_epoch", "2", "--run.max_epoch", "1")
+GAN_CLI_FS2 = ("--model.tts_type", "fastspeech2",
+               "--model.fastspeech2.encoder_layers", "1",
+               "--model.fastspeech2.decoder_layers", "1",
+               "--run.max_epoch", "1", "--optim.schedule", "constant",
+               "--optim.lr", "0.001", "--data.batch_size", "8")
+GAN_CLI_TTS = ("--run.max_epoch", "1", "--data.batch_size", "4",
+               "--data.steps_per_epoch", "2", "--data.max_seconds", "3",
+               "--model.decoder_channels", "128")
+GAN_CLI_VITS = GAN_CLI_TTS + ("--model.text_layers", "2",
+                              "--model.posterior_layers", "4",
+                              "--model.flows", "2")
+GAN_CLI_JETS = GAN_CLI_TTS + ("--model.encoder_layers", "1",
+                              "--model.decoder_layers", "1")
+
+
+def even_durations(texts, wlens, hop=256):
+    """A durations file's rows: each utterance's frames spread over its
+    character tokens (FastSpeech2's training targets)."""
+    from espnet_tpu_torch.data.tokenizer import build_tokenizer
+
+    tok = build_tokenizer("char")
+    rows = {}
+    for k, text in texts.items():
+        n = len(tok.text2tokens(text))
+        frames = wlens[k] // hop + 1
+        d = [frames // n] * n
+        d[0] += frames - sum(d)
+        rows[k] = " ".join(map(str, d))
+    return rows
+
+
+def gan_clis(torch, np, smi, device="cuda"):
+    """The slice's CLIs on a synthetic corpus of GAN_CLI_UTTS utterances,
+    in process, each with its exact launches: vocoder_train (HiFiGAN at
+    128 channels), tts_train of a FastSpeech2 on even durations, its
+    tts_inference through --vocoder_dir, vits_train / vits_inference and
+    jets_train / jets_inference at reduced depth."""
+    import tempfile
+    from pathlib import Path
+
+    from espnet_tpu_torch.bin import (jets_inference, jets_train,
+                                      tts_inference, tts_train,
+                                      vits_inference, vits_train,
+                                      vocoder_train)
+    from espnet_tpu_torch.data.fileio import (read_2column_text, read_wav,
+                                              write_2column_text)
+    from espnet_tpu_torch.data.synth import generate_corpus
+
+    dev = ["--device", device]
+    ws = Path(tempfile.mkdtemp(prefix="gan_cli_"))
+    train, test = ws / "train", ws / "test"
+    generate_corpus(train, n_utts=GAN_CLI_UTTS, min_words=2, max_words=4)
+    generate_corpus(test, n_utts=2, min_words=2, max_words=3, seed=5)
+    wlens = {k: len(read_wav(p)[0]) for k, p in
+             read_2column_text(train / "wav.scp").items()}
+    write_2column_text(train / "durations", even_durations(
+        read_2column_text(train / "text"), wlens))
+    on = device == "cuda"
+    steps = 2  # --data.steps_per_epoch of the GAN CLIs
+    calls = [
+        ("vocoder_train hifigan", vocoder_train.main, [
+            "--data.train_dir", str(train), "--run.output_dir",
+            str(ws / "voc"), *GAN_CLI_VOCODER, *dev], {}),
+        ("tts_train fastspeech2", tts_train.main, [
+            "--data.train_dir", str(train), "--run.output_dir",
+            str(ws / "fs2"), *GAN_CLI_FS2, *dev],
+         {"flash_attention": 2, "prenorm_ffn": 2, "prenorm_ffn_bwd": 2}
+         if on else {}),
+        ("tts_inference --vocoder_dir", tts_inference.main, [
+            "--exp_dir", str(ws / "fs2"), "--data_dir", str(test),
+            "--output_dir", str(ws / "fs2_synth"), "--vocoder_dir",
+            str(ws / "voc"), *dev],
+         {"flash_attention": 2, "prenorm_ffn": 2} if on else {}),
+        ("vits_train", vits_train.main, [
+            "--data.train_dir", str(train), "--run.output_dir",
+            str(ws / "vits"), *GAN_CLI_VITS, *dev],
+         {"flash_attention": 2 * steps} if on else {}),
+        ("vits_inference", vits_inference.main, [
+            "--exp_dir", str(ws / "vits"), "--data_dir", str(test),
+            "--output_dir", str(ws / "vits_synth"), *dev],
+         {"flash_attention": 2} if on else {}),
+        ("jets_train", jets_train.main, [
+            "--data.train_dir", str(train), "--run.output_dir",
+            str(ws / "jets"), *GAN_CLI_JETS, *dev],
+         {"flash_attention": 2 * steps, "prenorm_ffn": 2 * steps,
+          "prenorm_ffn_bwd": 2 * steps, "ctc_alphas": steps,
+          "ctc_gamma": steps} if on else {}),
+        ("jets_inference", jets_inference.main, [
+            "--exp_dir", str(ws / "jets"), "--data_dir", str(test),
+            "--output_dir", str(ws / "jets_synth"), *dev],
+         {"flash_attention": 2, "prenorm_ffn": 2} if on else {}),
+    ]
+    for what, fn, argv, per in calls:
+        _, counts, wall = counted_call(fn, argv)
+        check_case_launches(what, "its run", counts, per, 1)
+        log("gan", f"cli {what}: {wall:.1f}s; launches exact "
+            f"{({k: v for k, v in counts.items() if v})}")
+    for d in ("fs2_synth", "vits_synth", "jets_synth"):
+        waves = [read_wav(p)[0] for p in sorted((ws / d / "wav").glob(
+            "*.wav"))]
+        if len(waves) != 2 or not all(np.isfinite(w).all() for w in waves):
+            raise AssertionError(f"gan cli: {d} wrote {len(waves)} waves")
+    for name in ("generator.msgpack", "discriminator.msgpack",
+                 "checkpoint.pt"):
+        if not (ws / "voc" / name).exists():
+            raise AssertionError(f"vocoder_train wrote no {name}")
+
+
+def phase_gan(torch, np, smi):
+    """The GAN slice: the kernels at VITS's and JETS's shapes; the five
+    vocoders' train steps at the task's defaults (HiFiGAN V1 at B=16 x
+    8192 samples); VITS and JETS at the JAX defaults trained and served;
+    the CLIs. Returns (the D=96 flash row's result, VITS's timed steps'
+    launches)."""
+    t0 = time.perf_counter()
+    flash96 = gan_kernels(torch, np)
+    for gtype in GAN_VOCODERS:
+        gan_vocoder(torch, np, smi, gtype)
+    launches = {f: gan_tts(torch, np, smi, f) for f in ("vits", "jets")}
+    gan_clis(torch, np, smi)
+    log("gan", f"phase {time.perf_counter() - t0:.1f}s")
+    return flash96, launches["vits"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5427,6 +5863,8 @@ def main() -> int:
     phase_translation(torch, np, smi)
     phase_ssl(torch, np, smi)
     results["flash_attention_d192"], launches["fastspeech2"] = phase_tts(
+        torch, np, smi)
+    results["flash_attention_d96"], launches["vits"] = phase_gan(
         torch, np, smi)
     results.update(rnnt_results)
     kernels = []

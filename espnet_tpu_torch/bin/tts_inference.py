@@ -11,8 +11,11 @@ utterance's length), as the JAX CLI does. Texts go in chunks of
 dropout (always on) from a generator seeded 2, ProDiff's noise from one
 seeded 3, Griffin-Lim's phase from one seeded 0. Griffin-Lim inverts the
 mel filterbank of the frontend's default band (fmin 0, no fmax) at the
-model's n_fft, as the JAX CLI does. `--vocoder_dir` (a GAN vocoder) is
-not ported yet: ROADMAP.md queue 1 item 9, its second part.
+model's n_fft, as the JAX CLI does. `--vocoder_dir` names a GAN vocoder
+experiment (`bin/vocoder_train` of either package): its generator turns
+the denormalised mel into the wave instead of Griffin-Lim, and a
+noise-driven one (Parallel WaveGAN, StyleMelGAN) draws from a generator
+seeded 7 (JAX's PRNGKey(7)).
 """
 
 from __future__ import annotations
@@ -25,11 +28,6 @@ import numpy as np
 
 logger = logging.getLogger("espnet_tpu")
 
-VOCODER_TODO = ("--vocoder_dir needs the GAN vocoder task, which the port "
-                "does not have yet (ROADMAP.md queue 1 item 9, its second "
-                "part: HiFiGAN and the vocoders)")
-
-
 def get_parser():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--exp_dir", required=True)
@@ -40,7 +38,8 @@ def get_parser():
     p.add_argument("--griffin_lim_iters", type=int, default=32)
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--vocoder_dir", default=None,
-                   help="a GAN vocoder experiment; not ported yet")
+                   help="GAN vocoder exp dir (bin/vocoder_train.py); "
+                        "falls back to Griffin-Lim when unset")
     p.add_argument("--device", default="cuda",
                    help="cuda (the card; raises without one) or cpu")
     return p
@@ -72,12 +71,25 @@ def load_tts_experiment(exp: Path, params=None, device="cpu"):
     return model.to(device).eval(), cfg, tokenizer, converter, mvn
 
 
+def load_vocoder(vdir: Path, device="cpu"):
+    """The generator of a vocoder experiment written by either package
+    (its `generator.msgpack`), on `device` in eval mode."""
+    from espnet_tpu_torch.convert import load_jax_params
+    from espnet_tpu_torch.tasks.vocoder import VocoderTask
+    from espnet_tpu_torch.train.msgpack_io import load_tree
+
+    vcfg = VocoderTask.load_config(vdir)
+    gen, _ = VocoderTask.build_models(vcfg["model"], vcfg["data"].n_mels)
+    load_jax_params(gen, load_tree(vdir / "generator.msgpack"))
+    logger.info("using %s vocoder from %s", vcfg["model"].generator_type,
+                vdir)
+    return gen.to(device).eval()
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     args = get_parser().parse_args(argv)
-    if args.vocoder_dir:
-        raise NotImplementedError(VOCODER_TODO)
     import torch
 
     from espnet_tpu_torch.data.fileio import read_2column_text, write_wav
@@ -95,6 +107,10 @@ def main(argv=None):
     texts = read_2column_text(Path(args.data_dir) / "text")
     dropout_gen = torch.Generator().manual_seed(2)
     noise_gen = torch.Generator().manual_seed(3)
+    vocoder = vocoder_gen = None
+    if args.vocoder_dir:
+        vocoder = load_vocoder(Path(args.vocoder_dir), device)
+        vocoder_gen = torch.Generator(device=device).manual_seed(7)
     keys = list(texts)
     for i in range(0, len(keys), args.batch_size):
         chunk = keys[i:i + args.batch_size]
@@ -114,8 +130,13 @@ def main(argv=None):
         if mvn is not None:
             mean, inv_std = (torch.from_numpy(a).to(device) for a in mvn)
             mel = mel.float() / inv_std.clamp(min=1e-8) + mean
-        wav = logmel_to_wav(mel.float(), mc.fs, mc.n_fft, mc.hop_length,
-                            mc.win_length, mc.n_mels, args.griffin_lim_iters)
+        if vocoder is not None:
+            with torch.no_grad():
+                wav = vocoder(mel.float(), generator=vocoder_gen)[..., 0]
+        else:
+            wav = logmel_to_wav(mel.float(), mc.fs, mc.n_fft, mc.hop_length,
+                                mc.win_length, mc.n_mels,
+                                args.griffin_lim_iters)
         wav, mel, mel_lens = (x.cpu().numpy() for x in (wav, mel.float(),
                                                          mel_lens))
         for j, k in enumerate(chunk):

@@ -116,7 +116,8 @@ RAW_LEAVES = ("bias", "pos_bias_u", "pos_bias_v", "log_neg_a_re", "a_im",
               "log_dt", "c_re", "c_im", "d", "low_hz", "band_hz", "gvec",
               "layer_weights", "mask_emb", "positions", "tokens", "pos_alpha")
 # modules whose 2-D `weight` is an embedding table
-EMBEDDINGS = ("embed", "embed_tokens", "sid_emb", "lid_emb")
+EMBEDDINGS = ("embed", "embed_tokens", "sid_emb", "lid_emb", "global_emb",
+              "lang_emb")
 COLLECTIONS = ("params", "mvn", "batch_stats")
 
 
@@ -369,3 +370,66 @@ def load_jax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
                              f"{tuple(own[key].shape)}")
     model.load_state_dict(sd, strict=False)
     return model
+
+
+# --- GAN training states ---------------------------------------------------
+
+def _flat_by_name(module: torch.nn.Module, flat: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+    """A flat vector laid out as `train/optim.py` `flatten_parameters_`
+    lays out `module`'s parameters, cut back into {name: tensor}."""
+    out, off = {}, 0
+    for name, p in module.named_parameters():
+        out[name] = flat[off:off + p.numel()].view_as(p)
+        off += p.numel()
+    return out
+
+
+def _adam_tree(module, opt_state) -> Dict:
+    """optax chain(clip_by_global_norm, adam)'s state as flax's
+    `to_state_dict` writes it: ({}, ({count, mu, nu}, {}))."""
+    return {"0": {}, "1": {"0": {
+        "count": np.asarray(int(opt_state["count"]), np.int32),
+        "mu": state_dict_to_jax_params(_flat_by_name(module,
+                                                     opt_state["mu"])),
+        "nu": state_dict_to_jax_params(_flat_by_name(module,
+                                                     opt_state["nu"]))},
+        "1": {}}}
+
+
+def gan_state_to_jax(state) -> Dict:
+    """The state dict of the JAX package's `GANTrainState` (flax's
+    `to_state_dict` layout; `serialization.from_bytes` of a
+    `GANTrainState.create(...)` restores its msgpack) of a port
+    `train/gan_steps.py` `GANTrainState` with `FlatAdam` optimizers. JAX's
+    PRNG key has no counterpart in the port's generator: it is written as
+    (0, 0)."""
+    return {"step": np.asarray(state.step, np.int32),
+            "gen_params": model_params(state.generator),
+            "gen_opt": _adam_tree(state.generator, state.gen_state),
+            "disc_params": model_params(state.discriminator),
+            "disc_opt": _adam_tree(state.discriminator, state.disc_state),
+            "rng": np.zeros(2, np.uint32)}
+
+
+def _load_adam(module, opt_state, tree) -> None:
+    adam = tree["1"]["0"]
+    for slot in ("mu", "nu"):
+        by_name = jax_params_to_state_dict(adam[slot])
+        opt_state[slot].copy_(torch.cat([
+            by_name[name].reshape(-1) for name, _ in
+            module.named_parameters()]).to(opt_state[slot].device))
+    opt_state["count"].fill_(int(np.asarray(adam["count"])))
+
+
+@torch.no_grad()
+def load_jax_gan_state(state, tree: Mapping) -> None:
+    """Load the state dict of a JAX `GANTrainState` (`gan_state_to_jax`'s
+    layout, e.g. flax's `to_state_dict` or the msgpack of its bytes) into
+    a port `GANTrainState`, in place: both modules' parameters, both Adam
+    states and the step; the port's generator of draws stays as it is."""
+    load_jax_params(state.generator, tree["gen_params"])
+    load_jax_params(state.discriminator, tree["disc_params"])
+    _load_adam(state.generator, state.gen_state, tree["gen_opt"])
+    _load_adam(state.discriminator, state.disc_state, tree["disc_opt"])
+    state.step = int(np.asarray(tree["step"]))

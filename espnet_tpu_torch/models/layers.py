@@ -198,3 +198,91 @@ def lstm_sequence(cell: LSTMCell, x: torch.Tensor, reverse: bool = False,
     if t == 0:
         return x.new_zeros(b, 0, cell.hidden, dtype=torch.float32), carry
     return torch.stack(outs, 1), carry
+
+
+def same_padding(length: int, kernel: int, stride: int = 1,
+                 dilation: int = 1) -> Tuple[int, int]:
+    """XLA's "SAME" padding (left, right) of one axis: ceil(length/stride)
+    outputs, the total max((out-1)*stride + span - length, 0) split with the
+    floor half on the left (flax `nn.Conv`, `nn.avg_pool`)."""
+    span = (kernel - 1) * dilation + 1
+    out = -(-length // stride)
+    total = max((out - 1) * stride + span - length, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv1d(nn.Conv1d):
+    """flax `nn.Conv` over channel-last (N, L, C) input with any kernel,
+    stride, dilation and feature groups: "SAME" padding as XLA pads it
+    (explicit, also for strides above 1, which torch's padding="same"
+    refuses), or "VALID". Computed in `dtype`."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int, stride: int = 1,
+                 dilation: int = 1, groups: int = 1, bias: bool = True,
+                 padding: str = "SAME", dtype=torch.float32):
+        super().__init__(c_in, c_out, kernel, stride=stride,
+                         dilation=dilation, groups=groups, bias=bias)
+        self.same = padding == "SAME"
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        h = x.to(dt).transpose(1, 2)
+        if self.same:
+            h = nn.functional.pad(h, same_padding(
+                h.shape[-1], self.kernel_size[0], self.stride[0],
+                self.dilation[0]))
+        b = None if self.bias is None else self.bias.to(dt)
+        y = nn.functional.conv1d(h, self.weight.to(dt), b, self.stride,
+                                 0, self.dilation, self.groups)
+        return y.transpose(1, 2)
+
+
+def conv_transpose_padding(kernel: int, stride: int) -> Tuple[int, int]:
+    """lax.conv_transpose's "SAME" padding (before, after) of the
+    stride-dilated input
+    (`jax._src.lax.convolution._conv_transpose_padding`)."""
+    pad_len = kernel + stride - 2
+    before = kernel - 1 if stride > kernel - 1 else -(-pad_len // 2)
+    return before, pad_len - before
+
+
+class ConvTranspose1d(nn.Module):
+    """flax `nn.ConvTranspose` with "SAME" padding and the default
+    transpose_kernel=False over (N, L, C): lax dilates the input by the
+    stride, pads it by `conv_transpose_padding` and correlates it with the
+    kernel as it is (not flipped, in and out not swapped), giving L*stride
+    outputs. Here: torch's conv_transpose1d with the kernel flipped along K
+    and its axes swapped, then the full output cropped (or zero-padded) to
+    lax's window. `weight` is (out, in, k), the layout the converter gives
+    a flax (k, in, out) kernel; computed in `dtype`."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int, stride: int,
+                 bias: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.kernel, self.stride = kernel, stride
+        self.weight = nn.Parameter(torch.empty(c_out, c_in, kernel))
+        self.bias = nn.Parameter(torch.zeros(c_out)) if bias else None
+        self.compute_dtype = dtype
+        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        w = self.weight.to(dt).permute(1, 0, 2).flip(-1)
+        y = nn.functional.conv_transpose1d(x.to(dt).transpose(1, 2), w,
+                                           stride=self.stride)
+        before, after = conv_transpose_padding(self.kernel, self.stride)
+        left, right = self.kernel - 1 - before, self.kernel - 1 - after
+        y = nn.functional.pad(y, (-left, -right))  # negative pad crops
+        if self.bias is not None:
+            y = y + self.bias.to(dt)[:, None]
+        return y.transpose(1, 2)
+
+
+def avg_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """flax `nn.avg_pool(x, (window,), (stride,), "SAME")` over (N, L, C):
+    zero padding as XLA pads, every window divided by `window`
+    (count_include_pad=True, flax's default)."""
+    h = nn.functional.pad(x.transpose(1, 2),
+                          same_padding(x.shape[1], window, stride))
+    return nn.functional.avg_pool1d(h, window, stride).transpose(1, 2)

@@ -25,6 +25,26 @@ from espnet_tpu_torch.decode.scorers import length_bonus_scorer
 from espnet_tpu_torch.models.asr import ASRConfig, ASRModel
 from espnet_tpu_torch.ops.normalize import global_mvn, global_mvn_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 ENC_TOL = 1e-4     # float32, 2 conformer blocks over the log-mel frontend
 SCORE_TOL = 1e-3   # summed log-probs over <= 15 label steps
 

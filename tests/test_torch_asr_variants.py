@@ -29,6 +29,26 @@ from espnet_tpu_torch.models.asr import ASRConfig, ASRModel, init_random_
 from espnet_tpu_torch.train import msgpack_io
 from espnet_tpu_torch.train.collect_stats import collect_stats
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 KEYS = ("speech", "speech_lengths", "text", "text_lengths")
 # float32, 2 layers: the loss and its stats, and each gradient tensor
 # (relative L2, its norm floored at 1e-3 of the whole gradient's)

@@ -38,6 +38,26 @@ from espnet_tpu_torch.data.synth import generate_corpus
 from espnet_tpu_torch.tasks.asr import ASRTask as TASRTask
 from espnet_tpu_torch.train.msgpack_io import flatten, load_tree
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 STAT_RTOL = 1e-4       # epoch means of loss and acc
 PARAM_REL_L2 = 1e-4    # averaged parameters, per leaf
 # encoder/embed/conv0/bias starts at 0 and holds only the steps' updates,

@@ -31,6 +31,26 @@ from espnet_tpu.ops.pallas_conv_module import (conv_module_reference,
 from espnet_tpu_torch.ops import conv_module as tcm
 from espnet_tpu_torch.ops.ffn_common import keep_mask, quantize_rate
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 TOL = 1e-4
 LN_EPS = 1e-6
 SEED = 20240607

@@ -40,6 +40,26 @@ from espnet_tpu.ops.pallas_ctc import ctc_alphas_pallas, ctc_gamma_pallas
 from espnet_tpu_torch.ops import ctc as tctc
 from espnet_tpu_torch.ops import ctc_lattice as tlat
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 RTOL, ATOL = 1e-5, 1e-4
 NEG = np.float32(tlat.NEG_INF)
 LOG2E, LN2 = np.float32(np.log2(np.e)), np.float32(np.log(2.0))

@@ -30,6 +30,26 @@ from espnet_tpu_torch.ops import flash_attention as tflash
 from espnet_tpu_torch.ops import prenorm_ffn as tpffn
 from espnet_tpu_torch.ops import relpos_attention as trel
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 # float32, 2 + 2 layers over a log-mel frontend, summed in another order
 ENC_TOL = 1e-4
 LOSS_TOL = 1e-4

@@ -16,6 +16,26 @@ from espnet_tpu_torch.ops import ffn as tffn
 from espnet_tpu_torch.ops import ffn_common
 from espnet_tpu_torch.ops import prenorm_ffn as tpffn
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 # float32 on the CPU: products of width <= 256 summed in another order
 FWD_ATOL = 1e-5
 # gradients: relative L2 per tensor, sums over 300 rows in another order

@@ -1465,3 +1465,111 @@ def test_fastspeech2_synthesis_takes_flash_192_on_the_card(cuda):
                         cfg.n_mels, 4)
     assert wav.shape == (2, 511 * cfg.hop_length)
     assert torch.isfinite(wav).all()
+
+
+# --- the GAN slice: VITS and JETS ------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d", [(120, 96), (120, 128), (626, 128)])
+def test_flash_at_vits_and_jets_shapes_matches_plain(cuda, dtype, t, d):
+    """VITS's text encoder (head dim 96, padded to 128) and JETS's stacks
+    (head dim 128; its decoder over 626 frames), forward and gradient."""
+    args = _flash_args(cuda, dtype, b=3, h=2, t=t, d=d,
+                       lengths=(t, t // 2, 1))
+    gout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
+        d)).to(cuda, dtype)
+    got_y, got = _grads(tflash.flash_attention, args, range(3), gout)
+    want_y, want = _grads(tflash.flash_attention_plain, args, range(3), gout)
+    torch.testing.assert_close(got_y.float(), want_y.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    for name, g, w in zip("qkv", got, want):
+        _assert_grad_close(name, g, w, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u", [120, 200])
+def test_ctc_pair_on_the_jets_forward_sum_lattice(cuda, u):
+    """The forward-sum loss's lattice (weak blank prepended, labels 1..U:
+    S = 241, a warp per utterance; S = 401, a block per utterance), and the
+    loss and its gradient with kernels against plain."""
+    from espnet_tpu_torch.models.tts.jets import forward_sum_loss
+    from espnet_tpu_torch.ops import ctc_lattice as tlat
+
+    g = torch.Generator().manual_seed(u)
+    att = torch.log_softmax(torch.randn(3, 300, u, generator=g), -1).to(cuda)
+    tlens = torch.tensor([u, u - 7, 1], device=cuda)
+    flens = torch.tensor([300, 290, 3], device=cuda)
+    before = (tlat.ctc_alphas.launches, tlat.ctc_gamma.launches)
+    leaves = [att.clone().requires_grad_(True) for _ in range(2)]
+    losses = [forward_sum_loss(x, tlens, flens, use_kernels=k)
+              for x, k in zip(leaves, (True, False))]
+    for loss in losses:
+        loss.backward()
+    torch.cuda.synchronize()
+    assert (tlat.ctc_alphas.launches, tlat.ctc_gamma.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert tlat.design(2 * u + 1) == ("warp per utterance" if u < 128
+                                      else "block per utterance")
+    torch.testing.assert_close(losses[0], losses[1], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(leaves[0].grad, leaves[1].grad, atol=1e-4,
+                               rtol=1e-4)
+
+
+def _gan_step(cuda, family):
+    """One float32 GAN step of a VITS (192 channels: flash at head dim 96)
+    or JETS (adim 256: flash at 128, the pre-norm FFN at D=256, F=1024) of
+    one layer a stack, a small decoder and discriminator, on 2 x 1 s;
+    returns (stats, launches)."""
+    from espnet_tpu_torch.models.asr import init_random_
+    from espnet_tpu_torch.models.tts.jets import JETSConfig, JETSGenerator
+    from espnet_tpu_torch.models.tts.vits import VITSConfig, VITSGenerator
+    from espnet_tpu_torch.models.tts.vocoders import (
+        ParallelWaveGANDiscriminator)
+    from espnet_tpu_torch.ops import launches
+    from espnet_tpu_torch.tasks.jets import JETSDataConfig, jets_features
+    from espnet_tpu_torch.tasks.vits import linear_spectrogram
+    from espnet_tpu_torch.tasks.vocoder import VocoderOptimConfig, gan_state
+    from espnet_tpu_torch.train import gan_steps
+
+    small = dict(vocab_size=20, decoder_channels=32, segment_frames=8)
+    if family == "vits":
+        gen = VITSGenerator(VITSConfig(text_layers=1, posterior_layers=2,
+                                       flows=1, **small))
+    else:
+        gen = JETSGenerator(JETSConfig(encoder_layers=1, decoder_layers=1,
+                                       **small))
+    disc = ParallelWaveGANDiscriminator(layers=3, channels=8)
+    state = gan_state(gen, disc, VocoderOptimConfig(), 0, cuda)
+    init_random_(gen, torch.Generator().manual_seed(1))
+    rng = np.random.RandomState(9)
+    n = 16000 - 16000 % 256
+    wav = torch.from_numpy((0.1 * rng.randn(2, n)).astype(np.float32)).to(
+        cuda)
+    wlens = torch.tensor([n, n - 2560], device=cuda)
+    text = torch.from_numpy(rng.randint(1, 19, (2, 30))).to(cuda)
+    tlens = torch.tensor([30, 21], device=cuda)
+    wrappers = launches.reset()
+    if family == "vits":
+        spec = linear_spectrogram(wav, 1024, 256)
+        stats = gan_steps.make_vits_train_step(hop_length=256, upsample=256)(
+            state, text, tlens, spec, wlens // 256 + 1, wav)
+    else:
+        feats, flens, pitch, energy = jets_features(wav, wlens,
+                                                    JETSDataConfig())
+        stats = gan_steps.make_jets_train_step(hop_length=256)(
+            state, text, tlens, feats, flens, pitch, energy, wav)
+    torch.cuda.synchronize()
+    return stats, {k: fn.launches for k, fn in wrappers.items()
+                   if fn.launches}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,want", [
+    ("vits", {"flash_attention": 1}),
+    ("jets", {"flash_attention": 2, "prenorm_ffn": 2, "prenorm_ffn_bwd": 2,
+              "ctc_alphas": 1, "ctc_gamma": 1})])
+def test_gan_tts_step_takes_its_kernels_on_the_card(cuda, family, want):
+    stats, counts = _gan_step(cuda, family)
+    assert counts == want
+    assert all(np.isfinite(float(v)) for v in stats.values())

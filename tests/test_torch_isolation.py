@@ -97,7 +97,11 @@ def test_port_files_found():
             "griffin_lim.py", "pitch.py", "stft.py", "tts_metrics.py",
             "tts.py", "recipe_tts.py", "tts_train.py", "tts_inference.py",
             "tts_teacher_durations.py", "tts_scoring.py", "vc_train.py",
-            "spk_embed_extract.py", "run_tts.py"} <= names
+            "spk_embed_extract.py", "run_tts.py", "pqmf.py", "hifigan.py",
+            "vocoders.py", "wavenet.py", "vits.py", "jets.py",
+            "gan_steps.py", "vocoder.py", "vocoder_train.py",
+            "vits_train.py", "vits_inference.py", "jets_train.py",
+            "jets_inference.py"} <= names
 
 
 _NO_CARD_SCRIPT = r"""
@@ -137,13 +141,21 @@ for make in (lambda d: make_train_step(model, tx, device=d),
         else:
             raise SystemExit(f"device={device!r} did not raise without a card")
     make("cpu")
-from espnet_tpu_torch.bin import asr_inference, asr_train, run
+from espnet_tpu_torch.bin import (asr_inference, asr_train, jets_inference,
+                                  jets_train, run, vits_inference, vits_train,
+                                  vocoder_train)
+decode = ["--exp_dir", "unused", "--data_dir", "unused", "--output_dir",
+          "unused"]
 clis = (lambda extra: asr_train.main(["--run.output_dir", "unused"] + extra),
-        lambda extra: asr_inference.main(["--exp_dir", "unused", "--data_dir",
-                                          "unused", "--output_dir", "unused"]
-                                         + extra),
+        lambda extra: asr_inference.main(decode + extra),
         lambda extra: run.main(["--recipe.expdir", "unused",
-                                "--recipe.datadir", "unused"] + extra))
+                                "--recipe.datadir", "unused"] + extra),
+        lambda extra: vocoder_train.main(["--run.output_dir", "unused"]
+                                         + extra),
+        lambda extra: vits_train.main(["--run.output_dir", "unused"] + extra),
+        lambda extra: jets_train.main(["--run.output_dir", "unused"] + extra),
+        lambda extra: vits_inference.main(decode + extra),
+        lambda extra: jets_inference.main(decode + extra))
 for cli in clis:
     for extra in ([], ["--device", "cuda"]):
         try:

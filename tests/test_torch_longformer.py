@@ -26,6 +26,26 @@ from espnet_tpu_torch.convert import (jax_params_to_state_dict,
 from espnet_tpu_torch.models.asr import ASRConfig, ASRModel, init_random_
 from espnet_tpu_torch.models.longformer import LocalSelfAttention
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 FULL_WIDTH_PARAMS = 46_043_920
 ATT_TOL = 1e-5   # one attention layer, float32
 ENC_TOL = 1e-4   # 2 layers over a log-mel frontend, summed in another order

@@ -21,6 +21,26 @@ from espnet_tpu_torch.models import conformer as tconf
 from espnet_tpu_torch.models import subsampling as tsub
 from espnet_tpu_torch.models import transformer as ttr
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 # float32 on the CPU, different summation order; a conformer block adds
 # some 10 products of width <= 128 between LayerNorms
 TOL = 1e-4

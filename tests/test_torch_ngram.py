@@ -46,6 +46,26 @@ from espnet_tpu_torch.lm import ngram as tng
 from espnet_tpu_torch.models.asr import ASRConfig, ASRModel
 from espnet_tpu_torch.tasks.asr import ASRTask
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 # the dense tables are float32 natural logs of float64 log10 sums
 LOGP_TOL = 1e-4
 SCORE_TOL = 1e-4

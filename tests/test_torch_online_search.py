@@ -22,6 +22,26 @@ from espnet_tpu_torch.decode import online_beam_search as tonline
 from espnet_tpu_torch.decode.beam_search import (BeamSearchConfig,
                                                  batched_beam_search)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 V, SOS_EOS = 8, 7
 T_MAX, MAX_STEPS, W, ENC_LEN = 16, 12, 3, 14
 TOL = 1e-5       # float32 log-space recursions, the same order

@@ -15,6 +15,26 @@ from espnet_tpu_torch.ops import masks as tmasks
 from espnet_tpu_torch.ops import normalize as tnorm
 from espnet_tpu_torch.ops import stft as tstft
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 # float32 products of 512-sample frames: a few ulp of the spectrum's range
 STFT_ATOL, STFT_RTOL = 2e-3, 1e-4
 LOGMEL_ATOL = 1e-3  # natural-log energies of O(10)

@@ -19,6 +19,26 @@ from espnet_tpu.train.steps import TrainState as JTrainState
 from espnet_tpu.train.steps import make_train_step as jmake_train_step
 from espnet_tpu_torch.train import optim as toptim
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 N = 1000
 RTOL, ATOL = 1e-6, 1e-7
 CLIP = 5.0

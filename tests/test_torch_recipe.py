@@ -17,6 +17,26 @@ from espnet_tpu.bin import prep_librispeech as jprep
 from espnet_tpu.bin import run as jrun
 from espnet_tpu_torch.bin import pack, prep_librispeech, run
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 ASR_ARGS = (
     "--run.max_epoch 2 --run.log_interval 1000 --data.batch_size 8 "
     "--model.n_mels 24 --model.use_specaug false "

@@ -30,6 +30,26 @@ from espnet_tpu_torch.models.asr import ASRConfig, ASRModel
 from espnet_tpu_torch.models.streaming import (ContextualBlockConformerEncoder,
                                                _block_geometry)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 TOL = 1e-5        # float32, 2 layers, summed in another order
 GRAD_TOL = 1e-5   # relative L2 per tensor
 SAME_TOL = 1e-6   # the port's two modes: batched vs one block at a time

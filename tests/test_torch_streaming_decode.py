@@ -34,6 +34,26 @@ from espnet_tpu_torch.decode.streaming_inference import (Speech2TextStreaming,
                                                          beam_config)
 from espnet_tpu_torch.models.asr import ASRConfig, ASRModel
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 ENGINES = {"host": Speech2TextStreaming, "device": DeviceStreamingRecognizer}
 N = 12000  # 0.75 s: 23 subsampled frames, 4 blocks
 BEAM = dict(beam_size=4, ctc_weight=0.5, max_steps=16, t_max=64)

@@ -41,6 +41,26 @@ from espnet_tpu_torch.data.fileio import read_2column_text, write_2column_text
 from espnet_tpu_torch.decode import timesync as tts
 from espnet_tpu_torch.lm import ngram as tng
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 REPO = Path(__file__).resolve().parents[1]
 SYNTH = Path("egs_work/synth_hard")
 EXP = SYNTH / "exp/asr"

@@ -23,6 +23,26 @@ from espnet_tpu_torch.bin import asr_transducer_train as ttrain
 from espnet_tpu_torch.data.fileio import read_2column_text
 from espnet_tpu_torch.data.synth import generate_corpus
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 # the searches' scores: the same float32 joint on encoder outputs that
 # differ by rounding (the JAX model jits the whole decode)
 SCORE_TOL = 1e-3

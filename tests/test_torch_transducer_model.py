@@ -29,6 +29,26 @@ from espnet_tpu_torch.models import transducer as ttm
 from espnet_tpu_torch.tasks.transducer import (TransducerModelSection,
                                                TransducerTask)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread, and one for the subprocesses this file
+    starts: the suite's xdist workers share the CPU, and a worker's extra
+    threads oversubscribe it."""
+    import os
+
+    import torch as _torch
+
+    n, env = _torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    _torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    _torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 FULL_WIDTH_PARAMS = 37_088_264
 # the whole model: 2 encoder layers, a log-mel frontend and up to four
 # losses, summed in another order; gradients through one more pass

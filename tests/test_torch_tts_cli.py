@@ -167,10 +167,46 @@ def test_tacotron2_experiment_synthesises_and_teaches_alike(
         (ws / "durations").write_text((data / "durations").read_text())
 
 
-def test_fastspeech2_on_teacher_durations_synthesises_alike(ws, tmp_path):
+def _jax_vocoder_experiment(exp, flags):
+    """A vocoder experiment as the JAX task writes it (config.yaml and the
+    generator's flax init as generator.msgpack), at the TTS front's n_fft,
+    hop and n_mels."""
+    from espnet_tpu.tasks.vocoder import VocoderTask as JVocoderTask
+    from espnet_tpu.train.checkpoint import save_pytree
+
+    cfg = JVocoderTask.parse_config(flags + ["--run.output_dir", str(exp)])
+    exp.mkdir(parents=True)
+    JVocoderTask.dump_config(cfg, exp)
+    gen, _ = JVocoderTask.build_models(cfg["model"], cfg["data"].n_mels)
+    key = jax.random.PRNGKey(4)
+    save_pytree(exp / "generator.msgpack", gen.init(
+        {"params": key, "noise": key}, jnp.zeros((1, 8, 20)))["params"])
+
+
+VOCODER = ["--data.n_fft", "512", "--data.hop_length", "128",
+           "--data.n_mels", "20", "--model.upsample_scales", "[8, 16]"]
+VOCODERS = {
+    "hifigan": VOCODER + ["--model.channels", "16",
+                          "--model.resblock_kernel_sizes", "[3]"],
+    "parallel_wavegan": VOCODER + [
+        "--model.generator_type", "parallel_wavegan",
+        "--model.pwg_layers", "4", "--model.pwg_stacks", "2"]}
+
+
+def _waves(d):
+    from espnet_tpu_torch.data.fileio import read_wav
+
+    return {p.name: read_wav(p)[0] for p in sorted((d / "wav").glob("*.wav"))}
+
+
+def test_fastspeech2_on_teacher_durations_synthesises_alike(ws, tmp_path,
+                                                            monkeypatch):
     """FastSpeech2 trained by the port on the port teacher's durations;
-    both `tts_inference`s give the same mels. `--vocoder_dir` is refused
-    with the ROADMAP item that ports it."""
+    both `tts_inference`s give the same mels. Through `--vocoder_dir`, a
+    JAX-written HiFiGAN vocoder experiment gives the same waves in both
+    packages, and so does a noise-driven Parallel WaveGAN with its noise
+    injected (numpy draws from `jax.random.normal` and the port's
+    `vocoders._noise`); the waves are 16-bit, so they agree to 2 LSB."""
     if not (ws / "durations").exists():
         pytest.skip("needs the port-trained teacher's durations")
     data = tmp_path / "data"
@@ -186,9 +222,32 @@ def test_fastspeech2_on_teacher_durations_synthesises_alike(ws, tmp_path):
                               "--device", "cpu"])
     jtts_inference.main(dec + ["--output_dir", str(tmp_path / "j")])
     _same_mels(tmp_path / "t", tmp_path / "j")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tts_inference.main(dec + ["--output_dir", str(tmp_path / "v"),
-                                  "--vocoder_dir", str(exp)])
+    from espnet_tpu_torch.models.tts import vocoders as tvoc
+
+    def draws(shape):
+        return np.random.RandomState(0).randn(*shape).astype(np.float32)
+
+    monkeypatch.setattr(jax.random, "normal",
+                        lambda key, shape, dtype=jnp.float32: jnp.asarray(
+                            draws(tuple(shape)), dtype))
+    monkeypatch.setattr(tvoc, "_noise", lambda shape, like, noise, gen:
+                        torch.from_numpy(draws(tuple(shape))).to(like))
+    for name, flags in VOCODERS.items():
+        voc = tmp_path / name
+        _jax_vocoder_experiment(voc, flags)
+        out = {k: tmp_path / f"{name}_{k}" for k in "tj"}
+        tts_inference.main(dec + ["--output_dir", str(out["t"]),
+                                  "--vocoder_dir", str(voc), "--device",
+                                  "cpu"])
+        jtts_inference.main(dec + ["--output_dir", str(out["j"]),
+                                   "--vocoder_dir", str(voc)])
+        got, want = _waves(out["t"]), _waves(out["j"])
+        assert got.keys() == want.keys() and len(got) == 8
+        for k in got:
+            assert got[k].shape == want[k].shape, (name, k)
+            np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                       atol=2.0 / 32767, err_msg=name)
+        _same_mels(out["t"], out["j"])
 
 
 def test_jax_checkpoint_with_batch_stats_resumes_and_flax_reads_the_port(
