@@ -291,15 +291,36 @@ the elapsed seconds, and raising on failure (exit code other than 0):
    corpus, in process: `vocoder_train`, `tts_train` of a FastSpeech2 and
    its `tts_inference --vocoder_dir`, `vits_train` / `vits_inference`,
    `jets_train` / `jets_inference` at reduced depth;
-19. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
+19. enh: enhancement and separation at `EnhConfig`'s defaults (conv
+   encoder 256/20/10; 4 layers d 256, F 1024, k 15; random weights,
+   float32 as in JAX, and bf16): (a) rel-pos forward and backward at
+   B=8, H=4, T'=3199 (the task's 2 s chunks) and its forward at the
+   serve batch's own B=4 and T', the pre-norm FFN on 8 x 3199 rows, the
+   conv head, tail and whole-module kernels at k=15, flash at T'=3199
+   with SDPA beside it, each against its plain version in float32 and
+   bf16; (b) the
+   conformer separator's float32 train step with kernels against plain
+   (the loss and every gradient); (c) timed train steps at B=8 x 32,000
+   samples of the conformer (plain and whole-module conv routes), the
+   transformer and the TCN separators: ms/step, peak GiB, exact
+   launches; (d) every other separator type at reduced depth, a forward
+   and backward with a finite loss; (e) `enh_inference` on 4 mixtures of
+   4-6 s: wall, RTF, exact launches, the waves of the kernel route
+   against the plain route's; (f) on a synthetic corpus: in process
+   `enh_train` -> `enh_inference` -> `enh_scoring` (a one-layer
+   conformer at full width), and `run_enh` stages 1-7, whose heavy
+   stages run the CLIs as subprocesses;
+20. a `{"kernels": [...]}` JSON line (training shapes, bfloat16, the
    lattice pairs float32; launches from the timed train steps of the
    configuration whose path holds the kernel: the conformer's, the
    transformer's for flash attention, the E-Branchformer's for
    `fused_ffn`, the two conv routes' for theirs, the transducer's for its
    lattice pair, FastSpeech2's for the `flash_attention_d192` row and
    VITS's for the `flash_attention_d96` row: the same kernel at head dims
-   192 and 96);
-20. last line: {"ok": true, "device": {...}}.
+   192 and 96; the enhancement rows `*_t3199`, `*_enh_serve`, `*_k15`
+   float32 at their shapes, their launches from the enh phase's float32
+   steps and serve);
+21. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -652,10 +673,11 @@ def module_case(torch, lengths, t, dtype, seed, d=CONV_D, k=CONV_K):
 
 
 def check_conv_kernels(torch, dn, dtype, label, m, b, t, lengths, drop,
-                       grads, iters):
+                       grads, iters, kernel_size=CONV_K):
     """The six conv entry points against their plain versions at one shape:
     the head and tail at M = m rows, the whole module at (b, t) with
-    `lengths`; forwards, and with `grads` the backward kernels too. Returns
+    `lengths` and depthwise kernel `kernel_size` (with `grads` at k 31 also
+    at d 144); forwards, and with `grads` the backward kernels too. Returns
     the results by kernel name."""
     from espnet_tpu_torch.ops import conv_glu as tglu
     from espnet_tpu_torch.ops import conv_module as tcm
@@ -684,8 +706,9 @@ def check_conv_kernels(torch, dn, dtype, label, m, b, t, lengths, drop,
             lambda *a: tglu.postnorm_proj(*a, **kw),
             lambda *a: tglu.postnorm_proj_plain(*a, **kw), tail, 6, gout,
             *work["tail_bwd"], iters=iters)
-    for d, k in ((CONV_D, CONV_K), (144, 31)) if grads else ((CONV_D,
-                                                              CONV_K),):
+    shapes = ((CONV_D, kernel_size), (144, 31)) \
+        if grads and kernel_size == CONV_K else ((CONV_D, kernel_size),)
+    for d, k in shapes:
         x, mask, params, work = module_case(torch, lengths, t, dtype, 14,
                                             d=d, k=k)
         kw = {"seed": -31337, "drop_rate": drop, "kernel_size": k}
@@ -1102,6 +1125,24 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                     "espnet_tpu/ops/pallas_conv_module.py:305"),
     "conv_module_bwd": ("espnet_tpu_torch/csrc/conv_module.cu",
                         "espnet_tpu/ops/pallas_conv_module.py:252"),
+    # the enhancement separators' shapes (`phase_enh`): rel-pos at the
+    # conformer separator's T'=3199 (training) and the serve batch's T'
+    # (`enh_serve`'s 4-6 s mixtures), flash at the transformer separator's
+    # T'=3199, and the whole-module conv kernel at its depthwise kernel 15
+    "relpos_attention_t3199": ("espnet_tpu_torch/csrc/relpos_attention.cu",
+                               "espnet_tpu/ops/pallas_relpos_attention.py:821"),
+    "relpos_attention_bwd_t3199": (
+        "espnet_tpu_torch/csrc/relpos_attention.cu",
+        "espnet_tpu/ops/pallas_relpos_attention.py:712"),
+    "relpos_attention_enh_serve": (
+        "espnet_tpu_torch/csrc/relpos_attention.cu",
+        "espnet_tpu/ops/pallas_relpos_attention.py:821"),
+    "flash_attention_t3199": ("espnet_tpu_torch/csrc/flash_attention.cu",
+                              "espnet_tpu/ops/pallas_attention.py:133"),
+    "conv_module_k15": ("espnet_tpu_torch/csrc/conv_module.cu",
+                        "espnet_tpu/ops/pallas_conv_module.py:305"),
+    "conv_module_bwd_k15": ("espnet_tpu_torch/csrc/conv_module.cu",
+                            "espnet_tpu/ops/pallas_conv_module.py:252"),
     # no Pallas kernel: the JAX package's lax.scan pairs
     "transducer_alphas": ("espnet_tpu_torch/csrc/transducer_lattice.cu",
                           "espnet_tpu/ops/transducer.py:43"),
@@ -1153,7 +1194,13 @@ GATE_CONFIGS = {
 }
 # rows of the kernels line that are another row's kernel at another shape
 ROW_OF = {"flash_attention_d192": "flash_attention",
-          "flash_attention_d96": "flash_attention"}
+          "flash_attention_d96": "flash_attention",
+          "relpos_attention_t3199": "relpos_attention",
+          "relpos_attention_bwd_t3199": "relpos_attention_bwd",
+          "relpos_attention_enh_serve": "relpos_attention",
+          "flash_attention_t3199": "flash_attention",
+          "conv_module_k15": "conv_module",
+          "conv_module_bwd_k15": "conv_module_bwd"}
 MAIN_PATH = {  # kernel: the configuration whose train run gives its launches
     "fused_ffn": "e_branchformer", "fused_ffn_bwd": "e_branchformer",
     "flash_attention": "transformer", "flash_attention_d192": "fastspeech2",
@@ -1165,6 +1212,12 @@ MAIN_PATH = {  # kernel: the configuration whose train run gives its launches
     "conv_module_bwd": "conformer_conv_module",
     "transducer_alphas": "transducer",
     "transducer_occupancy": "transducer",
+    "relpos_attention_t3199": "enh_conformer",
+    "relpos_attention_bwd_t3199": "enh_conformer",
+    "relpos_attention_enh_serve": "enh_serve",
+    "flash_attention_t3199": "enh_transformer",
+    "conv_module_k15": "enh_conformer_conv_module",
+    "conv_module_bwd_k15": "enh_conformer_conv_module",
 }
 
 
@@ -3089,7 +3142,7 @@ def phase_transducer(torch, np, smi):
 # and CTC forced alignment
 FAMILY_LAYERS = 2
 FAMILY_BATCH = 16  # the 2-layer cases' B (x 15 s)
-MULTICHANNEL_BATCH = 4  # the multichannel cases' (5.1-8.4 s a step at 8)
+MULTICHANNEL_BATCH = 2  # the multichannel cases' (4.3-7.3 s a step at 4)
 VGG_TIMED_STEPS = 1  # vgg_blstm_rnn's timed steps (2.0-2.7 s each)
 FAMILY_SCORE_RTOL = 1e-4
 FFN_PAIR = ("fused_ffn", "fused_ffn_bwd")
@@ -5833,6 +5886,513 @@ def phase_gan(torch, np, smi):
     return flash96, launches["vits"]
 
 
+# --- the enh phase: enhancement and separation (`models/enh/`) --------------
+
+ENH_CHUNK = 32000  # the task's chunk_length: 2 s at 16 kHz
+ENH_BATCH = 8  # the task's batch_size
+ENH_T = (ENH_CHUNK - 20) // 10 + 1  # 3199 frames of the conv encoder
+ENH_LAYERS = 4  # EnhConfig's trans_layers
+ENH_SERVE_SECONDS = (4.0, 4.5, 5.0, 6.0)  # enh_inference's mixtures
+ENH_TIMED_STEPS = 2
+ENH_LOSS_RTOL = 1e-4  # float32 loss, kernels vs plain
+ENH_GRAD_REL_L2 = 1e-3  # float32 gradients, kernels vs plain, per tensor
+ENH_WAVE_TOL = 1e-3  # float32 separated waves, kernels vs plain (|w| < ~1)
+# the key projection's bias has a gradient of exactly 0 (softmax is
+# invariant to a shift along the keys): both routes give rounding noise,
+# held to ENH_ZERO_GRAD_REL of the model's largest gradient entry
+ZERO_GRAD_LEAVES = ("self_attn.k_proj.bias",)
+ENH_ZERO_GRAD_REL = 1e-4
+# launches of one train step (a forward and backward) of the separators
+# with kernels at EnhConfig's defaults (4 layers), and of one forward
+ENH_STEP = {
+    "conformer": {"relpos_attention": ENH_LAYERS,
+                  "relpos_attention_bwd": ENH_LAYERS,
+                  "prenorm_ffn": 2 * ENH_LAYERS,
+                  "prenorm_ffn_bwd": 2 * ENH_LAYERS},
+    "conformer_conv_module": {"relpos_attention": ENH_LAYERS,
+                              "relpos_attention_bwd": ENH_LAYERS,
+                              "prenorm_ffn": 2 * ENH_LAYERS,
+                              "prenorm_ffn_bwd": 2 * ENH_LAYERS,
+                              "conv_module": ENH_LAYERS,
+                              "conv_module_bwd": ENH_LAYERS},
+    # flash has no backward kernel (the recompute is PyTorch)
+    "transformer": {"flash_attention": ENH_LAYERS,
+                    "prenorm_ffn": ENH_LAYERS,
+                    "prenorm_ffn_bwd": ENH_LAYERS},
+    "tcn": {},  # Conv-TasNet: cuDNN convs, no kernel of the port
+}
+ENH_ENCODE = {"relpos_attention": 1, "prenorm_ffn": 2}  # a conformer layer
+# every other separator at reduced depth: (overrides, mic channels or 0)
+ENH_OTHERS = {
+    "dprnn": (dict(dprnn_blocks=1), 0),
+    "dptnet": (dict(dprnn_blocks=1), 0),
+    "skim": (dict(dprnn_blocks=2), 0),
+    "rnn": (dict(encoder_type="stft", rnn_layers=1), 0),
+    "dan": (dict(encoder_type="stft", rnn_layers=1), 0),
+    "dc_crn": (dict(encoder_type="stft"), 0),
+    "dccrn": (dict(encoder_type="stft", dccrn_rnn_layer=1), 0),
+    "dpcl_e2e": (dict(encoder_type="stft", rnn_layers=1), 0),
+    "svoice": (dict(svoice_layers=1), 0),
+    "fasnet": (dict(fasnet_layers=1), 2),
+    "ineube": (dict(ineube_tcn_repeats=1, ineube_output_from="dnn2",
+                    ineube_mics=2), 2),
+    "beamformer": (dict(num_spk=1, use_wpe=True), 2),
+}
+ENH_OTHERS_SAMPLES = 16000  # B=2 x 1 s
+# the CLIs and run_enh: a conformer separator of one layer at full width
+ENH_CLI_ARGS = ("--model.separator_type conformer --model.trans_layers 1 "
+                "--run.max_epoch 1 --run.log_interval 1000 "
+                "--run.best_metric valid.loss.min --optim.schedule constant "
+                "--optim.lr 0.001 --data.batch_size 4")
+
+
+def enh_batch(torch, np, b, n, num_spk=2, mics=0, seed=0, device="cuda"):
+    """(mixture (B, n) or (B, n, mics), lengths (B,), references
+    (B, n, num_spk)): seeded tones and noise, the mixture their sum."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(n) / SAMPLE_RATE
+    refs = np.stack([
+        np.stack([0.3 * np.sin(2 * np.pi * rng.uniform(100, 900) * t
+                               + rng.uniform(0, 6)) + 0.05 * rng.randn(n)
+                  for _ in range(num_spk)], -1) for _ in range(b)])
+    mix = refs.sum(-1)
+    if mics:
+        mix = np.stack([np.roll(mix, c, axis=1) for c in range(mics)], -1)
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)) \
+        .to(device)  # noqa: E731
+    lens = torch.full((b,), n, dtype=torch.int32, device=device)
+    return as_t(mix), lens, as_t(refs)
+
+
+def enh_model(torch, seed, device="cuda", **overrides):
+    """The port's EnhancementModel at EnhConfig's defaults with
+    `overrides`, its parameters drawn from `seed`, on `device`."""
+    from espnet_tpu_torch.models.asr import init_random_
+    from espnet_tpu_torch.models.enh import EnhancementModel, EnhConfig
+
+    model = EnhancementModel(EnhConfig(**overrides))
+    init_random_(model, torch.Generator().manual_seed(seed))
+    return model.to(device)
+
+
+def enh_kernels(torch, np, serve_batch):
+    """The kernels at this slice's shapes against their plain versions,
+    float32 (the model's default) and bf16: rel-pos forward and backward
+    at the training shape B=8, H=4, T'=3199, D=64 (ragged), its forward
+    at the shape of `serve_batch` (`enh_serve_batch`: B, the padded T'
+    and each mixture's frames); the pre-norm FFN at D=256, F=1024 on
+    M=8x3199 rows (swish, 0.5: the conformer; relu, 1.0: the
+    transformer); the conv head and tail at M=8x3199 and the whole-module
+    kernel at B=8, T'=3199, D=256, k=15 (ragged), forward and backward;
+    flash at B=8, H=4, T'=3199, D=64 with SDPA beside it. Returns the
+    float32 results of the new rows."""
+    import types
+
+    import torch.nn.functional as F
+
+    from espnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_plain)
+    from espnet_tpu_torch.ops.relpos_attention import (relpos_attention,
+                                                       relpos_attention_plain)
+
+    b, t = ENH_BATCH, ENH_T
+    ragged = [t, t, t - 399, t - 799, t, t // 2, t - 199, t - 1199]
+    mix, lens = serve_batch
+    sb, st = mix.shape[0], (mix.shape[1] - 20) // 10 + 1
+    serve_frames = [(int(n) - 20) // 10 + 1 for n in lens]
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        args, flops, nbytes = relpos_case(torch, b, t, dtype, ragged, 71)
+        label = f"enh B={b} H=4 T={t} D=64 ragged"
+        with torch.no_grad():
+            fwd = check_kernel(torch, "relpos_attention", relpos_attention,
+                               relpos_attention_plain, args, flops, nbytes,
+                               dn, label, iters=5)
+        gout = torch.randn(b, 4, t, 64, generator=torch.Generator()
+                           .manual_seed(72)).to("cuda", dtype)
+        es = 4 if dtype == torch.float32 else 2
+        bwd = check_grads(torch, "relpos_attention_bwd", dn, label,
+                          relpos_attention, relpos_attention_plain, args, 6,
+                          gout, 16.0 * b * 4 * t * t * 64,
+                          (7 * b * 4 * t * 64 + 2 * 4 * (2 * t - 1) * 64) * es
+                          + b * t * 4 + b * 4 * t * 12, iters=3)
+        del args, gout
+        args, flops, nbytes = relpos_case(torch, sb, st, dtype,
+                                          serve_frames, 73)
+        with torch.no_grad():
+            serve = check_kernel(
+                torch, "relpos_attention", relpos_attention,
+                relpos_attention_plain, args, flops, nbytes, dn,
+                f"enh serve B={sb} H=4 T={st} D=64 ragged", iters=3)
+        del args
+        lengths = [ragged[i % len(ragged)] for i in range(b)]
+        args, flops, nbytes, valid = flash_case(torch, b, t, dtype, lengths,
+                                                74)
+        with torch.no_grad():
+            fa = check_kernel(torch, "flash_attention", flash_attention,
+                              flash_attention_plain, args, flops, nbytes,
+                              dn, f"enh transformer B={b} H=4 T={t} D=64",
+                              iters=5)
+            fa["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    *args[:3], attn_mask=valid), 5)
+        log("kernels", f"flash_attention enh T={t} {dn}: library "
+            f"(scaled_dot_product_attention, boolean key mask) "
+            f"{fa['library_ms']:.4f} ms")
+        del args, valid
+        if dtype == torch.float32:
+            rows.update({"relpos_attention_t3199": fwd,
+                         "relpos_attention_bwd_t3199": bwd,
+                         "relpos_attention_enh_serve": serve,
+                         "flash_attention_t3199": fa})
+        conv = check_conv_kernels(torch, dn, dtype, "enh", b * t, b, t,
+                                  ragged, 0.1, True, 3, kernel_size=15)
+        if dtype == torch.float32:
+            rows.update({"conv_module_k15": conv["conv_module"],
+                         "conv_module_bwd_k15": conv["conv_module_bwd"]})
+        torch.cuda.empty_cache()
+    enh = types.SimpleNamespace(d_model=256, d_ff=1024, dropout_rate=0.1)
+    check_ffn_rows(torch, enh, b * t, f"enh conformer M={b}x{t}")
+    check_ffn_rows(torch, enh, b * t, f"enh transformer M={b}x{t}", "relu",
+                   1.0)
+    return rows
+
+
+def enh_grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def enh_parity(torch, np, smi):
+    """A float32 train step's forward and backward of the conformer
+    separator at EnhConfig's defaults on B=8 x 32000 samples, kernels
+    against the plain path on the same parameters and dropout draws: the
+    loss and every gradient."""
+    model = enh_model(torch, 0, separator_type="conformer")
+    model.train()
+    batch = enh_batch(torch, np, ENH_BATCH, ENH_CHUNK, seed=1)
+    out = {}
+    for route in (True, False):
+        model.set_use_kernels(route)
+        model.zero_grad(set_to_none=True)
+        wrappers = reset_counts()
+        loss, _ = model(*batch, generator=torch.Generator(
+            device="cuda").manual_seed(5))
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+        out[route] = (float(loss), enh_grads(model), counts)
+    model.set_use_kernels(True)
+    want = ENH_STEP["conformer"]
+    if out[True][2] != want or out[False][2]:
+        raise AssertionError(f"enh parity launches {out[True][2]} / "
+                             f"{out[False][2]}, expected {want} / none")
+    (lk, gk, _), (lp, gp, _) = out[True], out[False]
+    if not np.isfinite(lk) or abs(lk - lp) > ENH_LOSS_RTOL * abs(lp):
+        raise AssertionError(f"enh parity loss {lk} vs plain {lp}")
+    worst, name = 0.0, ""
+    top = max(float(w.abs().max()) for w in gp.values())
+    for n, w in gp.items():
+        g = gk[n]
+        if n.endswith(ZERO_GRAD_LEAVES):
+            # identically 0 (softmax is shift-invariant): rounding only
+            tiny = max(float(g.abs().max()), float(w.abs().max()))
+            if tiny > ENH_ZERO_GRAD_REL * top:
+                raise AssertionError(f"enh parity: {n} gradient {tiny:.3e}"
+                                     f" is not 0 up to rounding")
+            continue
+        rel = float((g - w).double().norm() / w.double().norm().clamp(
+            min=TRAIN_GRAD_FLOOR))
+        if rel > worst:
+            worst, name = rel, n
+    if worst > ENH_GRAD_REL_L2:
+        raise AssertionError(f"enh parity: {name} gradient relative L2 "
+                             f"{worst:.3e} > {ENH_GRAD_REL_L2}")
+    log("enh", f"conformer float32 B={ENH_BATCH} x {ENH_CHUNK} (T'={ENH_T}) "
+        f"kernels vs plain: loss {lk:.6f} vs {lp:.6f}, {len(gp)} gradients "
+        f"worst relative L2 {worst:.3e} ({name}; limit {ENH_GRAD_REL_L2}; "
+        f"the key biases' 0 up to {ENH_ZERO_GRAD_REL} of {top:.3e}) [{smi}]")
+    del model, out
+
+
+def enh_timed(torch, np, smi, name, dtype, separator, conv_module,
+              per_step):
+    """A warm-up step, then ENH_TIMED_STEPS timed train steps (FlatAdam,
+    B=8 x 32000) of `separator` at EnhConfig's defaults (the conformer's
+    conv sub-block on the whole-module kernel with `conv_module`): ms/step,
+    peak GiB, the exact launches. Returns the launches."""
+    from espnet_tpu_torch.models.conformer import ConformerBlock
+    from espnet_tpu_torch.tasks.enh import ENH_BATCH_KEYS
+    from espnet_tpu_torch.train.optim import build_optimizer
+    from espnet_tpu_torch.train.steps import TrainState, make_train_step
+
+    model = enh_model(torch, 2, separator_type=separator, dtype=dtype)
+    for block in model.modules():
+        if conv_module and isinstance(block, ConformerBlock):
+            block.fused_conv = True
+    opt = build_optimizer("adam", 1e-3, "constant", 0, 256)
+    step = make_train_step(model, opt, "cuda", batch_keys=ENH_BATCH_KEYS)
+    state = TrainState.create(model, opt)
+    mix, lens, refs = enh_batch(torch, np, ENH_BATCH, ENH_CHUNK, seed=3)
+    batch = {"speech_mix": mix, "speech_mix_lengths": lens,
+             "speech_ref": refs}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = reset_counts()
+    t = time.perf_counter()
+    losses = []
+    for _ in range(ENH_TIMED_STEPS):
+        state, stats = step(state, batch, gen)
+        losses.append(float(stats["loss"]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / ENH_TIMED_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = expected_counts(per_step, ENH_TIMED_STEPS)
+    if counts != want:
+        raise AssertionError(f"enh {name} {dtype}: launched {counts}, "
+                             f"expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"enh {name} {dtype}: losses {losses}")
+    log("enh", f"{name} train step {dtype} B={ENH_BATCH} x {ENH_CHUNK}: "
+        f"{ms:.1f} ms/step, peak {peak:.2f} GiB, loss {losses[-1]:.4f}, "
+        f"launches exact {({k: v for k, v in counts.items() if v})} [{smi}]")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def enh_others(torch, np, smi, device="cuda", samples=ENH_OTHERS_SAMPLES):
+    """Every other separator type at reduced depth on B=2 x 1 s: a float32
+    forward and backward in training mode with a finite loss and
+    gradients, and no kernel launched (none of them reaches one but
+    DPTNet, whose attention is flash). (device="cpu" with fewer `samples`
+    rehearses it without a card.)"""
+    for name, (over, mics) in ENH_OTHERS.items():
+        model = enh_model(torch, 4, device, separator_type=name, **over)
+        model.train()
+        n_spk = over.get("num_spk", 2)
+        batch = enh_batch(torch, np, 2, samples, n_spk, mics, 7, device)
+        wrappers = reset_counts()
+        t = time.perf_counter()
+        loss, _ = model(*batch, generator=torch.Generator(
+            device=device).manual_seed(8))
+        loss.backward()
+        sync(torch, device)
+        wall = time.perf_counter() - t
+        counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        loss = loss.detach()
+        if not np.isfinite(float(loss)) or not all(
+                bool(torch.isfinite(g).all()) for g in grads) or not grads:
+            raise AssertionError(f"enh {name}: loss {float(loss)} or a "
+                                 "gradient not finite")
+        want = {"flash_attention": 2} \
+            if name == "dptnet" and device == "cuda" else {}
+        if counts != want:
+            raise AssertionError(f"enh {name}: launched {counts}, "
+                                 f"expected {want}")
+        log("enh", f"{name} {over} B=2 x {samples}"
+            f"{f' x {mics} mics' if mics else ''}: forward+backward "
+            f"{wall:.2f}s, loss {float(loss):.4f}, launches {counts} [{smi}]")
+        del model
+
+
+def enh_experiment(torch, ws, seed, **overrides):
+    """An experiment dir (config.yaml, ep1.params.msgpack) of a randomly
+    initialised model at EnhConfig's defaults with `overrides`."""
+    from espnet_tpu_torch.convert import model_params
+    from espnet_tpu_torch.models.enh import EnhConfig
+    from espnet_tpu_torch.tasks.abs_task import OptimConfig, RunConfig
+    from espnet_tpu_torch.tasks.enh import EnhDataConfig, EnhTask
+    from espnet_tpu_torch.train.msgpack_io import save_tree
+
+    exp = ws / "exp_serve"
+    exp.mkdir(parents=True, exist_ok=True)
+    cfg = {"run": RunConfig(output_dir=str(exp)), "optim": OptimConfig(),
+           "data": EnhDataConfig(), "model": EnhConfig(**overrides)}
+    EnhTask.dump_config(cfg, exp)
+    model = enh_model(torch, seed, "cpu", **overrides)
+    save_tree(exp / "ep1.params.msgpack", model_params(model))
+    return exp
+
+
+def enh_write_mixtures(np, data, seconds, seed):
+    """A data dir of mixtures of the given lengths with both references."""
+    from espnet_tpu_torch.data.fileio import DatadirWriter, write_wav
+
+    rng = np.random.RandomState(seed)
+    with DatadirWriter(data) as w:
+        for i, s in enumerate(seconds):
+            n = int(s * SAMPLE_RATE)
+            t = np.arange(n) / SAMPLE_RATE
+            srcs = [0.3 * np.sin(2 * np.pi * rng.uniform(100, 900) * t)
+                    + 0.03 * rng.randn(n) for _ in range(2)]
+            key = f"mix{i}"
+            for name, wav in (("wav.scp", srcs[0] + srcs[1]),
+                              ("spk1.scp", srcs[0]), ("spk2.scp", srcs[1])):
+                path = data / "wav" / f"{key}_{name[:-4]}.wav"
+                write_wav(path, wav / 1.5, SAMPLE_RATE)
+                w[name][key] = str(path)
+
+
+def enh_serve_batch(torch, np, data):
+    """Writes the mixtures of ENH_SERVE_SECONDS to `data` and returns them
+    as `enh_inference` batches them (the task's data section, one batch):
+    (mixtures (B, n) padded, lengths (B,)), on the card."""
+    from espnet_tpu_torch.data.dataset import EnhDataset, EpochIterator
+    from espnet_tpu_torch.tasks.enh import EnhDataConfig, make_batches
+
+    enh_write_mixtures(np, data, ENH_SERVE_SECONDS, 9)
+    ds = EnhDataset(data, 2)
+    batches = make_batches(ds, EnhDataConfig(),
+                           batch_size=len(ENH_SERVE_SECONDS))
+    batch = next(iter(EpochIterator(ds, batches, shuffle=False,
+                                    fields=("speech_mix",)).epoch(0)))
+    return (torch.as_tensor(batch["speech_mix"]).cuda(),
+            torch.as_tensor(batch["speech_mix_lengths"]).cuda())
+
+
+def enh_serve(torch, np, smi, ws, serve_batch):
+    """`enh_inference` in process on the mixtures of `enh_serve_batch`
+    under ws/serve, 4 of 4-6 s (one batch), with the conformer separator
+    at EnhConfig's defaults: wall, RTF, the exact launches; the batch's
+    separated waves of the kernel route against the plain route's."""
+    from espnet_tpu_torch.bin import enh_inference
+
+    data = ws / "serve"
+    exp = enh_experiment(torch, ws, 10, separator_type="conformer")
+    argv = ["--exp_dir", str(exp), "--data_dir", str(data), "--output_dir",
+            str(ws / "sep"), "--batch_size", str(len(ENH_SERVE_SECONDS)),
+            "--device", "cuda"]
+    enh_inference.main(argv)  # warm-up: the first launches of each shape
+    _, counts, wall = counted_call(enh_inference.main, argv)
+    want = expected_counts({k: v * ENH_LAYERS for k, v in ENH_ENCODE.items()},
+                           1)
+    check_launches("enh_inference", counts, want)
+    audio = sum(ENH_SERVE_SECONDS)
+    model, _ = enh_inference.load_enh_experiment(exp, device="cuda")
+    mix, lens = serve_batch
+    t_frames = (mix.shape[1] - 20) // 10 + 1
+    with torch.no_grad():
+        waves = {}
+        for route in (True, False):
+            model.set_use_kernels(route)
+            waves[route] = model.forward_enhance(mix, lens)[0]
+        torch.cuda.synchronize()
+    err = float((waves[True] - waves[False]).abs().max())
+    if not torch.isfinite(waves[True]).all() or err > ENH_WAVE_TOL:
+        raise AssertionError(f"enh serve: kernel vs plain waves {err:.3e}")
+    log("enh", f"serve enh_inference conformer 4 mixtures "
+        f"{'/'.join(str(s) for s in ENH_SERVE_SECONDS)} s (one batch, "
+        f"T'={t_frames}): wall {wall:.2f}s, RTF {wall / audio:.4f}; "
+        f"float32 waves kernels vs plain max |err| {err:.3e} (limit "
+        f"{ENH_WAVE_TOL}); launches exact [{smi}]")
+    del model, waves
+    torch.cuda.empty_cache()
+    return counts
+
+
+def enh_clis(torch, np, smi, ws, device="cuda", model_args=""):
+    """On a synthetic corpus (`generate_mixture_corpus`), a one-layer
+    conformer separator at full width: in process `enh_train` (exact
+    launches) -> `enh_inference` -> `enh_scoring`; then `run_enh` stages
+    1-7, which runs those CLIs as subprocesses, and its RESULTS.md.
+    (device="cpu" with `model_args`, flags that shrink the model,
+    rehearses it without a card.)"""
+    import shlex
+
+    from espnet_tpu_torch.bin import enh_inference, enh_scoring, enh_train
+    from espnet_tpu_torch.data.dataset import EnhDataset
+    from espnet_tpu_torch.data.synth import generate_mixture_corpus
+    from espnet_tpu_torch.recipe_enh import RecipeEnh, RecipeEnhConfig
+    from espnet_tpu_torch.tasks.enh import EnhDataConfig, make_batches
+
+    t0 = time.perf_counter()
+    train, test = ws / "cli" / "train", ws / "cli" / "test"
+    generate_mixture_corpus(train, n_utts=8, seed=0)
+    generate_mixture_corpus(test, n_utts=3, seed=5)
+    exp = ws / "cli" / "exp"
+    args = f"{ENH_CLI_ARGS} {model_args}"
+    _, counts, wall = counted_call(enh_train.main, shlex.split(args) + [
+        "--run.output_dir", str(exp), "--data.train_dir", str(train),
+        "--data.valid_dir", str(train), "--device", device])
+    n = len(make_batches(EnhDataset(train), EnhDataConfig(batch_size=4)))
+    per = 1 if device == "cuda" else 0
+    step = {k: per * v // ENH_LAYERS
+            for k, v in ENH_STEP["conformer"].items()}
+    want = expected_counts(step, n)
+    for k, v in ENH_ENCODE.items():
+        want[k] += per * v * n  # the valid pass
+    check_launches("enh_train", counts, want)
+    sep = ws / "cli" / "sep"
+    enh_inference.main(["--exp_dir", str(exp), "--data_dir", str(test),
+                        "--output_dir", str(sep), "--device", device])
+    enh_scoring.main(sum((["--ref_scp", str(test / f"spk{i}.scp")]
+                          for i in (1, 2)), []) + sum(
+        (["--inf_scp", str(sep / f"spk{i}.scp")] for i in (1, 2)), [])
+        + ["--output_dir", str(ws / "cli" / "score")])
+    results = (ws / "cli" / "score" / "RESULTS").read_text().split("\n")
+    log("enh", f"cli enh_train ({n} batches, {wall:.1f}s, launches exact) "
+        f"-> enh_inference -> enh_scoring: {'; '.join(r for r in results if r)}"
+        f" [{smi}]")
+    cfg = RecipeEnhConfig(expdir=str(ws / "recipe" / "exp"),
+                          datadir=str(ws / "recipe" / "data"), synth_utts=8,
+                          enh_args=args)
+    t = time.perf_counter()
+    RecipeEnh(cfg, device=device).run()
+    rexp = ws / "recipe" / "exp"
+    missing = [s for s in range(1, 8) if not (rexp / f".stage{s}.done")
+               .exists()]
+    if missing or not (rexp / "RESULTS.md").exists():
+        raise AssertionError(f"run_enh: stages {missing} not done")
+    log("enh", f"run_enh stages 1-7 {time.perf_counter() - t:.1f}s"
+        f": {(rexp / 'results.json').read_text().split()[:8]}; clis "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def phase_enh(torch, np, smi):
+    """The enhancement slice: the kernels at its shapes; the conformer
+    separator's float32 train step with kernels against plain; timed train
+    steps of the conformer (plain and whole-module conv routes), the
+    transformer and the TCN separators in float32 and bf16; every other
+    separator type at reduced depth; `enh_inference` serving; the CLIs and
+    `run_enh`. Returns (the new kernel rows' results, the launches by
+    path)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    ws = Path(tempfile.mkdtemp(prefix="chip_smoke_enh_"))
+    try:
+        serve_batch = enh_serve_batch(torch, np, ws / "serve")
+        rows = enh_kernels(torch, np, serve_batch)
+        enh_parity(torch, np, smi)
+        launches = {}
+        for name, sep, module in (("conformer", "conformer", False),
+                                  ("conformer_conv_module", "conformer",
+                                   True),
+                                  ("transformer", "transformer", False),
+                                  ("tcn", "tcn", False)):
+            for dtype in ("float32",) if module else ("float32",
+                                                      "bfloat16"):
+                got = enh_timed(torch, np, smi, name, dtype, sep, module,
+                                ENH_STEP[name])
+                if dtype == "float32":
+                    launches[f"enh_{name}"] = got
+        enh_others(torch, np, smi)
+        launches["enh_serve"] = enh_serve(torch, np, smi, ws, serve_batch)
+        enh_clis(torch, np, smi, ws)
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+    log("enh", f"phase {time.perf_counter() - t0:.1f}s")
+    return rows, launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5866,6 +6426,9 @@ def main() -> int:
         torch, np, smi)
     results["flash_attention_d96"], launches["vits"] = phase_gan(
         torch, np, smi)
+    enh_rows, enh_launches = phase_enh(torch, np, smi)
+    results.update(enh_rows)
+    launches.update(enh_launches)
     results.update(rnnt_results)
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

@@ -90,6 +90,16 @@ parameters and running statistics back as such a dict. A param tree
 without `batch_stats` (the JAX package's `ep<N>.params.msgpack`) leaves
 the model's running statistics as they are, as the JAX package's TTS
 inference starts from the initial ones (ROADMAP.md queue 3).
+
+The enhancement trees (`models/enh/`) add raw leaves: flax's PReLU slope
+`negative_slope` (a scalar), gLN and cLN's `gamma` / `beta`, DAN's
+`attractor_init`, DCCRN's transposed-conv `kernel_r`, `kernel_i`,
+`bias_r`, `bias_i` and iNeuBe's `last_kernel`, `last_bias`,
+`norm_scale`, `norm_bias` (the 4-D ones in flax's (kh, kw, in, out)
+layout, which the modules read as it is). A flax transposed conv's kernel
+(k, in, out) becomes (out, in, k) as every 3-D kernel; the port's
+`ConvTranspose1d` flips it. DC-CRN's and DCCRN's BatchNorm statistics are
+the `batch_stats` collection, as TTS's.
 """
 
 from __future__ import annotations
@@ -114,7 +124,10 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 # raw parameters carried without a layout change
 RAW_LEAVES = ("bias", "pos_bias_u", "pos_bias_v", "log_neg_a_re", "a_im",
               "log_dt", "c_re", "c_im", "d", "low_hz", "band_hz", "gvec",
-              "layer_weights", "mask_emb", "positions", "tokens", "pos_alpha")
+              "layer_weights", "mask_emb", "positions", "tokens", "pos_alpha",
+              "negative_slope", "gamma", "beta", "attractor_init",
+              "kernel_r", "kernel_i", "bias_r", "bias_i", "last_kernel",
+              "last_bias", "norm_scale", "norm_bias")
 # modules whose 2-D `weight` is an embedding table
 EMBEDDINGS = ("embed", "embed_tokens", "sid_emb", "lid_emb", "global_emb",
               "lang_emb")
@@ -237,7 +250,7 @@ def torch_to_jax_tree(tensors: Mapping[str, torch.Tensor],
             leaf, _ = _leaf(parts[-1], np.asarray(value))
             t = tensors[".".join(parts[:-1] + [leaf])]
             arr = t.detach().cpu().float().numpy()
-            out[key] = np.ascontiguousarray(_unleaf(parts[-1], arr))
+            out[key] = np.array(_unleaf(parts[-1], arr), order="C")
         return out
 
     return build(like, "")
@@ -288,7 +301,8 @@ def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor],
             cur = cur.setdefault(p, {})
         if leaf in cur:
             raise ValueError(f"two port leaves map to {key}")
-        cur[leaf] = np.ascontiguousarray(arr, dtype=np.float32)
+        # np.array, not ascontiguousarray: it keeps a scalar's shape ()
+        cur[leaf] = np.array(arr, dtype=np.float32, order="C")
     return _stack_scan(tree) if scan_layers else tree
 
 

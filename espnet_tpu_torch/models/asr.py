@@ -668,8 +668,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         owner = name.split(".")[-2]
         if name.endswith((".bias", "pos_bias_u", "pos_bias_v")):
             prm.zero_()
-        elif "norm" in owner:
-            prm.fill_(1.0)
+        elif "norm" in owner or (prm.ndim == 1
+                                  and name.endswith(".weight")):
+            prm.fill_(1.0)  # LayerNorm, BatchNorm and GroupNorm scales
         elif owner == "embed":
             prm.copy_(torch.randn(prm.shape, generator=generator))
         else:

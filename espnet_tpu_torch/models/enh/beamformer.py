@@ -1,5 +1,6 @@
-"""The ASR frontend's DNN-WPE and mask-MVDR beamformer (port of the
-`MaskEstimator`, `DNNWPE` and `DNNBeamformer` of
+"""The ASR frontend's DNN-WPE and mask-MVDR beamformer, and the
+enhancement model's waveform beamformer (port of the `MaskEstimator`,
+`DNNWPE`, `DNNBeamformer` and `BeamformerSeparator` of
 espnet_tpu/models/enh/beamformer.py).
 
 `MaskEstimator`: per-channel log1p magnitudes (B·C, T, F) through a
@@ -102,3 +103,45 @@ class DNNBeamformer(nn.Module):
         u[:, self.ref_channel] = 1.0
         enhanced = apply_beamformer(mvdr_weights(psd_s, psd_n, u), y)
         return enhanced, {"mask_spk1": mask_s, "mask_noise1": mask_n}
+
+
+class BeamformerSeparator(nn.Module):
+    """Joint WPE + MVDR front end as a waveform-to-waveform enhancer: a
+    multichannel mixture (B, n, C) is STFT'd per channel, optionally
+    dereverberated, beamformed to one channel and inverse-STFT'd:
+    ((B, 1, n), frame lengths, masks)."""
+
+    def __init__(self, n_fft: int = 512, hop_length: int = 128,
+                 use_wpe: bool = False, wpe_taps: int = 5,
+                 wpe_delay: int = 3, hidden: int = 128, num_layers: int = 2,
+                 ref_channel: int = 0, dtype=torch.float32):
+        super().__init__()
+        self.n_fft, self.hop_length, self.use_wpe = n_fft, hop_length, \
+            use_wpe
+        n_freq = n_fft // 2 + 1
+        if use_wpe:
+            self.wpe = DNNWPE(n_freq, wpe_taps, wpe_delay, hidden, 1,
+                              dtype=dtype)
+        self.beamformer = DNNBeamformer(n_freq, hidden, num_layers,
+                                        ref_channel, dtype)
+
+    def forward(self, speech_mix, lengths, generator=None):
+        from espnet_tpu_torch.ops.stft import (istft, stft,
+                                               stft_frames_lengths)
+
+        b, n, c = speech_mix.shape
+        flat = speech_mix.transpose(1, 2).reshape(b * c, n)
+        real, imag = stft(flat, self.n_fft, self.hop_length)
+        t, f = real.shape[1], real.shape[2]
+        y = torch.complex(real, imag).reshape(b, c, t, f).permute(0, 3, 1, 2)
+        others = {}
+        if self.use_wpe:
+            y, others["mask_dereverb1"] = self.wpe(y)
+        enhanced, masks = self.beamformer(y)
+        others.update(masks)
+        spec = enhanced.transpose(1, 2)
+        wav = istft(spec.real, spec.imag, self.n_fft, self.hop_length)
+        wav = (wav[:, :n] if wav.shape[1] >= n
+               else nn.functional.pad(wav, (0, n - wav.shape[1])))
+        flens = stft_frames_lengths(lengths, self.n_fft, self.hop_length)
+        return wav[:, None, :], flens, others

@@ -247,20 +247,30 @@ def conv_transpose_padding(kernel: int, stride: int) -> Tuple[int, int]:
     return before, pad_len - before
 
 
+def conv_transpose_valid_padding(kernel: int, stride: int
+                                 ) -> Tuple[int, int]:
+    """lax.conv_transpose's "VALID" padding (before, after) of the
+    stride-dilated input: L*stride + max(kernel - stride, 0) outputs."""
+    before = kernel - 1
+    return before, kernel + stride - 2 + max(kernel - stride, 0) - before
+
+
 class ConvTranspose1d(nn.Module):
-    """flax `nn.ConvTranspose` with "SAME" padding and the default
-    transpose_kernel=False over (N, L, C): lax dilates the input by the
-    stride, pads it by `conv_transpose_padding` and correlates it with the
-    kernel as it is (not flipped, in and out not swapped), giving L*stride
-    outputs. Here: torch's conv_transpose1d with the kernel flipped along K
-    and its axes swapped, then the full output cropped (or zero-padded) to
-    lax's window. `weight` is (out, in, k), the layout the converter gives
-    a flax (k, in, out) kernel; computed in `dtype`."""
+    """flax `nn.ConvTranspose` with "SAME" (or "VALID") padding and the
+    default transpose_kernel=False over (N, L, C): lax dilates the input by
+    the stride, pads it by `conv_transpose_padding` (or
+    `conv_transpose_valid_padding`) and correlates it with the kernel as it
+    is (not flipped, in and out not swapped), giving L*stride outputs
+    ("SAME"), computed by `lax_conv_transpose`. `weight` is (out, in, k),
+    the layout the converter gives a flax (k, in, out) kernel; computed in
+    `dtype`."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int, stride: int,
-                 bias: bool = True, dtype=torch.float32):
+                 bias: bool = True, dtype=torch.float32,
+                 padding: str = "SAME"):
         super().__init__()
         self.kernel, self.stride = kernel, stride
+        self.padding = padding
         self.weight = nn.Parameter(torch.empty(c_out, c_in, kernel))
         self.bias = nn.Parameter(torch.zeros(c_out)) if bias else None
         self.compute_dtype = dtype
@@ -268,15 +278,10 @@ class ConvTranspose1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        w = self.weight.to(dt).permute(1, 0, 2).flip(-1)
-        y = nn.functional.conv_transpose1d(x.to(dt).transpose(1, 2), w,
-                                           stride=self.stride)
-        before, after = conv_transpose_padding(self.kernel, self.stride)
-        left, right = self.kernel - 1 - before, self.kernel - 1 - after
-        y = nn.functional.pad(y, (-left, -right))  # negative pad crops
-        if self.bias is not None:
-            y = y + self.bias.to(dt)[:, None]
-        return y.transpose(1, 2)
+        pad = (conv_transpose_padding if self.padding == "SAME"
+               else conv_transpose_valid_padding)(self.kernel, self.stride)
+        y = lax_conv_transpose(x, self.weight, (self.stride,), [pad], dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 def avg_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
@@ -286,3 +291,63 @@ def avg_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     h = nn.functional.pad(x.transpose(1, 2),
                           same_padding(x.shape[1], window, stride))
     return nn.functional.avg_pool1d(h, window, stride).transpose(1, 2)
+
+
+class PReLU(nn.Module):
+    """flax `nn.PReLU`: one scalar slope `negative_slope` (initialised at
+    0.01, not torch's per-channel 0.25); x where x >= 0, else slope * x."""
+
+    def __init__(self):
+        super().__init__()
+        self.negative_slope = nn.Parameter(torch.tensor(0.01))
+
+    @torch.no_grad()
+    def init_random_(self, generator=None):
+        self.negative_slope.fill_(0.01)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.negative_slope * x)
+
+
+def lax_conv_transpose(x: torch.Tensor, w: torch.Tensor, strides,
+                       padding, dtype=None) -> torch.Tensor:
+    """flax's transposed conv (transpose_kernel=False), 1-D or 2-D, over
+    channel-last x (N, *spatial, C) with a torch-layout kernel w
+    (out, in, *k): lax dilates x by `strides`, pads it by `padding`
+    ((lo, hi) per axis) and correlates it with w as it is. Here: torch's
+    conv_transpose with w flipped along every spatial axis and its in and
+    out swapped, then the full output cropped by k - 1 - lo and k - 1 - hi
+    on each axis (zero-padded where that is negative). Computed in `dtype`
+    (w's when None); returns (N, *spatial', out)."""
+    nd = x.ndim - 2
+    dt = dtype or w.dtype
+    v = w.to(dt).transpose(0, 1).flip(tuple(range(2, 2 + nd)))
+    conv_t = (nn.functional.conv_transpose1d if nd == 1
+              else nn.functional.conv_transpose2d)
+    y = conv_t(x.to(dt).movedim(-1, 1), v, stride=tuple(strides))
+    crop = []
+    for k, (lo, hi) in reversed(list(zip(w.shape[2:], padding))):
+        crop += [lo - (k - 1), hi - (k - 1)]
+    return nn.functional.pad(y, crop).movedim(1, -1)  # negative pad crops
+
+
+def lax_conv(x: torch.Tensor, w: torch.Tensor, strides=None, padding=None,
+             rhs_dilation=None, groups: int = 1,
+             dtype=None) -> torch.Tensor:
+    """`lax.conv_general_dilated` without input dilation over channel-last
+    x (N, *spatial, C) with a torch-layout kernel w (out, in/groups, *k),
+    1-D or 2-D: x padded by `padding` ((lo, hi) per axis; a negative side
+    crops) and correlated with w as it is. Computed in `dtype` (w's when
+    None); returns (N, *spatial', out)."""
+    nd = x.ndim - 2
+    dt = dtype or w.dtype
+    h = x.to(dt).movedim(-1, 1)
+    if padding is not None:
+        flat = []
+        for lo, hi in reversed(list(padding)):
+            flat += [lo, hi]
+        h = nn.functional.pad(h, flat)
+    conv = nn.functional.conv1d if nd == 1 else nn.functional.conv2d
+    y = conv(h, w.to(dt), None, tuple(strides or (1,) * nd), 0,
+             tuple(rhs_dilation or (1,) * nd), groups)
+    return y.movedim(1, -1)

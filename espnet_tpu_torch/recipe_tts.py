@@ -20,19 +20,12 @@ import json
 import logging
 import shlex
 import subprocess
-import sys
 from pathlib import Path
-from typing import List, Sequence
+from typing import List
+
+from espnet_tpu_torch.recipe import _run_cli
 
 logger = logging.getLogger("espnet_tpu")
-
-
-def _run_cli(module: str, args: Sequence[str]) -> None:
-    cmd = [sys.executable, "-m", module, *args]
-    logger.info("run: %s", " ".join(shlex.quote(a) for a in cmd))
-    proc = subprocess.run(cmd)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{module} failed with rc={proc.returncode}")
 
 
 @dataclasses.dataclass

@@ -26,6 +26,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -1573,3 +1574,101 @@ def test_gan_tts_step_takes_its_kernels_on_the_card(cuda, family, want):
     stats, counts = _gan_step(cuda, family)
     assert counts == want
     assert all(np.isfinite(float(v)) for v in stats.values())
+
+
+# --- the enhancement slice: the conformer and transformer separators -------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,lengths", [(2, 3199, (3199, 1600)),
+                                         (1, 6399, (6399,))])
+def test_relpos_at_the_separator_lengths_matches_plain(cuda, dtype, b, t,
+                                                       lengths):
+    """The conformer separator's T'=3199 (2 s chunks, forward and
+    backward) and serve's 6399 (a 4 s mixture, forward)."""
+    args = _relpos_args(cuda, dtype, b=b, t=t, lengths=lengths)
+    if t > 4000:
+        with torch.no_grad():
+            got = trel.relpos_attention(*args)
+            want = trel.relpos_attention_plain(*args)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        return
+    gout = torch.randn(args[0].shape, generator=torch.Generator()
+                       .manual_seed(t)).to(cuda, dtype)
+    got_y, got = _grads(trel.relpos_attention, args, range(6), gout)
+    want_y, want = _grads(trel.relpos_attention_plain, args, range(6), gout)
+    torch.testing.assert_close(got_y.float(), want_y.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    for name, g, w in zip(("q", "k", "v", "p", "u", "vb"), got, want):
+        _assert_grad_close(name, g, w, dtype)
+
+
+def _enh_step(cuda, separator, conv_module=False):
+    """A float32 forward and backward of an EnhancementModel (conv encoder
+    256/20/10, one layer at d 256, F 1024, k 15) on 2 x 0.5 s, kernels and
+    plain on the same parameters and dropout draws: (losses, gradients,
+    the kernel route's launches). The masks are sigmoids: the default
+    ReLU's gradient jumps where a mask logit lies within rounding of 0:
+    on the card two of these 818,176 logits fell on the other side of 0
+    in the other route (8.8e-7 against -1.7e-7), which moved every
+    gradient upstream of them by ~1%, the rest agreeing to 4.4e-6."""
+    from espnet_tpu_torch.models.asr import init_random_
+    from espnet_tpu_torch.models.conformer import ConformerBlock
+    from espnet_tpu_torch.models.enh import EnhancementModel, EnhConfig
+    from espnet_tpu_torch.ops import launches
+
+    model = EnhancementModel(EnhConfig(separator_type=separator,
+                                       trans_layers=1, nonlinear="sigmoid"))
+    init_random_(model, torch.Generator().manual_seed(3))
+    model.to(cuda).train()
+    for block in model.modules():
+        if isinstance(block, ConformerBlock):
+            block.fused_conv = conv_module
+    rng = np.random.RandomState(4)
+    mix = torch.from_numpy((0.3 * rng.randn(2, 8000)).astype(np.float32))
+    ref = torch.from_numpy((0.3 * rng.randn(2, 8000, 2)).astype(np.float32))
+    lens = torch.tensor([8000, 6000])
+    out = []
+    for route in (True, False):
+        model.set_use_kernels(route)
+        model.zero_grad(set_to_none=True)
+        wrappers = launches.reset()
+        loss, _ = model(mix.to(cuda), lens.to(cuda), ref.to(cuda),
+                        generator=torch.Generator(device=cuda).manual_seed(5))
+        loss.backward()
+        torch.cuda.synchronize()
+        out.append((loss.detach(), {n: p.grad.clone() for n, p in
+                                    model.named_parameters()},
+                    {k: w.launches for k, w in wrappers.items()
+                     if w.launches}))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("separator,conv_module,want", [
+    ("conformer", False, {"relpos_attention": 1, "relpos_attention_bwd": 1,
+                          "prenorm_ffn": 2, "prenorm_ffn_bwd": 2}),
+    ("conformer", True, {"relpos_attention": 1, "relpos_attention_bwd": 1,
+                         "prenorm_ffn": 2, "prenorm_ffn_bwd": 2,
+                         "conv_module": 1, "conv_module_bwd": 1}),
+    ("transformer", False, {"flash_attention": 1, "prenorm_ffn": 1,
+                            "prenorm_ffn_bwd": 1})])
+def test_enh_separator_step_takes_its_kernels_on_the_card(
+        cuda, separator, conv_module, want):
+    """The loss to 1e-4; every gradient's error (L2) to 1e-3 of its own
+    norm, but the key projection's bias: its gradient is exactly 0
+    (softmax is invariant to a shift along the keys), so both routes give
+    rounding noise, held to 1e-4 of the model's largest gradient entry."""
+    (lk, gk, ck), (lp, gp, cp) = _enh_step(cuda, separator, conv_module)
+    assert ck == want and cp == {}
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    top = max(float(w.abs().max()) for w in gp.values())
+    for name, w in gp.items():
+        g = gk[name]
+        if name.endswith("self_attn.k_proj.bias"):
+            tiny = max(float(g.abs().max()), float(w.abs().max()))
+            assert tiny <= 1e-4 * top, (name, tiny, top)
+            continue
+        err = float((g - w).double().norm() / w.double().norm())
+        assert err <= 1e-3, (name, err)

@@ -101,7 +101,11 @@ def test_port_files_found():
             "vocoders.py", "wavenet.py", "vits.py", "jets.py",
             "gan_steps.py", "vocoder.py", "vocoder_train.py",
             "vits_train.py", "vits_inference.py", "jets_train.py",
-            "jets_inference.py"} <= names
+            "jets_inference.py", "enh_losses.py", "separators.py",
+            "dc_crn.py", "dccrn.py", "dpcl_e2e.py", "svoice.py",
+            "fasnet.py", "ineube.py", "se_metrics.py", "pesq_py.py",
+            "enh.py", "recipe_enh.py", "enh_train.py", "enh_inference.py",
+            "enh_scoring.py", "run_enh.py"} <= names
 
 
 _NO_CARD_SCRIPT = r"""
@@ -141,8 +145,9 @@ for make in (lambda d: make_train_step(model, tx, device=d),
         else:
             raise SystemExit(f"device={device!r} did not raise without a card")
     make("cpu")
-from espnet_tpu_torch.bin import (asr_inference, asr_train, jets_inference,
-                                  jets_train, run, vits_inference, vits_train,
+from espnet_tpu_torch.bin import (asr_inference, asr_train, enh_inference,
+                                  enh_train, jets_inference, jets_train, run,
+                                  run_enh, vits_inference, vits_train,
                                   vocoder_train)
 decode = ["--exp_dir", "unused", "--data_dir", "unused", "--output_dir",
           "unused"]
@@ -155,7 +160,11 @@ clis = (lambda extra: asr_train.main(["--run.output_dir", "unused"] + extra),
         lambda extra: vits_train.main(["--run.output_dir", "unused"] + extra),
         lambda extra: jets_train.main(["--run.output_dir", "unused"] + extra),
         lambda extra: vits_inference.main(decode + extra),
-        lambda extra: jets_inference.main(decode + extra))
+        lambda extra: jets_inference.main(decode + extra),
+        lambda extra: enh_train.main(["--run.output_dir", "unused"] + extra),
+        lambda extra: enh_inference.main(decode + extra),
+        lambda extra: run_enh.main(["--recipe.expdir", "unused",
+                                    "--recipe.datadir", "unused"] + extra))
 for cli in clis:
     for extra in ([], ["--device", "cuda"]):
         try:
